@@ -15,17 +15,35 @@ ending in torch.cuda.synchronize():
    and float64 (tolerances in iqtree2_tpu_torch/kernelcheck.py), timed;
 4. the golden run through the CLI, -s tests/golden/example.phy -m GTR+G
    -te tests/golden/ref_tree.nwk, in float64 (logL within 0.5 of the
-   reference IQ-TREE's) and float32 (finite, within 10); every kernel's
-   launch count is reset just before the float64 run and must be above 0
-   just after it;
-5. the main path at a realistic size: 1000 taxa x 16384 sites simulated
-   under GTR+G4 (seed 1) and fitted through the CLI in float32, with the
-   launch counts reset just before and read just after; then each kernel
-   against its plain version at that problem's shapes, timed.
+   reference IQ-TREE's) and float32 (finite, within 10); the launch counts
+   of the float64 run are printed: the joint model fit it runs is
+   differentiated plain torch and launches no pruning kernel, as the JAX
+   package's runs no Pallas kernel;
+5. the fixed-topology fit at a realistic size: 1000 taxa x 16384 sites
+   simulated under GTR+G4 (seed 1) and fitted through the CLI in float32
+   (too large for the joint fit, so the host alternation runs the
+   kernels), with the launch counts reset just before and read just after;
+   then each kernel against its plain version at that problem's shapes,
+   timed;
+6. the flagship, this slice's main path: -s tests/golden/example.phy
+   -m GTR+G -bb 1000 through the CLI in float32 at the default search
+   settings, launch counts reset just before and read just after; logL at
+   least the reference topology's fit - 0.5, .contree, .splits.nex, 1000
+   replicate trees in .ufboot, integer supports in .treefile, every kernel
+   launched; wall time, iterations and the split of the wall are printed;
+   then each kernel against its plain version at the flagship's shapes
+   (example.phy in float32 under GTR+G4, at the reference topology and at
+   the tree the search returned);
+7. the NNI hill-climb at the realistic width: phase 5's problem, the
+   simulating tree moved by 19 random NNIs, search/nni.nni_optimize on the
+   card in float32 with the site log-likelihoods; the wall of each fused
+   round, the peak device memory (under 40 GiB) and the launches are
+   printed, and the final logL must be finite and no lower than the start
+   tree's after optimize_branches.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
-phase-5 fit, times from the phase-5 check); the last line is
+phase-6 flagship, times from the phase-5 check); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -33,6 +51,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +75,8 @@ REPLACES = {
 }
 CHECK_TAXA, CHECK_SITES = 64, 4096
 BIG_TAXA, BIG_SITES = 1000, 16384
+FLAGSHIP_REPLICATES = 1000
+MAX_CLIMB_GIB = 40.0
 
 
 def fail(msg: str) -> int:
@@ -68,6 +89,50 @@ def report_logl(prefix: Path) -> float:
         if line.startswith("Log-likelihood of the tree:"):
             return float(line.split(":")[1].split()[0])
     raise RuntimeError(f"no logL in {prefix}.iqtree")
+
+
+def log_lines(prefix: Path) -> str:
+    return Path(f"{prefix}.log").read_text()
+
+
+def check_flagship(prefix: Path, bound: float) -> float:
+    """Phase 6's output checks; returns the logL."""
+    logl = report_logl(prefix)
+    if not logl >= bound:
+        raise RuntimeError(f"flagship logL {logl} below {bound}")
+    for ext in (".contree", ".splits.nex", ".ufboot", ".treefile"):
+        if not Path(f"{prefix}{ext}").stat().st_size:
+            raise RuntimeError(f"flagship {ext} is empty")
+    n_boot = len(Path(f"{prefix}.ufboot").read_text().splitlines())
+    if n_boot != FLAGSHIP_REPLICATES:
+        raise RuntimeError(f".ufboot holds {n_boot} trees, not "
+                           f"{FLAGSHIP_REPLICATES}")
+    labels = re.findall(r"\)([^:,();]*)", Path(f"{prefix}.treefile")
+                        .read_text())
+    if not labels or not all(lab.isdigit() for lab in labels[:-1]):
+        raise RuntimeError(f"support labels are not integers: {labels}")
+    return logl
+
+
+def climb(eng, tree, rounds: list) -> tuple:
+    """search/nni.nni_optimize with want_lp, each fused round timed on the
+    host (its results come back to the host, which waits for the card)."""
+    import torch
+    from iqtree2_tpu_torch.search.nni import nni_optimize
+    fused = eng.optimize_and_evaluate_nnis
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = fused(*args, **kw)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+        return out
+
+    eng.optimize_and_evaluate_nnis = timed
+    try:
+        return nni_optimize(eng, tree, want_lp=True)
+    finally:
+        del eng.optimize_and_evaluate_nnis
 
 
 def run_cli(args: list[str]) -> float:
@@ -111,6 +176,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: no GPU")
     sys.path.insert(0, str(ROOT))
+    import numpy as np
     from iqtree2_tpu_torch import kernelcheck
     from iqtree2_tpu_torch.engine import LikelihoodEngine
     from iqtree2_tpu_torch.ops import kernels
@@ -154,11 +220,9 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     logl64 = report_logl(OUT / "golden_f64")
     print(f"[phase 4] golden f64: logL {logl64:.4f} (reference {g4}) in "
-          f"{wall:.1f} s; launches {launches}", flush=True)
+          f"{wall:.1f} s; launches {launches} (joint fit)", flush=True)
     if not abs(logl64 - g4) <= 0.5:
         return fail(f"float64 golden logL {logl64} not within 0.5 of {g4}")
-    if not all(v > 0 for v in launches.values()):
-        return fail(f"a kernel of the path was never launched: {launches}")
     wall = run_cli(gargs + ["-pre", str(OUT / "golden_f32")])
     logl32 = report_logl(OUT / "golden_f32")
     print(f"[phase 4] golden f32: logL {logl32:.4f} in {wall:.1f} s",
@@ -192,6 +256,57 @@ def main() -> int:
                            device="cuda")
     timed = {r["name"]: r for r in check_kernels(
         "[phase 5] GTR+G4", eng, tree, 3, errors)}
+
+    # 6. the flagship: tree search with ultrafast bootstrap
+    flag = OUT / "flagship"
+    kernels.reset_launch_counts()
+    wall = run_cli(["-s", str(GOLDEN / "example.phy"), "-m", "GTR+G",
+                    "-bb", str(FLAGSHIP_REPLICATES), "-pre", str(flag)])
+    launches = dict(kernels.LAUNCHES)
+    logl = check_flagship(flag, g4 - 0.5)
+    text = log_lines(flag)
+    iters = re.search(r"Search done: (\d+) iterations", text).group(1)
+    split = re.search(r"Wall seconds: (.*)", text).group(1)
+    print(f"[phase 6] flagship -m GTR+G -bb {FLAGSHIP_REPLICATES} f32, "
+          f"default settings: logL {logl:.4f} (bound {g4 - 0.5:.4f}) in "
+          f"{wall:.1f} s, {iters} iterations; wall seconds: {split}; "
+          f"launches {launches}", flush=True)
+    if not all(v > 0 for v in launches.values()):
+        return fail(f"a kernel of the path was never launched: {launches}")
+    for tag, tree_path in (("reference tree", GOLDEN / "ref_tree.nwk"),
+                           ("search's tree", Path(f"{flag}.treefile"))):
+        f_aln, f_tree, f_model, f_rates = kernelcheck.load_problem(
+            GOLDEN / "example.phy", tree_path, "GTR+G4")
+        f_eng = LikelihoodEngine(f_aln, f_model, f_rates,
+                                 dtype=torch.float32, device="cuda")
+        check_kernels(f"[phase 6] GTR+G4 {tag}", f_eng, f_tree, 3, errors)
+
+    # 7. the NNI hill-climb at the realistic width
+    start, n_moves = kernelcheck.perturbed(tree, seed=2, strength=0.02)
+    polished = start.copy()
+    l_start = eng.optimize_branches(polished)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rounds: list = []
+    t0 = time.perf_counter()
+    res, lp = climb(eng, start, rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    climb_launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[phase 7] NNI climb {aln.ntaxa} x {aln.nsites} f32 from "
+          f"{n_moves} random NNIs: logL {res.logL:.4f} (start after "
+          f"optimize_branches {l_start:.4f}), {res.n_rounds} rounds, "
+          f"{res.n_applied_total} swaps, {wall:.2f} s; fused rounds s "
+          f"{[round(r, 3) for r in rounds]}; peak device memory {peak:.2f} "
+          f"GiB; launches {climb_launches}", flush=True)
+    if not (math.isfinite(res.logL) and res.logL >= l_start):
+        return fail(f"climb logL {res.logL} below the start {l_start}")
+    if not (lp.shape == (aln.num_patterns,) and np.isfinite(lp).all()):
+        return fail("climb site log-likelihoods are not finite")
+    if not peak < MAX_CLIMB_GIB:
+        return fail(f"climb peak device memory {peak:.2f} GiB")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,

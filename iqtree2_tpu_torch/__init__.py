@@ -6,8 +6,11 @@ its likelihood path with torch tensors and four hand-written CUDA kernels
 host modules (alignment, models, tree schedule, I/O, host optimizers). It
 imports torch and never jax.
 
-Ported so far: the fixed-topology model fit,
-``python -m iqtree2_tpu_torch -s ALN -m MODEL -te TREE``.
+Ported so far, for reversible models: the fixed-topology model fit
+(``python -m iqtree2_tpu_torch -s ALN -m MODEL -te TREE``) and the
+stochastic tree search with ultrafast bootstrap
+(``python -m iqtree2_tpu_torch -s ALN -m MODEL [-bb N]``), both with the
+joint model fit of model/torchfit.py.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,15 @@
-"""Fixed-topology analysis (counterpart of the ``-te`` branch of
-iqtree2_tpu/analysis.py:run_analysis).
+"""Single-alignment analysis (counterpart of iqtree2_tpu/analysis.py's
+run_analysis for what the port covers).
 
-Flow: read the alignment, build the model, build the engine, fit the model
-and branch lengths on the user tree (or, under -blfix with no free model
-parameter, evaluate it), then write .treefile, .iqtree, .log and .ckp.gz
-through the shared io/report.py and utils/checkpoint.py.
+Flow: read the alignment, build the model and the engine; then either fit
+the model and branch lengths on a fixed topology (-te; under -blfix only
+the model parameters), or run the stochastic tree search: a quick model
+fit on a stepwise-addition tree, the search (optionally collecting UFBoot
+replicates by RELL), and a thorough refit on the best tree. Outputs:
+.treefile (with UFBoot supports), .iqtree, .log and .ckp.gz, and under -bb
+also .contree, .splits.nex and .ufboot, written through the shared
+io/report.py and search/ufboot.py. The search checkpoints its state
+(search.* keys), so an interrupted run resumes where it stopped.
 """
 
 from __future__ import annotations
@@ -13,15 +18,25 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 from iqtree2_tpu.io import report as report_io
 from iqtree2_tpu.io.alignment_io import read_alignment
 from iqtree2_tpu.model.factory import build_model
+from iqtree2_tpu.ops.pars import random_stepwise_addition
 from iqtree2_tpu.params import Params
+from iqtree2_tpu.search.ufboot import UFBoot
+from iqtree2_tpu.tree.schedule import build_schedule
 from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu.utils.checkpoint import Checkpoint
+from iqtree2_tpu.utils.optimize import lbfgsb_minimize
 from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.model.optimize import optimize_model_parameters
 from iqtree2_tpu_torch.ops.prec import compute_dtype
+from iqtree2_tpu_torch.search.search import SearchParams, TreeSearch
+
+QUICK_FIT_EPS = 0.1   # the search's initial model fit (screening precision)
 
 
 class Logger:
@@ -59,8 +74,113 @@ def check_model_ported(model_str: str, model, extras: dict) -> None:
                          f"to iqtree2_tpu_torch")
 
 
+def optimize_model_only(eng: LikelihoodEngine, tree: Tree,
+                        epsilon: float) -> None:
+    """Fit the model parameters with the branch lengths held (-blfix): the
+    joint fit with the lengths frozen, else bounded L-BFGS-B on the host
+    (iqtree2_tpu.analysis._optimize_model_only)."""
+    if torchfit.try_fit(eng, tree, fix_blens=True, epsilon=epsilon) \
+            is not None:
+        return
+    model, rates = eng.model, eng.rates
+    sched = build_schedule(tree)
+    x_model = model.get_params()
+    x_rates = rates.get_params()
+    nm = len(x_model)
+    x0 = np.concatenate([x_model, x_rates])
+    if not len(x0):
+        return
+    lo_m, hi_m = model.param_bounds() if nm else (np.zeros(0), np.zeros(0))
+    lo_r, hi_r = rates.param_bounds() if len(x_rates) else \
+        (np.zeros(0), np.zeros(0))
+    lo, hi = np.concatenate([lo_m, lo_r]), np.concatenate([hi_m, hi_r])
+
+    def obj(x):
+        if nm:
+            model.set_params(x[:nm])
+        if len(x) > nm:
+            rates.set_params(x[nm:])
+        eng.refresh_model()
+        return -eng.loglik_sched(sched)
+
+    xb, _ = lbfgsb_minimize(obj, np.clip(x0, lo, hi), lo, hi)
+    obj(xb)
+
+
+def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
+                log, search_info: dict) -> tuple[Tree, float]:
+    """Quick model fit, checkpointed stochastic search, thorough refit.
+    Returns (best tree, its logL after the refit)."""
+    seconds = {"quick fit": 0.0, "start trees": 0.0, "iterations": 0.0,
+               "RELL": 0.0}
+    fin = ckp.get("search.finished")
+    if fin and not params.redo:
+        tree = Tree.from_newick(fin["tree"], aln.names)
+        search_info["Number of iterations"] = fin["iterations"]
+        log(f"Search already finished per checkpoint (logL "
+            f"{fin['logL']:.4f})")
+        if ufboot is not None and ckp.get("search.ufboot") is not None:
+            ufboot.load_state_dict(ckp.get("search.ufboot"))
+        # the model parameters moved during the search; refit them
+        optimize_model_parameters(eng, tree,
+                                  epsilon=max(params.model_eps,
+                                              QUICK_FIT_EPS))
+    else:
+        log("Performing quick initial model optimization...")
+        t0 = time.perf_counter()
+        start = random_stepwise_addition(aln,
+                                         np.random.default_rng(params.seed))
+        optimize_model_parameters(eng, start,
+                                  epsilon=max(params.model_eps,
+                                              QUICK_FIT_EPS))
+        seconds["quick fit"] = time.perf_counter() - t0
+        sp = SearchParams(
+            n_init_trees=params.n_init_trees,
+            n_nni_trees=params.n_nni_trees,
+            pop_size=params.pop_size,
+            pertub_strength=params.pertub_strength,
+            loglh_epsilon=params.loglh_epsilon,
+            seed=params.seed,
+            min_iterations=(params.min_iterations
+                            if params.n_iterations is None
+                            else params.n_iterations),
+            max_iterations=params.max_iterations,
+            unsuccess_iteration=params.unsuccess_iteration,
+            fixed_iterations=params.n_iterations)
+        search = TreeSearch(eng, aln, sp, ufboot=ufboot, log=log, ckp=ckp)
+        res = search.run()
+        tree = res.best_tree
+        seconds.update({"start trees": search.seconds["start_trees"],
+                        "iterations": search.seconds["iterations"],
+                        "RELL": search.seconds["rell"]})
+        log(f"Search done: {res.n_iterations} iterations, best logL "
+            f"{res.best_logL:.4f}")
+        search_info["Number of iterations"] = res.n_iterations
+        ckp.put("search.finished",
+                {"tree": tree.to_newick(), "logL": res.best_logL,
+                 "iterations": res.n_iterations})
+        ckp.dump(force=True)
+    t0 = time.perf_counter()
+    logL = optimize_model_parameters(eng, tree, epsilon=params.model_eps)
+    seconds["final fit"] = time.perf_counter() - t0
+    log("Wall seconds: " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in seconds.items())
+        + " (RELL is part of start trees and iterations)")
+    return tree, logL
+
+
+def _write_ufboot(prefix: str, ufboot: UFBoot) -> None:
+    report_io.write_treefile(f"{prefix}.contree", ufboot.consensus_tree())
+    ufboot.write_splits_nex(f"{prefix}.splits.nex")
+    with open(f"{prefix}.ufboot", "w") as f:
+        for tid in ufboot.boot_trees:
+            if tid is not None:
+                f.write(ufboot.trees_newick[tid] + "\n")
+
+
 def run_analysis(params: Params, device="cuda") -> dict:
-    """Fixed-topology model fit (-te). Returns a result summary dict."""
+    """Fixed-topology fit (-te) or tree search. Returns a result summary
+    dict."""
     t_start = time.time()
     prefix = params.prefix
     log = Logger(f"{prefix}.log", params.verbose)
@@ -82,27 +202,38 @@ def run_analysis(params: Params, device="cuda") -> dict:
         log(f"Likelihood engine: {eng.device}, {dtype}, "
             f"{eng.Pp} padded patterns")
 
-        log(f"Reading fixed topology from {params.user_tree}")
-        tree = Tree.from_newick(Path(params.user_tree).read_text(),
-                                aln.names)
-        if params.fix_branch_lengths:
-            if model.num_free_params() + rates.num_free_params():
-                raise SystemExit(
-                    "-blfix with free model parameters (the joint device "
-                    "fit, model/jaxfit.py) is not yet ported to "
-                    "iqtree2_tpu_torch; fix every parameter in the model "
-                    "string or drop -blfix")
-            logL = eng.loglik_tree(tree)
+        search_info: dict = {}
+        support = None
+        ufboot = None
+        if params.ufboot_replicates > 0:
+            ufboot = UFBoot(aln, n_replicates=params.ufboot_replicates,
+                            seed=params.seed)
+        if params.user_tree:
+            log(f"Reading fixed topology from {params.user_tree}")
+            tree = Tree.from_newick(Path(params.user_tree).read_text(),
+                                    aln.names)
+            if params.fix_branch_lengths:
+                optimize_model_only(eng, tree, params.model_eps)
+                logL = eng.loglik_tree(tree)
+            else:
+                logL = optimize_model_parameters(eng, tree,
+                                                 epsilon=params.model_eps)
         else:
-            logL = optimize_model_parameters(eng, tree,
-                                             epsilon=params.model_eps)
+            tree, logL = _run_search(params, eng, aln, ckp, ufboot, log,
+                                     search_info)
+        if ufboot is not None:
+            # integer percentages, as the reference prints UFBoot supports
+            support = {k: round(v)
+                       for k, v in ufboot.supports_for(tree).items()}
+            _write_ufboot(prefix, ufboot)
+            search_info["UFBoot replicates"] = params.ufboot_replicates
 
-        report_io.write_treefile(f"{prefix}.treefile", tree)
+        report_io.write_treefile(f"{prefix}.treefile", tree, support=support)
         elapsed = time.time() - t_start
         report_io.write_iqtree_report(
             f"{prefix}.iqtree", params=params, aln=aln, model=model,
-            rates=rates, tree=tree, logL=logL, search_info={},
-            model_selection=None, support=None, elapsed=elapsed,
+            rates=rates, tree=tree, logL=logL, search_info=search_info,
+            model_selection=None, support=support, elapsed=elapsed,
             tree_tests=None)
         ckp.put("finished", True)
         ckp.dump(force=True)
@@ -111,4 +242,4 @@ def run_analysis(params: Params, device="cuda") -> dict:
     finally:
         log.close()
     return {"logL": logL, "tree": tree, "model": model, "rates": rates,
-            "elapsed": elapsed}
+            "support": support, "elapsed": elapsed}

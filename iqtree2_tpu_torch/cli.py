@@ -1,14 +1,17 @@
 """Command line of the PyTorch/CUDA port (counterpart of iqtree2_tpu/cli.py).
 
-  python -m iqtree2_tpu_torch -s ALN -m MODEL -te TREE [--f64]
+  python -m iqtree2_tpu_torch -s ALN -m MODEL [-te TREE [-blfix]]
+                              [-bb N] [-n N] [-nstop N] [-ninit N]
+                              [-ntop N] [-nbest N] [-pers X] [--f64]
                               [--device cuda|cpu]
 
 The flags are the JAX package's (its build_parser and params_from_args are
 reused) plus ``--device``, the counterpart of IQTREE2_TPU_PLATFORM: ``cuda``
 (the default) runs the Hopper kernels and fails where there is no card;
 ``cpu`` runs their plain PyTorch versions. The port runs the fixed-topology
-model fit; any flag whose path is not yet ported stops the run with a
-SystemExit that names it, so nothing is silently ignored.
+model fit (-te) and the stochastic tree search with ultrafast bootstrap;
+any flag whose path is not yet ported stops the run with a SystemExit that
+names it, so nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -18,20 +21,22 @@ import sys
 
 from iqtree2_tpu import cli as tpu_cli
 
-# argparse destinations the fixed-topology slice honours; num_threads is
-# accepted for compatibility only, as in the JAX package
+# argparse destinations the port honours; num_threads is accepted for
+# compatibility only, as in the JAX package
 PORTED_DESTS = frozenset({
     "aln_file", "seqtype", "user_tree", "out_prefix", "model", "seed",
     "model_eps", "fix_branch_lengths", "use_f64", "redo", "quiet",
-    "num_threads", "device"})
+    "num_threads", "device", "n_iterations", "unsuccess_iteration",
+    "n_init_trees", "n_nni_trees", "pop_size", "pertub_strength",
+    "ufboot_replicates"})
 MODEL_SELECTION = ("MFP", "TEST", "MF", "TESTONLY", "AUTO", "WHTEST")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = tpu_cli.build_parser()
     p.prog = "iqtree2_tpu_torch"
-    p.description = ("PyTorch/CUDA port of iqtree2_tpu: fixed-topology "
-                     "maximum-likelihood model fit")
+    p.description = ("PyTorch/CUDA port of iqtree2_tpu: maximum-likelihood "
+                     "model fit and tree search with ultrafast bootstrap")
     p.add_argument("--device", dest="device", choices=("cuda", "cpu"),
                    default="cuda",
                    help="cuda (default): the Hopper kernels, an error where "
@@ -49,11 +54,13 @@ def refuse_unported(args: argparse.Namespace,
         default = parser.get_default(action.dest)
         if getattr(args, action.dest, default) != default:
             raise SystemExit(f"{'/'.join(action.option_strings)}: not yet "
-                             f"ported to iqtree2_tpu_torch (the port runs "
-                             f"the fixed-topology fit, -te)")
-    if not args.user_tree:
-        raise SystemExit("tree search (a run without -te) is not yet ported "
-                         "to iqtree2_tpu_torch; give a fixed topology with -te")
+                             f"ported to iqtree2_tpu_torch")
+    if args.user_tree and args.ufboot_replicates:
+        raise SystemExit("-bb/-B: the ultrafast bootstrap samples the trees "
+                         "of a search; drop -te or -bb")
+    if args.fix_branch_lengths and not args.user_tree:
+        raise SystemExit("-blfix: fixes the branch lengths of a -te tree; "
+                         "a search has none to fix")
     m = args.model.upper()
     if m in MODEL_SELECTION or "MERGE" in m:
         raise SystemExit(f"-m {args.model}: model selection is not yet ported "

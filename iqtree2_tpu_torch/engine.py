@@ -7,13 +7,17 @@ pack) through convert.py. On a CUDA device every pass runs through the
 Hopper kernels of ops/kernels.py; on the CPU through their plain versions.
 
 Ported: pattern padding, refresh_model, with_pattern_weights,
-schedule_arrays, loglik_tree/loglik_sched, site_lp, compute_passes and the
+schedule_arrays, loglik_tree/loglik_sched, site_lp, compute_passes, the
 all-branch Newton optimize_branches (the JAX "std" path; its v2 fused-theta
-path is the same math, carried here by the edge_theta kernel). The JAX
-engine's mechanisms for the TPU's remote link and compiler (_pull,
-_pack_flat, _unpack_ints, _dev_scalar, _cfg_zeros, the unrolled lax.cond,
-plan2 rings and tiles, the compile cache) have no counterpart: PyTorch runs
-eagerly and the round trips are local.
+path is the same math, carried here by the edge_theta kernel), NNI scoring
+(evaluate_nni_batch) and the fused NNI round (optimize_and_evaluate_nnis)
+with their K-tree forms. The JAX engine's mechanisms for the TPU's remote
+link and compiler (_pull, _pack_flat, _unpack_ints, _dev_scalar,
+_cfg_zeros, the flat-array packing of the fused round, the unrolled
+lax.cond, plan2 rings and tiles, the compile cache) have no counterpart:
+PyTorch runs eagerly and the round trips are local. The K-tree forms loop
+over the trees, each through the kernels, and give the serial results; a
+leading K axis in the kernels is later work.
 
 Reference analog: PhyloTree (tree/phylotree.h:343) minus the search logic.
 """
@@ -32,7 +36,7 @@ from iqtree2_tpu.tree.schedule import (TreeSchedule, build_schedule,
                                        write_blens_to_tree)
 from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu_torch.convert import pack_to_torch, sched_to_torch
-from iqtree2_tpu_torch.ops import prec, pruning
+from iqtree2_tpu_torch.ops import nni, prec, pruning
 
 DEFAULT_MIN_BLEN = 1e-6   # reference: min_branch_length (utils/tools.cpp)
 DEFAULT_MAX_BLEN = 10.0   # reference: max_branch_length
@@ -247,3 +251,85 @@ class LikelihoodEngine:
                                   self._pw, t_min, t_max, n_rounds, n_newton)
         write_blens_to_tree(tree, sched, nb.double().cpu().numpy())
         return float(logL)
+
+    # ------------------------------------------------------------------ NNI
+    def _nni_scores(self, cand_arrays, blens, dp, up, sa, t_min, t_max,
+                    nni5: bool, return_site_lp: bool = False) -> list:
+        if nni5:
+            out = nni.evaluate_nnis5(cand_arrays, blens, dp, up, sa,
+                                     self._pack, self._pw, t_min, t_max,
+                                     return_site_lp=return_site_lp)
+        else:
+            out = nni.evaluate_nnis(cand_arrays, blens, dp, up.up_in,
+                                    up.up_scale, sa, self._pack, self._pw,
+                                    t_min, t_max,
+                                    return_site_lp=return_site_lp)
+        out = [o.double().cpu().numpy() for o in out]
+        if return_site_lp:
+            out[-1] = out[-1][:, :, : self.aln.num_patterns]
+        return out
+
+    def evaluate_nni_batch(self, sched: TreeSchedule, cand_arrays,
+                           t_min: float = DEFAULT_MIN_BLEN,
+                           t_max: float = DEFAULT_MAX_BLEN,
+                           return_site_lp: bool = False, nni5: bool = False):
+        """Score every NNI candidate (both variants and the baseline) at the
+        schedule's branch lengths. Returns (logl [n, 3], t_opt [n, 3]), with
+        nni5 also t5 [n, 3, 5] (ops/nni.evaluate_nnis5), with
+        return_site_lp also per-pattern logLs [n, 3, num_patterns]."""
+        sa = self.schedule_arrays(sched)
+        blens = self._blens(sched)
+        P = pruning.transition_tensors(blens, self._pack)
+        dp, up = pruning.both_passes(P, self._tipP, sa, self._pack)
+        return tuple(self._nni_scores(cand_arrays, blens, dp, up, sa, t_min,
+                                      t_max, nni5, return_site_lp))
+
+    def optimize_and_evaluate_nnis(self, tree: Tree, sched: TreeSchedule,
+                                   cand_arrays, n_rounds: int = 4,
+                                   t_min: float = DEFAULT_MIN_BLEN,
+                                   t_max: float = DEFAULT_MAX_BLEN,
+                                   nni5: bool = False,
+                                   want_lp: bool = False):
+        """The fused NNI round: all-branch Newton (lengths written back into
+        ``tree`` and ``sched``), both passes at the optimised lengths, NNI
+        scoring, and with want_lp the optimised tree's site log-likelihoods
+        (the root_sitelp kernel).
+
+        Returns (opt_logL, logl [n, 3], t_opt [n, 3][, t5 [n, 3, 5]]
+        [, site_lp [num_patterns]])."""
+        sa = self.schedule_arrays(sched)
+        nb, logL = optimize_blens(self._blens(sched, t_min), self._tipP, sa,
+                                  self._pack, self._pw, t_min, t_max,
+                                  n_rounds, n_newton=4)
+        P = pruning.transition_tensors(nb, self._pack)
+        dp, up = pruning.both_passes(P, self._tipP, sa, self._pack)
+        out = [float(logL)] + self._nni_scores(cand_arrays, nb, dp, up, sa,
+                                               t_min, t_max, nni5)
+        if want_lp:
+            lp = pruning.site_lp(dp, P, self._tipP, self._pack)
+            out.append(lp[: self.aln.num_patterns].double().cpu().numpy())
+        nb = nb.double().cpu().numpy()
+        write_blens_to_tree(tree, sched, nb)
+        sched.blens[:] = nb
+        return tuple(out)
+
+    def optimize_and_evaluate_nnis_batch(self, trees, scheds, cand_list,
+                                         n_rounds: int = 4,
+                                         t_min: float = DEFAULT_MIN_BLEN,
+                                         t_max: float = DEFAULT_MAX_BLEN,
+                                         nni5: bool = False,
+                                         want_lp: bool = False) -> list:
+        """The fused round for K trees: a list of the serial results."""
+        return [self.optimize_and_evaluate_nnis(
+            t, s, c, n_rounds=n_rounds, t_min=t_min, t_max=t_max, nni5=nni5,
+            want_lp=want_lp) for t, s, c in zip(trees, scheds, cand_list)]
+
+    def optimize_branches_batch(self, trees, n_rounds: int = 4,
+                                n_newton: int = 4,
+                                t_min: float = DEFAULT_MIN_BLEN,
+                                t_max: float = DEFAULT_MAX_BLEN) -> list:
+        """optimize_branches for K trees (lengths written back in place);
+        returns their logLs."""
+        return [self.optimize_branches(t, n_rounds=n_rounds,
+                                       n_newton=n_newton, t_min=t_min,
+                                       t_max=t_max) for t in trees]

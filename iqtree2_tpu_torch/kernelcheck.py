@@ -31,8 +31,9 @@ import numpy as np
 import torch
 
 from iqtree2_tpu.data.alignment import Alignment
-from iqtree2_tpu.io.alignment_io import write_phylip
+from iqtree2_tpu.io.alignment_io import read_alignment, write_phylip
 from iqtree2_tpu.model.factory import build_model
+from iqtree2_tpu.search.perturb import random_nnis
 from iqtree2_tpu.simulator import simulate_alignment
 from iqtree2_tpu.tree.schedule import build_schedule
 from iqtree2_tpu.tree.topology import Tree
@@ -67,6 +68,22 @@ def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
                                    seqtype=seqtype)
     model, rates, _ = build_model(model_str, aln)
     return aln, Tree.from_newick(tree.to_newick(), aln.names), model, rates
+
+
+def load_problem(aln_path, tree_path, model_name: str):
+    """(Alignment, Tree, model, rates) of an alignment file and a Newick
+    tree file under MODELS[name]'s fixed parameters."""
+    aln = read_alignment(str(aln_path))
+    model, rates, _ = build_model(MODELS[model_name][2], aln)
+    tree = Tree.from_newick(Path(tree_path).read_text(), aln.names)
+    return aln, tree, model, rates
+
+
+def perturbed(tree: Tree, seed: int, strength: float) -> tuple[Tree, int]:
+    """A copy of ``tree`` moved by the search's random NNIs
+    (search/perturb.random_nnis), and the number of moves."""
+    start = tree.copy()
+    return start, random_nnis(start, np.random.default_rng(seed), strength)
 
 
 def write_problem(aln: Alignment, tree: Tree, prefix) -> tuple[str, str]:

@@ -1,18 +1,17 @@
 """Model-parameter optimization against the torch engine (counterpart of
 iqtree2_tpu/model/optimize.py).
 
-The host alternation: bounded L-BFGS-B over the substitution and rate
-parameters, each objective evaluation one logL on the fixed topology, then
-all-branch Newton, until a round gains less than epsilon. Reference analog:
-ModelFactory::optimizeParameters (model/modelfactory.cpp:1329).
-
-The JAX package first tries a joint device fit with exact gradients
-(model/jaxfit.try_fit) and takes this loop only when that fit does not apply
-(problems above jaxfit.MAX_REVERSE_ELEMENTS, which covers every large
-alignment). That joint fit is not yet ported: this module always runs the
-alternation. In float32 the finite-difference alternation can stall short of
-the optimum (by about 5.7 logL on tests/golden/example.phy), as in the JAX
-package; float64 (--f64) reaches it.
+As in the JAX package, the joint fit with exact gradients
+(model/torchfit.try_fit) runs first; the host alternation runs only where
+that fit does not apply (models it does not cover, +ASC, and problems above
+torchfit.MAX_REVERSE_ELEMENTS, which covers every large alignment). The
+alternation: bounded L-BFGS-B over the substitution and rate parameters,
+each objective evaluation one logL on the fixed topology, then all-branch
+Newton, until a round gains less than epsilon. Its finite differences can
+stall short of the optimum in float32 (by about 5 logL on
+tests/golden/example.phy); the joint fit, in float64 whenever
+epsilon < 0.05, does not. Reference analog: ModelFactory::optimizeParameters
+(model/modelfactory.cpp:1329).
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from iqtree2_tpu.tree.schedule import build_schedule
 from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu.utils.optimize import brent_minimize, lbfgsb_minimize
 from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.model import torchfit
 
 DEFAULT_MODEL_EPS = 0.01  # reference: modelEps (utils/tools.cpp:1313)
 MAX_ROUNDS = 100          # alternation rounds (the JAX package's default)
@@ -35,6 +35,9 @@ def optimize_model_parameters(eng: LikelihoodEngine, tree: Tree,
 
     Returns the final log-likelihood.
     """
+    fitted = torchfit.try_fit(eng, tree, epsilon=epsilon)
+    if fitted is not None:
+        return fitted
     model, rates = eng.model, eng.rates
     logL = eng.optimize_branches(tree, n_rounds=BLEN_ROUNDS)
     for _ in range(MAX_ROUNDS):

@@ -10,8 +10,9 @@ its plain PyTorch version for CPU tensors. ``vmap`` over edges in the JAX
 engine becomes an explicit leading E axis here (edge_thetas,
 branch_lh_derivs, newton_branch_step).
 
-Not yet ported: nonreversible models (pack["Q"], expm_ss) and per-category
-(mixlen) branch lengths; transition_tensors raises for both.
+Not yet ported: nonreversible models (pack["Q"]) and per-category (mixlen)
+branch lengths; transition_tensors raises for both. ``expm_ss`` is here for
+the joint model fit (model/torchfit.py), which differentiates through it.
 """
 
 from __future__ import annotations
@@ -70,6 +71,25 @@ def transition_tensors(blens, pack):
         P = torch.einsum("cxk,eck,cky->ecxy", pack["U"][cat_mix],
                          torch.exp(expo), pack["V"][cat_mix])
     return P.clamp(min=0.0).contiguous()   # the kernels take [E, C, S, S]
+
+
+def expm_ss(A, order: int = 8, squarings: int = 8):
+    """Batched matrix exponential by scaling and squaring with a truncated
+    Taylor series, exp(A) = (exp(A / 2^k))^(2^k). For rate matrices Q t with
+    t <= 10 and mean rate 1 the scaled norm is tiny, so a fixed (order,
+    squarings) is accurate; matmuls only, so autograd is smooth at the
+    degenerate eigenvalues where an eigendecomposition's gradient is not."""
+    A = A / (2.0 ** squarings)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype,
+                    device=A.device).expand(A.shape)
+    P = eye
+    term = eye
+    for k in range(1, order + 1):
+        term = torch.matmul(term, A) / k
+        P = P + term
+    for _ in range(squarings):
+        P = torch.matmul(P, P)
+    return P
 
 
 def tip_partials(tip_codes, tip_table):
@@ -135,6 +155,17 @@ def both_passes(P, tipP, sched, pack):
     """(DownPass, UpPass) for one topology."""
     dp = down_pass(P, tipP, sched)
     return dp, up_pass(P, dp, tipP, sched, pack["root_freqs"])
+
+
+def gather_messages(dp: DownPass, P, src_idx, eids):
+    """Child messages msg = P_e partial[src] for arbitrary index tensors
+    (NNI scoring recomputes them; the passes do not store them).
+
+    src_idx/eids: [...] int64; returns (msg [..., C, S, Pp], scale [..., Pp]).
+    A batched matmul, not apply_P's broadcast product, whose [..., S, S, Pp]
+    temporary would be S times the message.
+    """
+    return torch.matmul(P[eids], dp.all[src_idx]), dp.scale[src_idx]
 
 
 # ------------------------------------------------------------------- root

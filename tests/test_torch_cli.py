@@ -1,4 +1,5 @@
-"""The port's command line: the golden -te fit end to end, and the refusals.
+"""The port's command line: the golden -te fit and the tree search with
+UFBoot end to end, and the refusals.
 
 python -m iqtree2_tpu_torch runs in a subprocess on the CPU (--device cpu);
 every flag whose path is not yet ported must stop the run with a SystemExit
@@ -7,14 +8,22 @@ of falling back to the CPU.
 """
 
 import json
+import re
+import types
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import pytest
 import torch
 
+from iqtree2_tpu import analysis as janalysis
+from iqtree2_tpu import engine as jengine
+from iqtree2_tpu.io.alignment_io import read_alignment
+from iqtree2_tpu.model.factory import build_model
+from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu_torch import cli
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -28,6 +37,13 @@ def _logl(prefix: Path) -> float:
         if line.startswith("Log-likelihood of the tree:"):
             return float(line.split(":")[1].split()[0])
     raise AssertionError("no logL in report")
+
+
+def _run_module(args, timeout=600):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-m", "iqtree2_tpu_torch"] + args,
+                          capture_output=True, text=True, env=env,
+                          timeout=timeout)
 
 
 def test_golden_fit_through_the_module(tmp_path):
@@ -46,8 +62,39 @@ def test_golden_fit_through_the_module(tmp_path):
     assert "Best logL" in Path(f"{prefix}.log").read_text()
 
 
+def test_default_precision_golden_fit(tmp_path):
+    """The JAX package's bar for its default-precision CLI
+    (tests/test_cli_precision.py): the joint fit runs in float64 whatever
+    the engine's float32."""
+    prefix = tmp_path / "run"
+    assert cli.main(["-s", ALN, "-m", "GTR+G", "-te", TREE, "--device",
+                     "cpu", "-pre", str(prefix), "--quiet"]) == 0
+    assert _logl(prefix) >= -21162.05
+
+
+def test_search_with_ufboot_through_the_module(tmp_path):
+    prefix = tmp_path / "run"
+    res = _run_module(["-s", ALN, "-m", "GTR+G", "-bb", "100", "-ninit",
+                       "10", "-ntop", "3", "-nbest", "2", "-n", "2",
+                       "--device", "cpu", "-pre", str(prefix), "--quiet"])
+    assert res.returncode == 0, res.stderr
+    for ext in (".iqtree", ".treefile", ".log", ".ckp.gz", ".contree",
+                ".splits.nex", ".ufboot"):
+        assert Path(f"{prefix}{ext}").stat().st_size > 0, ext
+    assert len(Path(f"{prefix}.ufboot").read_text().splitlines()) == 100
+    labels = re.findall(r"\)([^:,();]*)",
+                        Path(f"{prefix}.treefile").read_text())
+    assert labels[-1] == ""       # the root carries no support
+    assert all(lab.isdigit() for lab in labels[:-1]), labels
+    # the reference topology's fit (golden g4) less 0.5
+    assert _logl(prefix) >= -21162.44
+    log = Path(f"{prefix}.log").read_text()
+    assert "Search done: 2 iterations" in log
+    assert "Wall seconds: quick fit" in log
+
+
 @pytest.mark.parametrize("extra,message", [
-    (["-bb", "100"], "-bb/-B: not yet ported"),
+    (["-bnni"], "-bnni: not yet ported"),
     (["-alrt", "1000"], "-alrt: not yet ported"),
     (["-p", ALN], "-p/-spp: not yet ported"),
     (["--pmsf"], "--pmsf: not yet ported"),
@@ -62,7 +109,9 @@ def test_unported_flag_is_refused(tmp_path, extra, message):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["-m", "GTR+G"], "tree search"),
+    (["-m", "GTR+G", "-g", TREE], "-g: not yet ported"),
+    (["-m", "GTR+G", "-te", TREE, "-bb", "100"], "-bb/-B: the ultrafast"),
+    (["-m", "GTR+G", "-blfix"], "-blfix: fixes the branch lengths"),
     (["-te", TREE], "-m MFP: model selection"),
     (["-te", TREE, "-m", "GTR+G+ASC"], "ascertainment"),
     (["-te", TREE, "-m", "UNREST"], "nonreversible"),
@@ -75,9 +124,20 @@ def test_unported_path_is_refused(tmp_path, argv, message):
 
 
 def test_blfix_with_free_parameters_is_refused(tmp_path):
-    with pytest.raises(SystemExit, match="-blfix with free model parameters"):
-        cli.main(["-s", ALN, "-m", "GTR+G", "-te", TREE, "-blfix",
-                  "--device", "cpu", "-pre", str(tmp_path / "x"), "--quiet"])
+    """-blfix with free model parameters is no longer refused: it fits them
+    with the branch lengths held, as the JAX package's
+    _optimize_model_only does; logL within 0.05 of it."""
+    prefix = tmp_path / "x"
+    assert cli.main(["-s", ALN, "-m", "GTR+G", "-te", TREE, "-blfix",
+                     "--f64", "--device", "cpu", "-pre", str(prefix),
+                     "--quiet"]) == 0
+    aln = read_alignment(ALN)
+    model, rates, _ = build_model("GTR+G", aln)
+    jeng = jengine.LikelihoodEngine(aln, model, rates, dtype=jnp.float64)
+    tree = Tree.from_newick(Path(TREE).read_text(), aln.names)
+    janalysis._optimize_model_only(jeng, tree,
+                                   types.SimpleNamespace(model_eps=0.01))
+    assert _logl(prefix) == pytest.approx(jeng.loglik_tree(tree), abs=0.05)
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):

@@ -1,4 +1,6 @@
-"""The Hopper kernels (H1-H4) against their plain PyTorch versions on a card.
+"""The Hopper kernels (H1-H4) against their plain PyTorch versions on a card,
+and the search path on the card (fused NNI round, NNI hill-climb, joint
+fit) against the CPU engine.
 
 This file imports nothing of JAX, so it runs on the machine with the card,
 which has none; the repository's tests/conftest.py imports jax, so run it
@@ -16,10 +18,15 @@ import torch
 
 from iqtree2_tpu.data.alignment import Alignment
 from iqtree2_tpu.model.factory import build_model
+from iqtree2_tpu.search.perturb import random_nnis
+from iqtree2_tpu.tree.schedule import build_schedule
 from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu_torch import kernelcheck
 from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.ops import kernels
+from iqtree2_tpu_torch.ops.nni import build_nni_candidates
+from iqtree2_tpu_torch.search.nni import nni_optimize
 
 
 @pytest.fixture
@@ -90,3 +97,61 @@ def test_wrapper_refuses_bad_operands(cuda):
         kernels.edge_theta(E, sc, all_, dsc, edge_src.to(cuda), U,
                            V.double())
     kernels.edge_theta(E, sc, all_, dsc, edge_src.to(cuda), U, V)
+
+
+def _cpu_and_cuda(cuda, model_name="GTR+G4", ntaxa=20, nsites=500, seed=5):
+    aln, tree, model, rates = kernelcheck.simulate(model_name, ntaxa, nsites,
+                                                   seed)
+    random_nnis(tree, np.random.default_rng(seed), 0.3)
+    return tree, [LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                                   device=dev) for dev in ("cpu", cuda)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_name", ["GTR+G4", "LG+G4"])
+def test_fused_nni_round_on_cuda_matches_cpu(cuda, model_name):
+    tree, engs = _cpu_and_cuda(cuda, model_name)
+    out = []
+    for eng in engs:
+        t = tree.copy()
+        sched = build_schedule(t)
+        cand = build_nni_candidates(t, sched)
+        ca = np.stack([cand.iu, cand.iv, cand.slot_c, cand.edge_id])
+        before = dict(kernels.LAUNCHES)
+        res = eng.optimize_and_evaluate_nnis(t, sched, ca, n_rounds=2,
+                                             nni5=True, want_lp=True)
+        if eng.device.type == "cuda":
+            assert all(kernels.LAUNCHES[k] > before[k] for k in before)
+        out.append((res, sched.blens.copy()))
+    (cres, cbl), (gres, gbl) = out
+    assert gres[0] == pytest.approx(cres[0], rel=1e-10)
+    np.testing.assert_allclose(gbl, cbl, rtol=1e-8, atol=1e-12)
+    for g, c in zip(gres[1:], cres[1:]):     # logl, t_e, t5, site lp
+        np.testing.assert_allclose(g, c, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_nni_optimize_on_cuda_matches_cpu(cuda):
+    tree, engs = _cpu_and_cuda(cuda, ntaxa=24, seed=6)
+    out = []
+    for eng in engs:
+        t = tree.copy()
+        res, lp = nni_optimize(eng, t, want_lp=True)
+        out.append((t.topology_id(), res.logL, lp))
+    assert out[1][0] == out[0][0]
+    assert out[1][1] == pytest.approx(out[0][1], rel=1e-10)
+    np.testing.assert_allclose(out[1][2], out[0][2], rtol=1e-8)
+
+
+@pytest.mark.cuda
+def test_joint_fit_on_cuda_matches_cpu(cuda):
+    aln, tree, _, _ = kernelcheck.simulate("GTR+G4", 12, 400, seed=8)
+    out = []
+    for dev in ("cpu", cuda):
+        model, rates, _ = build_model("GTR+G", aln)
+        eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
+                               device=dev)
+        t = tree.copy()
+        out.append((torchfit.try_fit(eng, t, epsilon=0.01), rates.alpha))
+    assert out[1][0] == pytest.approx(out[0][0], abs=1e-3)
+    assert out[1][1] == pytest.approx(out[0][1], rel=1e-3)

@@ -1,8 +1,9 @@
 """Port's LikelihoodEngine and model fit vs the JAX package's, float64, CPU.
 
 Same alignment, model and tree objects (built from numpy seeds or the golden
-files) go through both engines; the JAX model fit runs its host alternation
-(jaxfit.try_fit patched to return None), which is the loop the port ports.
+files) go through both engines; the golden model fit compares the two host
+alternations (both packages' joint fits patched to return None); the joint
+fits are compared in tests/test_torch_fit.py.
 """
 
 import json
@@ -24,6 +25,7 @@ from iqtree2_tpu_torch import kernelcheck
 from iqtree2_tpu_torch.convert import pack_to_torch, sched_to_torch
 from iqtree2_tpu_torch.engine import LikelihoodEngine, optimize_blens
 from iqtree2_tpu_torch.model import optimize as topt
+from iqtree2_tpu_torch.model import torchfit
 
 GOLDEN = Path(__file__).parent / "golden"
 
@@ -130,13 +132,15 @@ def test_model_fit_on_golden_matches_jax_host_loop(monkeypatch):
     aln = read_alignment(str(GOLDEN / "example.phy"))
     nwk = (GOLDEN / "ref_tree.nwk").read_text()
 
+    # both packages' host alternation: their joint fits declined
+    monkeypatch.setattr(torchfit, "try_fit", lambda *a, **k: None)
+    monkeypatch.setattr(jaxfit, "try_fit", lambda *a, **k: None)
     model, rates, _ = build_model("GTR+G", aln)
     teng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
                             device="cpu")
     lt = topt.optimize_model_parameters(teng, Tree.from_newick(nwk,
                                                                aln.names))
 
-    monkeypatch.setattr(jaxfit, "try_fit", lambda *a, **k: None)
     model, rates, _ = build_model("GTR+G", aln)
     jeng = jengine.LikelihoodEngine(aln, model, rates, dtype=jnp.float64)
     lj = jopt.optimize_model_parameters(jeng, Tree.from_newick(nwk,

@@ -1,0 +1,162 @@
+"""The port's joint model fit (model/torchfit.py) vs the JAX package's
+(model/jaxfit.py), float64 on the CPU.
+
+Same inputs (golden files or kernelcheck.simulate seeds) go through both;
+the tolerance of each comparison is written at its assert.
+"""
+
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iqtree2_tpu import engine as jengine
+from iqtree2_tpu.io.alignment_io import read_alignment
+from iqtree2_tpu.model import jaxfit
+from iqtree2_tpu.model.factory import build_model
+from iqtree2_tpu.tree.schedule import build_schedule
+from iqtree2_tpu.tree.topology import Tree
+from iqtree2_tpu_torch import kernelcheck
+from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.model import torchfit
+
+GOLDEN = Path(__file__).parent / "golden"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+
+@pytest.mark.parametrize("alpha", [0.05, 0.5, 2.0, 20.0])
+@pytest.mark.parametrize("median", [False, True])
+def test_gamma_cat_rates_and_derivative_match_jax(alpha, median):
+    want = np.asarray(jaxfit.gamma_cat_rates(jnp.float64(alpha), 4, median))
+    dwant = np.asarray(jax.jacfwd(
+        lambda a: jaxfit.gamma_cat_rates(a, 4, median))(jnp.float64(alpha)))
+    a = torch.tensor(alpha, dtype=torch.float64, requires_grad=True)
+    got = torchfit.gamma_cat_rates(a, 4, median)
+    dgot = torch.stack([torch.autograd.grad(got[i], a, retain_graph=True)[0]
+                        for i in range(4)])
+    assert _rel(got.detach(), want) < 1e-9
+    assert _rel(dgot, dwant) < 1e-7
+
+
+def _jax_consts(jeng, sched, spec):
+    """jaxfit._run_fit's constants for one (engine, schedule, spec)."""
+    tip_table = jnp.asarray(jeng.pack_np.tip_table, jnp.float64)
+    cm = np.zeros((jeng.Pp, spec.S))
+    cm[: jeng.aln.num_patterns] = jeng.aln.const_state_mask()
+    iu = np.triu_indices(spec.S, 1)
+    return dict(
+        Cmat=jnp.asarray(spec.Cmat), ref_mask=jnp.asarray(spec.ref_mask),
+        iu=(jnp.asarray(iu[0]), jnp.asarray(iu[1])),
+        tipP=jnp.swapaxes(tip_table[jnp.asarray(jeng.tip_codes)], 1, 2),
+        sched={k: jnp.asarray(v) for k, v in sched.to_device_arrays().items()
+               if k in ("child_src", "child_edge", "step_node", "edge_src")},
+        pw=jnp.asarray(jeng.pattern_weights), cmf_raw=jnp.asarray(cm),
+        is_const=jnp.asarray(cm.sum(1) > 0),
+        pinv_flag=jnp.asarray(1.0 if spec.has_pinv else 0.0),
+        n_steps=int(sched.step_node.shape[0]))
+
+
+@pytest.mark.parametrize("sim,model_str", [
+    ("GTR+G4", "GTR+G"), ("HKY+I", "HKY+I+G"), ("LG+G4", "LG+F+G"),
+    ("GTR+G4", "TN+R3"), ("HKY+I", "K2P+I")])
+def test_objective_and_gradient_match_jax(sim, model_str):
+    aln, tree, _, _ = kernelcheck.simulate(sim, 12, 300, seed=7)
+    model, rates, _ = build_model(model_str, aln)
+    jspec = jaxfit.build_spec(model, rates)
+    spec = torchfit.build_spec(model, rates)
+    for f in ("x0", "mask", "Cmat", "ref_mask"):
+        np.testing.assert_array_equal(getattr(spec, f), getattr(jspec, f))
+    assert spec.seg == jspec.seg
+    rng = np.random.default_rng(3)
+    x = spec.x0 + rng.normal(0.0, 0.3, spec.k)
+    sched = build_schedule(tree)
+    log_t = np.log(np.clip(sched.blens, 1e-6, 10.0)) \
+        + rng.normal(0.0, 0.3, len(sched.blens))
+
+    jeng = jengine.LikelihoodEngine(aln, model, rates, dtype=jnp.float64)
+    consts = _jax_consts(jeng, sched, jspec)
+    jv, (jgx, jgt) = jax.value_and_grad(
+        lambda a, b: jaxfit._loglik(a, b, jspec, consts), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(log_t))
+
+    teng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                            device="cpu")
+    xt = torch.tensor(x, requires_grad=True)
+    tt = torch.tensor(log_t, requires_grad=True)
+    tv = torchfit.fit_loglik(xt, tt, spec, torchfit.fit_consts(
+        teng, sched, spec, torch.float64))
+    tv.backward()
+    assert float(tv.detach()) == pytest.approx(float(jv), rel=1e-9)
+    # entries whose gradient is exactly 0 on one side (frozen or absent
+    # parameters) must be exactly 0 on the other
+    g_t = np.concatenate([xt.grad.numpy(), tt.grad.numpy()])
+    g_j = np.concatenate([np.asarray(jgx), np.asarray(jgt)])
+    assert ((g_t == 0) == (g_j == 0)).all()
+    nz = g_j != 0
+    assert _rel(g_t[nz], g_j[nz]) < 1e-7
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return json.loads((GOLDEN / "golden.json").read_text())["logL"]
+
+
+def test_try_fit_on_golden_matches_jax(golden):
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    nwk = (GOLDEN / "ref_tree.nwk").read_text()
+    out = []
+    for fit, eng_of in (
+            (torchfit.try_fit, lambda m, r: LikelihoodEngine(
+                aln, m, r, dtype=torch.float64, device="cpu")),
+            (jaxfit.try_fit, lambda m, r: jengine.LikelihoodEngine(
+                aln, m, r, dtype=jnp.float64))):
+        model, rates, _ = build_model("GTR+G", aln)
+        tree = Tree.from_newick(nwk, aln.names)
+        out.append((fit(eng_of(model, rates), tree, epsilon=0.01),
+                    rates.alpha))
+    (lt, at), (lj, aj) = out
+    assert lt == pytest.approx(lj, abs=0.05)
+    assert lt >= golden["g4_gtrg_opt"] - 2e-3
+    assert at == pytest.approx(aj, rel=1e-2)
+
+
+def test_try_fit_declines_what_it_does_not_cover():
+    aln, tree, _, _ = kernelcheck.simulate("GTR+G4", 8, 100, seed=2)
+    model, rates, _ = build_model("GTR+G", aln)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                           device="cpu", asc=True)
+    assert torchfit.try_fit(eng, tree) is None          # +ASC
+    model, rates, _ = build_model("JC", aln)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                           device="cpu")
+    # nothing free once the branch lengths are fixed
+    assert torchfit.try_fit(eng, tree, fix_blens=True) is None
+    model, rates, _ = build_model("GTR+G", aln)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                           device="cpu")
+    sched = build_schedule(tree)
+    limit = sched.n_int * 4 * 4 * eng.Pp
+    old = torchfit.MAX_REVERSE_ELEMENTS
+    try:
+        torchfit.MAX_REVERSE_ELEMENTS = limit - 1
+        assert torchfit.try_fit(eng, tree) is None
+        torchfit.MAX_REVERSE_ELEMENTS = limit
+        assert torchfit.try_fit(eng, tree) is not None
+    finally:
+        torchfit.MAX_REVERSE_ELEMENTS = old

@@ -2,8 +2,12 @@
 
 On the CPU the wrappers run their plain versions, so an unchanged check
 passes every kernel; a wrapper replaced by one that skips its work, or part
-of it, must then fail that kernel alone.
+of it, must then fail that kernel alone. The helpers that chip_smoke.py
+uses to set up its problems are tested here as well.
 """
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -11,6 +15,8 @@ import torch
 from iqtree2_tpu_torch import kernelcheck
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.ops import kernels
+
+GOLDEN = Path(__file__).parent / "golden"
 
 
 @pytest.fixture(scope="module")
@@ -51,3 +57,33 @@ def test_check_fails_unwritten_rows(problem, monkeypatch, name, fake):
     monkeypatch.setattr(kernels, name, fake)
     ok = {r["name"]: r["ok"] for r in kernelcheck.check(*problem)}
     assert ok == {k: k != name for k in ok}
+
+
+@pytest.mark.parametrize("labels", [False, True], ids=["plain", "supports"])
+def test_load_problem_golden(labels, tmp_path):
+    """The flagship's problem (example.phy under GTR+G4) loads from a Newick
+    file, with or without the integer supports a search writes, and every
+    kernel passes its check at the flagship's pattern count."""
+    nwk = (GOLDEN / "ref_tree.nwk").read_text()
+    if labels:
+        nwk = re.sub(r"\):", ")95:", nwk)
+    path = tmp_path / "tree.nwk"
+    path.write_text(nwk)
+    aln, tree, model, rates = kernelcheck.load_problem(
+        GOLDEN / "example.phy", path, "GTR+G4")
+    assert (aln.ntaxa, tree.ntaxa) == (17, 17)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
+                           device="cpu")
+    assert eng.Pp == 1152
+    res = kernelcheck.check(eng, tree)
+    assert all(r["ok"] for r in res), res
+
+
+def test_perturbed_copies_and_moves():
+    _, tree, _, _ = kernelcheck.simulate("GTR+G4", 40, 50, seed=3)
+    before = tree.topology_id()
+    a, n_a = kernelcheck.perturbed(tree, seed=2, strength=0.1)
+    b, n_b = kernelcheck.perturbed(tree, seed=2, strength=0.1)
+    assert tree.topology_id() == before
+    assert n_a == n_b > 0
+    assert a.topology_id() == b.topology_id() != before

@@ -1,11 +1,15 @@
 """The port imports torch and never jax: the machine with the card has none.
 
 A subprocess blocks jax and optax (sys.modules[...] = None makes any import
-of them fail), imports every module of iqtree2_tpu_torch and runs a golden
-fixed-tree evaluation through the CLI on the CPU; no module of the JAX
-package that pulls jax in may have been imported on the way.
+of them fail), imports every module of iqtree2_tpu_torch, and runs through
+the CLI on the CPU a golden fixed-tree evaluation and a two-iteration tree
+search with UFBoot; no module of the JAX package that pulls jax in may
+have been imported on the way (the jax-free host modules the port reuses,
+ops/pars.py and search/{bionj,candidate,perturb,stoprule,ufboot}.py, and
+their empty package files, may).
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -30,10 +34,18 @@ with tempfile.TemporaryDirectory() as d:
                      "-blfix", "--f64", "--device", "cpu", "-pre", d + "/r",
                      "--quiet"]) == 0
     report = open(d + "/r.iqtree").read()
-forbidden = [m for m in sys.modules if m.split(".")[:2] in (
-    ["iqtree2_tpu", "engine"], ["iqtree2_tpu", "analysis"],
-    ["iqtree2_tpu", "ops"], ["iqtree2_tpu", "search"])
-    or m in ("iqtree2_tpu.model.optimize", "iqtree2_tpu.model.jaxfit")]
+    assert cli.main(["-s", sys.argv[1], "-m", "JC", "-n", "2", "-ninit",
+                     "3", "-ntop", "2", "-nbest", "2", "-bb", "20",
+                     "--device", "cpu", "-pre", d + "/s", "--quiet"]) == 0
+    assert len(open(d + "/s.ufboot").read().splitlines()) == 20
+allowed = {"iqtree2_tpu.ops", "iqtree2_tpu.search", "iqtree2_tpu.ops.pars"} | {
+    f"iqtree2_tpu.search.{m}"
+    for m in ("bionj", "candidate", "perturb", "stoprule", "ufboot")}
+forbidden = [m for m in sys.modules if m not in allowed and (
+    m.split(".")[:2] in (
+        ["iqtree2_tpu", "engine"], ["iqtree2_tpu", "analysis"],
+        ["iqtree2_tpu", "ops"], ["iqtree2_tpu", "search"])
+    or m in ("iqtree2_tpu.model.optimize", "iqtree2_tpu.model.jaxfit"))]
 assert not forbidden, forbidden
 print(len(names), "modules;", report.split("Log-likelihood of the tree:")[1]
       .split()[0])
@@ -49,8 +61,20 @@ def test_port_runs_with_jax_blocked():
         capture_output=True, text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     n_mod, logl = res.stdout.split()[0], res.stdout.split()[-1]
-    assert int(n_mod) >= 9
+    assert int(n_mod) >= 15
     assert abs(float(logl) - (-23648.5507)) < 2e-3
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the JAX package's jax-free modules only
+    through iqtree2_tpu_torch, whose import set the test above checks."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names}
+    mods |= {n.module for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n.module}
+    assert "iqtree2_tpu_torch" in mods
+    assert not [m for m in mods if m.split(".")[0] == "iqtree2_tpu"], mods
 
 
 def test_no_source_file_imports_jax():
