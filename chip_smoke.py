@@ -22,15 +22,18 @@ ending in torch.cuda.synchronize():
 5. the fixed-topology fit at a realistic size: 1000 taxa x 16384 sites
    simulated under GTR+G4 (seed 1) and fitted through the CLI in float32
    (too large for the joint fit, so the host alternation runs the
-   kernels), with the launch counts reset just before and read just after;
-   then each kernel against its plain version at that problem's shapes,
-   timed;
+   kernels), with the launch counts reset just before and read just after,
+   and one down_pass and one up_pass launch required per pass; then each
+   kernel against its plain version at that problem's shapes, timed alone
+   (buffers built outside the timed region; down_buffers and up_buffers
+   are timed on their own line, beside each kernel's bound);
 6. the flagship, this slice's main path: -s tests/golden/example.phy
    -m GTR+G -bb 1000 through the CLI in float32 at the default search
    settings, launch counts reset just before and read just after; logL at
    least the reference topology's fit - 0.5, .contree, .splits.nex, 1000
    replicate trees in .ufboot, integer supports in .treefile, every kernel
-   launched; wall time, iterations and the split of the wall are printed;
+   launched, one down_pass and one up_pass launch per pass; wall time,
+   iterations and the split of the wall are printed;
    then each kernel against its plain version at the flagship's shapes
    (example.phy in float32 under GTR+G4, at the reference topology and at
    the tree the search returned);
@@ -43,7 +46,9 @@ ending in torch.cuda.synchronize():
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
-phase-6 flagship, times from the phase-5 check); the last line is
+phase-6 flagship; times and bounds (kernelcheck.bounds) from the phase-5
+check at 1000 x 16384; no single PyTorch call computes any of the four
+kernels' functions, so library_ms is null); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -63,12 +68,12 @@ OUT = ROOT / "chip_smoke_out"
 SOURCE = "iqtree2_tpu_torch/csrc/pruning.cu"
 # TPU kernels each Hopper kernel replaces (file:line of the pl.pallas_call)
 REPLACES = {
-    "down_step": "iqtree2_tpu/ops/pallas_pruning2.py:342, "
+    "down_pass": "iqtree2_tpu/ops/pallas_pruning2.py:342, "
                  "iqtree2_tpu/ops/pallas_pruning.py:224, "
                  "iqtree2_tpu/ops/pallas_pruning.py:452",
     "root_sitelp": "iqtree2_tpu/ops/pallas_pruning.py:452, "
                    "iqtree2_tpu/ops/pallas_pruning2.py:342",
-    "up_step": "iqtree2_tpu/ops/pallas_pruning2.py:567, "
+    "up_pass": "iqtree2_tpu/ops/pallas_pruning2.py:567, "
                "iqtree2_tpu/ops/pallas_pruning.py:372, "
                "iqtree2_tpu/ops/pallas_pruning2.py:804",
     "edge_theta": "iqtree2_tpu/ops/pallas_pruning2.py:804",
@@ -133,6 +138,37 @@ def climb(eng, tree, rounds: list) -> tuple:
         return nni_optimize(eng, tree, want_lp=True)
     finally:
         del eng.optimize_and_evaluate_nnis
+
+
+class PassCount:
+    """Counts the calls of ops/pruning.down_pass and up_pass while active,
+    so a run can show one kernel launch per pass."""
+
+    def __enter__(self):
+        from iqtree2_tpu_torch.ops import pruning
+        self.calls = {"down_pass": 0, "up_pass": 0}
+        self._saved = {k: getattr(pruning, k) for k in self.calls}
+
+        def counted(name):
+            def call(*args, **kw):
+                self.calls[name] += 1
+                return self._saved[name](*args, **kw)
+            return call
+
+        for k in self.calls:
+            setattr(pruning, k, counted(k))
+        return self
+
+    def __exit__(self, *exc):
+        from iqtree2_tpu_torch.ops import pruning
+        for k, fn in self._saved.items():
+            setattr(pruning, k, fn)
+
+    def check(self, launches: dict, tag: str) -> None:
+        for k, n in self.calls.items():
+            if launches[k] != n:
+                raise RuntimeError(f"{tag}: {launches[k]} {k} launches for "
+                                   f"{n} passes, not one per pass")
 
 
 def run_cli(args: list[str]) -> float:
@@ -240,29 +276,37 @@ def main() -> int:
           f"({aln.num_patterns} patterns) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    wall = run_cli(["-s", aln_path, "-m", "GTR+G", "-te", tree_path,
-                    "-pre", str(big)])
-    launches = dict(kernels.LAUNCHES)
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        wall = run_cli(["-s", aln_path, "-m", "GTR+G", "-te", tree_path,
+                        "-pre", str(big)])
+        launches = dict(kernels.LAUNCHES)
     logl = report_logl(big)
     print(f"[phase 5] GTR+G fit f32: logL {logl:.4f} in {wall:.1f} s; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB; launches {launches}", flush=True)
+          f"GiB; launches {launches}; passes {passes.calls}", flush=True)
     if not math.isfinite(logl):
         return fail(f"realistic-size logL is not finite: {logl}")
     if not all(v > 0 for v in launches.values()):
         return fail(f"a kernel of the path was never launched: {launches}")
+    passes.check(launches, "[phase 5]")
     eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
                            device="cuda")
     timed = {r["name"]: r for r in check_kernels(
         "[phase 5] GTR+G4", eng, tree, 3, errors)}
+    bound = kernelcheck.bounds(eng, tree)
+    print(f"[phase 5] buffers alone (ms): "
+          f"{kernelcheck.time_buffers(eng, tree, 3)}; bounds (ms): "
+          f"{ {k: round(v['bound_ms'], 4) for k, v in bound.items()} }",
+          flush=True)
 
     # 6. the flagship: tree search with ultrafast bootstrap
     flag = OUT / "flagship"
-    kernels.reset_launch_counts()
-    wall = run_cli(["-s", str(GOLDEN / "example.phy"), "-m", "GTR+G",
-                    "-bb", str(FLAGSHIP_REPLICATES), "-pre", str(flag)])
-    launches = dict(kernels.LAUNCHES)
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        wall = run_cli(["-s", str(GOLDEN / "example.phy"), "-m", "GTR+G",
+                        "-bb", str(FLAGSHIP_REPLICATES), "-pre", str(flag)])
+        launches = dict(kernels.LAUNCHES)
     logl = check_flagship(flag, g4 - 0.5)
     text = log_lines(flag)
     iters = re.search(r"Search done: (\d+) iterations", text).group(1)
@@ -270,9 +314,10 @@ def main() -> int:
     print(f"[phase 6] flagship -m GTR+G -bb {FLAGSHIP_REPLICATES} f32, "
           f"default settings: logL {logl:.4f} (bound {g4 - 0.5:.4f}) in "
           f"{wall:.1f} s, {iters} iterations; wall seconds: {split}; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; passes {passes.calls}", flush=True)
     if not all(v > 0 for v in launches.values()):
         return fail(f"a kernel of the path was never launched: {launches}")
+    passes.check(launches, "[phase 6]")
     for tag, tree_path in (("reference tree", GOLDEN / "ref_tree.nwk"),
                            ("search's tree", Path(f"{flag}.treefile"))):
         f_aln, f_tree, f_model, f_rates = kernelcheck.load_problem(
@@ -312,7 +357,12 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
-         "plain_ms": timed[k]["plain_ms"]} for k in REPLACES]}))
+         "plain_ms": timed[k]["plain_ms"],
+         "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],
+         # no single PyTorch call computes a pruning pass, a root
+         # reduction with its scale, or edge_theta's two contractions and
+         # product
+         "library_ms": None} for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
-"""iqtree2_tpu_torch — the PyTorch/CUDA port of iqtree2_tpu for NVIDIA Hopper.
+"""iqtree2_tpu_torch: the PyTorch/CUDA port of iqtree2_tpu for NVIDIA Hopper.
 
-The JAX package ``iqtree2_tpu`` stays the reference; this package re-implements
-its likelihood path with torch tensors and four hand-written CUDA kernels
-(ops/kernels.py, csrc/pruning.cu), and reuses the JAX package's jax-free
-host modules (alignment, models, tree schedule, I/O, host optimizers). It
-imports torch and never jax.
+The JAX package ``iqtree2_tpu`` stays the reference; this package
+re-implements its likelihood path with torch tensors and four hand-written
+CUDA kernels (ops/kernels.py, csrc/pruning.cu), and keeps its own copies of
+the host modules it needs (alignment, models, tree schedule, I/O,
+parsimony, UFBoot, host optimizers; each copy names its origin). It imports
+torch, never jax, and nothing of iqtree2_tpu.
 
 Ported so far, for reversible models: the fixed-topology model fit
 (``python -m iqtree2_tpu_torch -s ALN -m MODEL -te TREE``) and the

@@ -7,8 +7,8 @@ the model parameters), or run the stochastic tree search: a quick model
 fit on a stepwise-addition tree, the search (optionally collecting UFBoot
 replicates by RELL), and a thorough refit on the best tree. Outputs:
 .treefile (with UFBoot supports), .iqtree, .log and .ckp.gz, and under -bb
-also .contree, .splits.nex and .ufboot, written through the shared
-io/report.py and search/ufboot.py. The search checkpoints its state
+also .contree, .splits.nex and .ufboot, written through the port's copies
+of io/report.py and search/ufboot.py. The search checkpoints its state
 (search.* keys), so an interrupted run resumes where it stopped.
 """
 
@@ -20,21 +20,21 @@ from pathlib import Path
 
 import numpy as np
 
-from iqtree2_tpu.io import report as report_io
-from iqtree2_tpu.io.alignment_io import read_alignment
-from iqtree2_tpu.model.factory import build_model
-from iqtree2_tpu.ops.pars import random_stepwise_addition
-from iqtree2_tpu.params import Params
-from iqtree2_tpu.search.ufboot import UFBoot
-from iqtree2_tpu.tree.schedule import build_schedule
-from iqtree2_tpu.tree.topology import Tree
-from iqtree2_tpu.utils.checkpoint import Checkpoint
-from iqtree2_tpu.utils.optimize import lbfgsb_minimize
 from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.io import report as report_io
+from iqtree2_tpu_torch.io.alignment_io import read_alignment
 from iqtree2_tpu_torch.model import torchfit
+from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.model.optimize import optimize_model_parameters
+from iqtree2_tpu_torch.ops.pars import random_stepwise_addition
 from iqtree2_tpu_torch.ops.prec import compute_dtype
+from iqtree2_tpu_torch.params import Params
 from iqtree2_tpu_torch.search.search import SearchParams, TreeSearch
+from iqtree2_tpu_torch.search.ufboot import UFBoot
+from iqtree2_tpu_torch.tree.schedule import build_schedule
+from iqtree2_tpu_torch.tree.topology import Tree
+from iqtree2_tpu_torch.utils.checkpoint import Checkpoint
+from iqtree2_tpu_torch.utils.optimize import lbfgsb_minimize
 
 QUICK_FIT_EPS = 0.1   # the search's initial model fit (screening precision)
 
@@ -57,21 +57,14 @@ class Logger:
             self.f.close()
 
 
-def check_model_ported(model_str: str, model, extras: dict) -> None:
-    """SystemExit for a model whose likelihood path is not yet ported."""
+def check_model_ported(model_str: str, extras: dict) -> None:
+    """SystemExit for a model term whose likelihood path is not yet ported
+    (model/factory.py refuses the model families the port does not run)."""
     for key, what in (("asc", "+ASC ascertainment correction"),
-                      ("mixlen", "heterotachy (+H) branch lengths"),
                       ("treemix", "tree mixtures (+T)")):
         if extras.get(key):
             raise SystemExit(f"-m {model_str}: {what} is not yet ported to "
                              f"iqtree2_tpu_torch")
-    eig = model.get_eigensystem()
-    if eig.Q is not None:
-        raise SystemExit(f"-m {model_str}: nonreversible models are not yet "
-                         f"ported to iqtree2_tpu_torch")
-    if eig.num_mixtures > 1:
-        raise SystemExit(f"-m {model_str}: mixture models are not yet ported "
-                         f"to iqtree2_tpu_torch")
 
 
 def optimize_model_only(eng: LikelihoodEngine, tree: Tree,
@@ -197,7 +190,7 @@ def run_analysis(params: Params, device="cuda") -> dict:
         log(f"Alignment: {aln.ntaxa} sequences, {aln.nsites} sites, "
             f"{aln.num_patterns} patterns ({aln.seqtype.name})")
         model, rates, extras = build_model(params.model, aln)
-        check_model_ported(params.model, model, extras)
+        check_model_ported(params.model, extras)
         eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=device)
         log(f"Likelihood engine: {eng.device}, {dtype}, "
             f"{eng.Pp} padded patterns")

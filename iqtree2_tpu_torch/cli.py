@@ -5,10 +5,12 @@
                               [-ntop N] [-nbest N] [-pers X] [--f64]
                               [--device cuda|cpu]
 
-The flags are the JAX package's (its build_parser and params_from_args are
-reused) plus ``--device``, the counterpart of IQTREE2_TPU_PLATFORM: ``cuda``
-(the default) runs the Hopper kernels and fails where there is no card;
-``cpu`` runs their plain PyTorch versions. The port runs the fixed-topology
+The flags are the JAX package's: build_parser and params_from_args are
+copied from iqtree2_tpu/cli.py, the whole parser, so that refuse_unported
+names every flag the port does not run. One flag is added, ``--device``,
+the counterpart of IQTREE2_TPU_PLATFORM: ``cuda`` (the default) runs the
+Hopper kernels and fails where there is no card; ``cpu`` runs their plain
+PyTorch versions. The port runs the fixed-topology
 model fit (-te) and the stochastic tree search with ultrafast bootstrap;
 any flag whose path is not yet ported stops the run with a SystemExit that
 names it, so nothing is silently ignored.
@@ -19,7 +21,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from iqtree2_tpu import cli as tpu_cli
+from iqtree2_tpu_torch.params import Params
 
 # argparse destinations the port honours; num_threads is accepted for
 # compatibility only, as in the JAX package
@@ -33,16 +35,233 @@ MODEL_SELECTION = ("MFP", "TEST", "MF", "TESTONLY", "AUTO", "WHTEST")
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = tpu_cli.build_parser()
-    p.prog = "iqtree2_tpu_torch"
-    p.description = ("PyTorch/CUDA port of iqtree2_tpu: maximum-likelihood "
-                     "model fit and tree search with ultrafast bootstrap")
+    p = argparse.ArgumentParser(
+        prog="iqtree2_tpu_torch",
+        description="PyTorch/CUDA port of iqtree2_tpu: maximum-likelihood "
+                    "model fit and tree search with ultrafast bootstrap")
+    p.add_argument("-s", dest="aln_file", help="alignment file")
+    p.add_argument("-st", dest="seqtype",
+                   help="sequence type (DNA/AA/BIN/MORPH/CODON)")
+    p.add_argument("-m", dest="model", default="MFP",
+                   help="model string or MFP/TEST/MF")
+    p.add_argument("-p", "-spp", dest="partition_edge_prop",
+                   help="partition file (edge-proportional)")
+    p.add_argument("-q", dest="partition_edge_equal",
+                   help="partition file (edge-linked equal)")
+    p.add_argument("-S", dest="partition_topo_unlinked", default="",
+                   help="topology-UNLINKED partitions: one independent "
+                        "tree per locus (PhyloSuperTreeUnlinked analog)")
+    p.add_argument("-Q", dest="partition_unlinked",
+                   help="partition file (unlinked/separate)")
+    p.add_argument("-te", dest="user_tree",
+                   help="fixed user topology (evaluate only)")
+    p.add_argument("-t", dest="start_tree", help="starting tree file")
+    p.add_argument("-g", dest="constraint_tree", help="constraint tree")
+    p.add_argument("-pre", "--prefix", dest="out_prefix", default="")
+    p.add_argument("-seed", "--seed", dest="seed", type=int, default=1)
+    p.add_argument("-n", dest="n_iterations", type=int, default=None)
+    p.add_argument("-nstop", dest="unsuccess_iteration", type=int,
+                   default=100)
+    p.add_argument("-ninit", dest="n_init_trees", type=int, default=100)
+    p.add_argument("-ntop", dest="n_nni_trees", type=int, default=20)
+    p.add_argument("-nbest", dest="pop_size", type=int, default=5)
+    p.add_argument("-pers", dest="pertub_strength", type=float, default=0.5)
+    p.add_argument("-bb", "-B", dest="ufboot_replicates", type=int,
+                   default=0, help="ultrafast bootstrap replicates")
+    p.add_argument("-b", dest="standard_bootstrap", type=int, default=0,
+                   help="standard nonparametric bootstrap replicates")
+    p.add_argument("-alrt", dest="alrt_replicates", type=int, default=0)
+    p.add_argument("-abayes", dest="abayes", action="store_true")
+    p.add_argument("-lbp", dest="lbp_replicates", type=int, default=0)
+    p.add_argument("--runs", dest="num_runs", type=int, default=1)
+    p.add_argument("-bnni", dest="bnni", action="store_true",
+                   help="refine UFBoot replicate trees by NNI under "
+                        "resampled weights (refineBootTrees)")
+    p.add_argument("--mlrate", dest="write_ml_rate", action="store_true",
+                   help="per-site ML rates (RateMeyerHaeseler analog, "
+                        ".mlrate)")
+    p.add_argument("--tbe", dest="tbe", action="store_true",
+                   help="transfer bootstrap expectation supports "
+                        "(booster/booster.h)")
+    p.add_argument("-mset", dest="mset", default="",
+                   help="comma-separated base models for ModelFinder")
+    p.add_argument("-mrate", dest="mrate", default="",
+                   help="comma-separated rate schemes (E,I,G,I+G,R)")
+    p.add_argument("-cmax", dest="cmax", type=int, default=10,
+                   help="max categories for +R rate models")
+    p.add_argument("-merit", dest="merit", default="BIC",
+                   choices=["AIC", "AICc", "BIC"],
+                   help="model-selection criterion "
+                        "(reference: params.model_test_criterion)")
+    p.add_argument("-bsam", "--sampling", dest="boot_spec", default="",
+                   choices=["", "SITE", "GENE", "GENESITE"],
+                   help="bootstrap resampling unit for partitioned data "
+                        "(reference: -bsam, alignment/alignment.cpp:3709)")
+    p.add_argument("--dist-nranks", dest="dist_nranks", type=int, default=1,
+                   help="distributed search: total process count "
+                        "(launch one process per rank; reference analog: "
+                        "the MPI run mode)")
+    p.add_argument("--dist-rank", dest="dist_rank", type=int, default=0,
+                   help="distributed search: this process's rank")
+    p.add_argument("--dist-dir", dest="dist_dir", default="",
+                   help="distributed search: shared gossip directory "
+                        "(FileGossip); omit under jax.distributed to use "
+                        "the collective transport")
+    p.add_argument("--merge", dest="merge_algorithm", default="greedy",
+                   choices=["greedy", "kmeans"],
+                   help="partition merging algorithm for -m MF+MERGE "
+                        "(kmeans: cluster by partition tree length, "
+                        "doKmeansClustering analog)")
+    p.add_argument("--root-test", dest="root_test", action="store_true",
+                   help="evaluate every branch as a root position "
+                        "(nonreversible models; doRootTest + rootstrap)")
+    p.add_argument("--symtest-remove-bad", dest="symtest_remove_bad",
+                   action="store_true",
+                   help="drop partitions failing the symmetry test "
+                        "(reference: main/phyloanalysis.cpp:3920)")
+    p.add_argument("--symtest-pval", dest="symtest_pval", type=float,
+                   default=0.05, help="symmetry-test p-value cutoff")
+    p.add_argument("--symtest", dest="symtest", action="store_true",
+                   help="matched-pairs symmetry tests (doSymTest)")
+    p.add_argument("-blfix", dest="fix_branch_lengths",
+                   action="store_true")
+    p.add_argument("-blmin", dest="min_branch_length", type=float,
+                   default=1e-6)
+    p.add_argument("-blmax", dest="max_branch_length", type=float,
+                   default=10.0)
+    p.add_argument("-me", dest="model_eps", type=float, default=0.01)
+    p.add_argument("--mdef", dest="mdef_file", default="",
+                   help="YAML model/datatype definition file "
+                        "(phylo-yaml analog)")
+    p.add_argument("--date", dest="date_file", default="",
+                   help="tip-date file for least-squares dating, or "
+                        "TAXNAME to parse dates from taxon names "
+                        "(LSD2 analog, main/timetree.cpp)")
+    p.add_argument("--date-ci", dest="date_ci", type=int, default=0,
+                   help="number of branch-resampling replicates for "
+                        "dating confidence intervals (LSD2 -f)")
+    p.add_argument("--clock-sd", dest="clock_sd", type=float, default=0.2,
+                   help="relaxed-clock lognormal stddev for --date-ci "
+                        "replicates (LSD2 -q)")
+    p.add_argument("--date-root", dest="date_root", default="",
+                   help="fix the root date (LSD2 -a)")
+    p.add_argument("--date-rate", dest="date_rate", default="",
+                   help="fix the clock rate instead of estimating it "
+                        "(LSD2 -w given-rate mode)")
+    p.add_argument("--date-no-outgroup", dest="date_no_outgroup",
+                   action="store_true",
+                   help="root with -o outgroup but exclude it from "
+                        "dating (LSD2 -G)")
+    p.add_argument("-o", dest="outgroup", default="",
+                   help="comma-separated outgroup taxa for rooting "
+                        "the output / time tree")
+    p.add_argument("--pmsf", dest="pmsf", action="store_true",
+                   help="posterior mean site frequency two-pass for "
+                        "profile mixtures (reference: "
+                        "computeSiteFrequencyModel)")
+    p.add_argument("-redo", "--redo", dest="redo", action="store_true")
+    p.add_argument("-wsl", dest="write_site_lh", action="store_true")
+    p.add_argument("-wsr", dest="write_site_rate", action="store_true",
+                   help="write per-site posterior mean rates (.rate)")
+    p.add_argument("-wspr", dest="write_site_prob", action="store_const",
+                   const="ratecat", default="",
+                   help="write per-site rate-category posterior "
+                        "probabilities (.siteprob)")
+    p.add_argument("-wspm", dest="write_site_prob", action="store_const",
+                   const="mixture",
+                   help="write per-site mixture-class posteriors "
+                        "(.siteprob)")
+    p.add_argument("-wspmr", "-wsprm", dest="write_site_prob",
+                   action="store_const", const="mixture_ratecat",
+                   help="write per-site mixture+rate category "
+                        "posteriors (.siteprob)")
+    p.add_argument("-z", dest="user_trees_file", default="",
+                   help="evaluate a set of user trees (topology tests)")
+    p.add_argument("-zb", dest="topo_test_replicates", type=int,
+                   default=10000, help="RELL replicates for -z tests")
+    p.add_argument("-au", dest="do_au_test", action="store_true",
+                   help="perform the approximately-unbiased (AU) test")
+    p.add_argument("-asr", dest="do_asr", action="store_true",
+                   help="ancestral state reconstruction (.state)")
+    p.add_argument("-mldist", dest="write_ml_dist", action="store_true",
+                   help="write ML pairwise distances (.mldist)")
+    p.add_argument("-lmap", dest="lmap_quartets", type=int, default=0,
+                   help="likelihood mapping with N quartets (.lmap.svg)")
+    p.add_argument("--gcf", dest="gcf_tree_file", default="",
+                   help="gene-tree file for gene concordance factors")
+    p.add_argument("--scf", dest="scf_quartets", type=int, default=0,
+                   help="quartets per branch for site concordance factors")
+    p.add_argument("-rf", dest="rf_tree_file", default="",
+                   help="compute RF distance between -t tree(s) and FILE")
+    p.add_argument("-rf_all", dest="rf_all", action="store_true",
+                   help="all-to-all RF distances of the -t tree set")
+    p.add_argument("-pd", dest="pd_k", type=int, default=0,
+                   help="phylogenetic diversity: best k-taxon subset of "
+                        "the -t tree (pda/ analog)")
+    p.add_argument("-bud", dest="pd_budget", type=float, default=0.0,
+                   help="PD under a budget: maximize PD with total "
+                        "taxon cost <= BUDGET (pda -bud)")
+    p.add_argument("-cost", dest="pd_cost", default="",
+                   help="taxon cost file for -bud ('taxon cost' lines, "
+                        "pda -cost; default all costs 1)")
+    p.add_argument("-pdsets", dest="pd_sets", default="",
+                   help="score user-defined taxon sets / areas from "
+                        "FILE ('name: t1 t2 ...' lines; pda user-set "
+                        "mode) — with -pd K picks the best K areas")
+    p.add_argument("-endem", dest="pd_endem", action="store_true",
+                   help="with -pdsets: also compute PD endemism per "
+                        "area (pda -endem)")
+    p.add_argument("-comp", dest="pd_comp", default="",
+                   help="with -pdsets: PD complementarity given "
+                        "comma-separated area names (pda -comp)")
+    p.add_argument("-con", dest="consensus_of", default="",
+                   help="majority-rule consensus of trees in FILE")
+    p.add_argument("-r", dest="random_tree_n", type=int, default=0,
+                   help="generate a random tree with N taxa")
+    p.add_argument("-rtype", dest="random_tree_model", default="yule",
+                   help="random tree model: yule|uniform|caterpillar|"
+                        "balanced|star")
+    p.add_argument("--f64", dest="use_f64", action="store_true",
+                   help="float64 likelihood (parity mode)")
+    p.add_argument("-nt", "-T", dest="num_threads", default="AUTO",
+                   help="(accepted for compatibility)")
+    p.add_argument("--quiet", dest="quiet", action="store_true")
+    p.add_argument("--alisim", dest="alisim", default="",
+                   help="simulate alignments (AliSim analog)")
+    p.add_argument("--length", dest="sim_length", type=int, default=1000)
+    p.add_argument("--num-alignments", dest="sim_num_alignments", type=int,
+                   default=1)
+    p.add_argument("--indel", dest="indel", default="",
+                   help="insertion,deletion rates for AliSim (e.g. "
+                        "0.03,0.1; simulator/alisimulator.h:241)")
+    p.add_argument("--indel-size", dest="indel_size", type=float,
+                   default=3.0, help="mean geometric indel size")
+    p.add_argument("--alisim-nprocs", dest="sim_nprocs", type=int,
+                   default=1, help="MPI-style AliSim split: total workers")
+    p.add_argument("--alisim-rank", dest="sim_rank", type=int, default=0,
+                   help="this worker's rank (simulates replicates "
+                        "rank, rank+nprocs, ...)")
     p.add_argument("--device", dest="device", choices=("cuda", "cpu"),
                    default="cuda",
                    help="cuda (default): the Hopper kernels, an error where "
                         "no card is present; cpu: their plain PyTorch "
                         "versions")
     return p
+
+
+def params_from_args(args) -> Params:
+    """Params of the parsed flags (iqtree2_tpu/cli.py's, without the
+    partition and distributed-run branches: refuse_unported stops their
+    flags first)."""
+    pr = Params()
+    for f in vars(pr):
+        if hasattr(args, f):
+            setattr(pr, f, getattr(args, f))
+    if args.quiet:
+        pr.verbose = 0
+    if not pr.out_prefix:
+        pr.out_prefix = pr.aln_file
+    return pr
 
 
 def refuse_unported(args: argparse.Namespace,
@@ -74,7 +293,7 @@ def main(argv=None) -> int:
         print("error: -s ALIGNMENT is required", file=sys.stderr)
         return 2
     refuse_unported(args, parser)
-    pr = tpu_cli.params_from_args(args)
+    pr = params_from_args(args)
     from iqtree2_tpu_torch.analysis import run_analysis
     run_analysis(pr, device=args.device)
     return 0

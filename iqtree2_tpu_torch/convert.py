@@ -1,8 +1,6 @@
-"""Host arrays of the shared, jax-free modules -> torch tensors.
-
-The port and the JAX package are fed identical arrays through here: a
-``ModelPack`` (model/pack.py) or the JAX engine's device pack converted with
-``np.asarray``, a ``TreeSchedule``'s index arrays, and the tip table.
+"""Host arrays -> torch tensors: a ``ModelPack`` (model/pack.py) or a dict
+of numpy arrays (the parity tests feed the JAX engine's pack through here),
+and a ``TreeSchedule``'s index arrays.
 """
 
 from __future__ import annotations
@@ -12,7 +10,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from iqtree2_tpu_torch.ops.pruning import tip_partials
 
 # model arrays the kernels read (model/pack.py documents each); host-only
 # fields of ModelPack (p_invar, mean_freqs) are left behind
@@ -47,13 +44,3 @@ def sched_to_torch(arrays: dict, device) -> dict:
     """TreeSchedule.to_device_arrays() -> dict of int32 tensors."""
     return {k: torch.as_tensor(np.array(v, np.int32), device=device)
             for k, v in arrays.items()}
-
-
-def tips_to_torch(tip_codes: np.ndarray, tip_table: np.ndarray, device,
-                  dtype: torch.dtype):
-    """[L, Pp] tip codes + [ncodes, S] table -> [L, S, Pp] leaf partials."""
-    return tip_partials(
-        torch.as_tensor(np.array(tip_codes), dtype=torch.int64,
-                        device=device),
-        torch.as_tensor(np.array(tip_table, np.float64), dtype=dtype,
-                        device=device))

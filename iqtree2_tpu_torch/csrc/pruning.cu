@@ -3,13 +3,17 @@
 // Four kernels carry every likelihood contract of the JAX package's Pallas
 // kernels (iqtree2_tpu/ops/pallas_pruning.py, pallas_pruning2.py):
 //
-//   down_step    one postorder schedule step: child messages, product,
-//                per-pattern rescale, partial + scale count written into the
-//                unified buffer                      (replaces T1/T2/T4/T5/T6)
+//   down_pass    the whole postorder pass in one launch: for every level
+//                step, child messages, product, per-pattern rescale, partial
+//                and scale count written into the unified buffer
+//                (replaces T1/T2/T4/T5/T6: down_sitelp_pallas,
+//                down_pass_pallas, stream_pass in its three modes)
 //   root_sitelp  root fold of leaf 0, weighted root sum, log, scale and
 //                invariant-site logaddexp -> site log-likelihoods (T1/T4 tail)
-//   up_step      one reverse schedule step: outside partial E per child edge
-//                and UP per internal child, each rescaled        (T3/T7/T8)
+//   up_pass      the whole pre-order sweep in one launch: outside partial E
+//                per child edge and UP per internal child, each rescaled
+//                (T3/T7 and the sweep of T8: up_pass_pallas, stream_up_pass,
+//                stream_theta_pass)
 //   edge_theta   theta = (U^T E) * (V down) per edge, with its scale   (T8)
 //
 // Layout is the JAX package's, pattern-last everywhere:
@@ -17,23 +21,69 @@
 //   sc    [L + n_int, Pp] int32  scale counts
 //   tip   [L, S, Pp]             leaf partials (category independent)
 //   P     [E, C, S, S]           transition tensors
-// One thread owns one pattern of one node (or edge) and loops over the node's
-// C*S values itself, so the per-pattern rescale max over all C*S values needs
-// no cross-thread reduction, and neighbouring threads touch neighbouring
-// addresses (coalesced loads and stores).
+//   step_node [n_steps, G] int32 level steps of tree/schedule.py, padded
+//                                with n_int
+// One thread owns one pattern of one node (or edge) and loops over the
+// node's C*S values itself, so the per-pattern rescale max over all C*S
+// values needs no cross-thread reduction.
 //
-// What bounds them on the card: memory bandwidth. A DNA step reads two child
-// partials and writes one (C*S*3 values per pattern) for 2*C*S*S
-// multiply-adds: under 2 flops per byte in float32 at S=4, far below the
-// H100's ~20 flop/byte float32 ridge. The design therefore moves each value
-// once: the S x S block of each category is contracted directly (no
-// block-diagonal [128, 128] operator as on the TPU, which did 32x the useful
-// work for DNA), transition matrices are read through the read-only cache
-// (every thread of a block reads the same edge, so those loads broadcast),
-// and the child column is held in registers across the x loop.
+// The passes walk the tree inside the launch, as every Pallas pass did.
+// Patterns are independent, so the grid cuts them into tiles of kTile = 32
+// and each block walks all level steps for its tile (in reverse for
+// up_pass), with one __syncthreads() between steps: a step reads rows that
+// other warps of the block wrote in earlier steps, and nothing crosses
+// blocks, so no grid-wide synchronisation is needed. Within a step, warp w
+// takes node slots w, w + kWarps, ... (up_pass: (slot, child) items), so
+// the 32 lanes of a warp are 32 consecutive patterns of one node: loads and
+// stores are coalesced and every lane reads the same transition matrices.
+// A warp stages its slot's two matrix sets (2*C*S*S values) in shared
+// memory when kWarps of them fit in kStageBytes (DNA always; LG+G4 in
+// float32 would need 102 KB, and there the matrices are read through the
+// cache). Each column is written once, already rescaled: at S <= 4 and
+// C <= kRegCats the column stays in registers until its max is known;
+// wider columns are computed twice, once for the max and once to store,
+// which costs arithmetic the card has to spare instead of a second trip
+// through device memory (for DNA the register column is 8-24% faster,
+// PERF.md). up_pass takes UP(child) = P_k^T E from the E it holds in
+// registers (DNA); a wider column computes E twice (max, then store) and
+// UP's max from the E of the second sweep, then stores UP from the E it
+// has just stored, read back by the same thread, rather than compute E a
+// third time (for LG+G4 at 64 x 4096 the read-back took the float32 up
+// pass from 3.15 to 2.91 ms; PERF.md). E's store sweep and UP's loops
+// over states are unrolled up to S = 20, E's max sweep is not (unrolled it
+// was slower), and the codon width keeps its columns in local memory
+// rather than unroll 64 x 64 products. Rows written earlier
+// in the same launch (all and sc in down_pass, up and upsc in up_pass) are
+// read with plain loads or cp.async.ca, both through L1, never through the
+// read-only __ldg path, which may return stale lines within one launch.
 //
-// The kernels allocate nothing, never synchronise, and launch on the stream
-// they are given. Each extern "C" launcher returns cudaGetLastError().
+// Prefetch (float32, S <= 4: DNA): a slot's inputs, its two matrix sets,
+// two columns (down: the children; up: UP(node) and the sibling) and two
+// scale counts, are issued as cp.async copies into the warp's buffer in
+// shared memory, each lane its own pattern, and waited for once; the next
+// slot's copies are issued as soon as the warp is done with the buffer.
+// Plain loads of a slot's columns came in several dependent round trips
+// (one per category and child), which bound the narrow steps of a deep
+// tree. One buffer (38 KB a block with the matrices) keeps 4 blocks per
+// SM; two would not. On the H100 it took 1000 x 16384 from 1.47 to 1.39
+// ms down and 4.06 to 2.96 ms up, the flagship's up pass from 0.042 to
+// 0.035 ms, and cost the flagship's down pass 0.024 -> 0.026 ms
+// (PERF.md). float64 and wider states keep plain loads: their buffers
+// would not leave room for 4 blocks per SM.
+//
+// What bounds them on the card: memory bandwidth, and at the narrow steps
+// of a deep tree the latency of each step's dependent loads. A DNA step
+// reads two child partials and writes one (C*S*3 values per pattern) for
+// 2*C*S*S multiply-adds: under 2 flops per byte in float32 at S = 4 and
+// about 10 at S = 20, below the H100's float32 ridge of about 20 (67
+// TFLOP/s at 3.35 TB/s). So there is no work for tensor cores (and TF32 is
+// off by the precision policy, ops/prec.py); the design moves each value
+// once per pass and keeps one block's steps back to back without a launch
+// or a host round trip between them.
+//
+// The kernels allocate nothing, never synchronise the device, and launch on
+// the stream they are given. Each extern "C" launcher returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -41,7 +91,23 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // root_sitelp, edge_theta: one thread per pattern
+constexpr int kTile = 32;      // patterns per block of the passes: one warp wide
+constexpr int kWarps = 8;      // warps per block of the passes
+// __launch_bounds__ minimum of resident blocks per SM of the S <= 4 passes:
+// 4 caps a thread at 64 registers, so all 512 blocks of a 16384-pattern
+// pass are resident at once (one wave); with 2-3 resident blocks the pass
+// runs in two waves and took 1.5x (down) to 2.5x (up) as long on the H100
+// (tools/torch_pass_variants.py)
+constexpr int kMinBlocks = 4;
+// ... and of the protein and codon instances (S > 4): their columns need
+// far more than 64 registers, and held to 4 blocks they spill; with no
+// minimum the LG+G4 passes at 64 x 4096 ran 1.2x to 1.7x (float32) and
+// 1.7x to 2.8x (float64) faster
+constexpr int kMinBlocksWide = 1;
+constexpr int kRegCats = 4;    // categories whose S <= 4 column stays in registers
+constexpr size_t kStageBytes = 48 * 1024;  // shared memory for staged matrices (and buffers)
+constexpr bool kPrefetch = true;  // float S <= 4 passes: inputs by cp.async into buffers
 
 // Rescale constants of ops/pruning.scaling_consts: B = 30 for float32,
 // B = 256 for float64; partials are kept in [2^-B, 1].
@@ -82,19 +148,8 @@ __device__ __forceinline__ T logaddexp(T a, T b) {
   return m + dlog1p(dexp(-dabs(a - b)));
 }
 
-// Column (c, 0..S-1) of pattern p of unified row `src`: tips are read from
-// the compact tip rows, internal nodes from the unified buffer.
-template <typename T, int SMAX>
-__device__ __forceinline__ void load_column(T (&v)[SMAX], const T* __restrict__ tip,
-                                            const T* __restrict__ all, int src, int L,
-                                            int c, int S, size_t CS, size_t Pp, int p) {
-  const T* base = src < L ? tip + (size_t)src * S * Pp
-                          : all + ((size_t)src * CS + (size_t)c * S) * Pp;
-#pragma unroll
-  for (int y = 0; y < SMAX; ++y) v[y] = y < S ? __ldg(base + (size_t)y * Pp + p) : T(0);
-}
-
-// out[x] = sum_y M[x, y] * v[y] for row x of an S x S matrix.
+// out[x] = sum_y M[x, y] * v[y] for row x of an S x S matrix in device
+// memory (read-only for the whole launch).
 template <typename T, int SMAX>
 __device__ __forceinline__ T row_dot(const T* __restrict__ M, const T (&v)[SMAX], int x,
                                      int S) {
@@ -116,48 +171,392 @@ __device__ __forceinline__ T col_dot(const T* __restrict__ M, const T (&v)[SMAX]
   return acc;
 }
 
-// Multiply the C*S values of one node-pattern column by 2^B when their max
-// fell below 2^-B; returns 1 when it did (the scale-count increment).
+// row_dot for a matrix that is staged in shared memory or read in place
+// (a generic pointer; plain loads).
+template <typename T, int SMAX>
+__device__ __forceinline__ T row_dot_s(const T* M, const T* v, int x, int S) {
+  T acc = 0;
+#pragma unroll
+  for (int y = 0; y < SMAX; ++y)
+    if (y < S) acc += M[x * S + y] * v[y];
+  return acc;
+}
+
+template <typename T, int SMAX>
+__device__ __forceinline__ T col_dot_s(const T* M, const T* v, int y, int S) {
+  T acc = 0;
+#pragma unroll
+  for (int x = 0; x < SMAX; ++x)
+    if (x < S) acc += M[x * S + y] * v[x];
+  return acc;
+}
+
+// One [C, S] column at one pattern: value (c, y) at base[c * cs + y * ys]
+// (cs = 0 for a tip, whose partial does not depend on the category).
 template <typename T>
-__device__ __forceinline__ int rescale_column(T* col, T mx, size_t CS, size_t Pp) {
-  if (!(mx < Scaling<T>::thresh)) return 0;
-  for (size_t i = 0; i < CS; ++i) col[i * Pp] *= Scaling<T>::factor;
-  return 1;
+struct Col {
+  const T* base;
+  size_t cs, ys;
+};
+
+// Column of unified row `src` at pattern p in device memory: tips from the
+// compact tip rows, internal nodes from the unified buffer. Read with plain
+// loads: down_pass writes those rows in the same launch.
+template <typename T>
+__device__ __forceinline__ Col<T> child_col(const T* tip, const T* all, int src, int L, int S,
+                                            size_t CS, size_t Pp, int p) {
+  if (src < L) return {tip + (size_t)src * S * Pp + p, 0, Pp};
+  return {all + (size_t)src * CS * Pp + p, (size_t)S * Pp, Pp};
+}
+
+// The same column as copied into a warp's shared-memory buffer: row r of it
+// (r = c * S + y; a tip has S rows) at buf[r * kTile + lane].
+template <typename T>
+__device__ __forceinline__ Col<T> buffer_col(const T* buf, bool is_tip, int S, int lane) {
+  return {buf + lane, is_tip ? 0 : (size_t)S * kTile, (size_t)kTile};
+}
+
+template <typename T, int SMAX>
+__device__ __forceinline__ void load_col(T (&v)[SMAX], const Col<T>& col, int c, int S) {
+  const T* b = col.base + c * col.cs;
+#pragma unroll
+  for (int y = 0; y < SMAX; ++y) v[y] = y < S ? b[y * col.ys] : T(0);
+}
+
+// cp.async of one value from device to shared memory, through L1 like the
+// plain loads it replaces (never the read-only path). Completion is waited
+// for by cp_async_wait(); the mock build copies at once.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// Copies a column of `rows` rows (g: its view in device memory) into a
+// warp's buffer, each lane its own pattern.
+template <typename T>
+__device__ __forceinline__ void prefetch_col(T* buf, const Col<T>& g, int rows, int lane) {
+  for (int r = 0; r < rows; ++r) cp_async(buf + r * kTile + lane, g.base + r * g.ys);
+}
+
+// The matrix sets of edges e0 and e1 for one warp's node slot: copied into
+// the warp's shared-memory slice (then M0 = slice, M1 = slice + C*S*S), or
+// pointed at in device memory when the slices do not fit. The whole warp
+// calls it; the caller __syncwarp()s before the slice is refilled.
+template <typename T>
+__device__ __forceinline__ void warp_matrices(const T* __restrict__ P, int e0, int e1,
+                                              size_t CSS, T* slice, bool staged,
+                                              const T*& M0, const T*& M1, int lane) {
+  const T* g0 = P + (size_t)e0 * CSS;
+  const T* g1 = P + (size_t)e1 * CSS;
+  if (!staged) {
+    M0 = g0;
+    M1 = g1;
+    return;
+  }
+  for (size_t i = lane; i < CSS; i += 32) {
+    slice[i] = __ldg(g0 + i);
+    slice[CSS + i] = __ldg(g1 + i);
+  }
+  __syncwarp();
+  M0 = slice;
+  M1 = slice + CSS;
+}
+
+// The same, issued as cp.async copies (waited for with the columns).
+template <typename T>
+__device__ __forceinline__ void prefetch_matrices(const T* __restrict__ P, int e0, int e1,
+                                                  size_t CSS, T* slice, int lane) {
+  const T* g0 = P + (size_t)e0 * CSS;
+  const T* g1 = P + (size_t)e1 * CSS;
+  for (size_t i = lane; i < CSS; i += 32) {
+    cp_async(slice + i, g0 + i);
+    cp_async(slice + CSS + i, g1 + i);
+  }
+}
+
+// The first item i, i + kWarps, ... (from i on) of a step row whose node
+// (row[i >> SHIFT]) is not a pad slot; n if there is none.
+template <int SHIFT>
+__device__ __forceinline__ int next_item(const int* row, int i, int n, int n_int) {
+  while (i < n && row[i >> SHIFT] >= n_int) i += kWarps;
+  return i;
+}
+
+// ------------------------------------------------- down_pass column body
+// A node's partial at one pattern: msg_k = P_k . child_k per category, the
+// product, the max over all C*S values, stored once already rescaled at
+// out[(c * S + x) * Pp], and its scale count (the children's counts + 1 if
+// it was rescaled).
+template <typename T, int SMAX, bool REG>
+__device__ __forceinline__ void down_column(const T* M0, const T* M1, const Col<T>& a_col,
+                                            const Col<T>& b_col, int count, T* out,
+                                            int* sc_out, int C, int S, size_t Pp) {
+  const size_t SS = (size_t)S * S;
+  T mx = 0;
+  bool low;
+  if constexpr (REG) {  // S <= SMAX = 4 and C <= kRegCats: the column in registers
+    T col[kRegCats * SMAX];
+#pragma unroll
+    for (int c = 0; c < kRegCats; ++c) {
+      if (c < C) {
+        T a[SMAX], b[SMAX];
+        load_col(a, a_col, c, S);
+        load_col(b, b_col, c, S);
+#pragma unroll
+        for (int x = 0; x < SMAX; ++x) {
+          const T v = x < S ? row_dot_s<T, SMAX>(M0 + c * SS, a, x, S) *
+                                  row_dot_s<T, SMAX>(M1 + c * SS, b, x, S)
+                            : T(0);
+          col[c * SMAX + x] = v;
+          mx = v > mx ? v : mx;
+        }
+      }
+    }
+    low = mx < Scaling<T>::thresh;
+    const T f = low ? Scaling<T>::factor : T(1);
+#pragma unroll
+    for (int c = 0; c < kRegCats; ++c)
+#pragma unroll
+      for (int x = 0; x < SMAX; ++x)
+        if (c < C && x < S) out[(size_t)(c * S + x) * Pp] = col[c * SMAX + x] * f;
+  } else {  // first sweep: the max; second sweep: the same products, stored
+    for (int c = 0; c < C; ++c) {
+      T a[SMAX], b[SMAX];
+      load_col(a, a_col, c, S);
+      load_col(b, b_col, c, S);
+      for (int x = 0; x < S; ++x) {
+        const T v = row_dot_s<T, SMAX>(M0 + c * SS, a, x, S) *
+                    row_dot_s<T, SMAX>(M1 + c * SS, b, x, S);
+        mx = v > mx ? v : mx;
+      }
+    }
+    low = mx < Scaling<T>::thresh;
+    const T f = low ? Scaling<T>::factor : T(1);
+    for (int c = 0; c < C; ++c) {
+      T a[SMAX], b[SMAX];
+      load_col(a, a_col, c, S);
+      load_col(b, b_col, c, S);
+      for (int x = 0; x < S; ++x)
+        out[(size_t)(c * S + x) * Pp] = row_dot_s<T, SMAX>(M0 + c * SS, a, x, S) *
+                                        row_dot_s<T, SMAX>(M1 + c * SS, b, x, S) * f;
+    }
+  }
+  *sc_out = count + (low ? 1 : 0);
+}
+
+// E values (one category) of a wide column, rescaled by fe: ev[x] =
+// upn[x * ys] * (Mj . b)[x] * fe.
+template <typename T, int SMAX>
+__device__ __forceinline__ void e_column(T (&ev)[SMAX], const T* upn, size_t ys, const T* Mj,
+                                         const T (&b)[SMAX], int S, T fe) {
+#pragma unroll (SMAX <= 20 ? SMAX : 1)
+  for (int x = 0; x < SMAX; ++x)
+    ev[x] = x < S ? upn[x * ys] * row_dot_s<T, SMAX>(Mj, b, x, S) * fe : T(0);
+}
+
+// --------------------------------------------------- up_pass column body
+// Child slot k of a node at one pattern: E of edge ek = UP(node) x msg of
+// the sibling (msg = P_j . down(sibling)), rescaled, stored at Ek with
+// scale count e_base (+1); then, for an internal child, UP(child) =
+// P_k^T E, rescaled, stored at uc with scale count esc (+1). Mj/Mk: the
+// matrix sets of the sibling's and the child's edges; upn: UP(node).
+template <typename T, int SMAX, bool REG>
+__device__ __forceinline__ void up_column(const T* Mj, const T* Mk, const Col<T>& upn,
+                                          const Col<T>& b_col, int e_base, T* Ek, int* esc_out,
+                                          T* uc, int* upsc_out, int C, int S, size_t Pp) {
+  const size_t SS = (size_t)S * S;
+  const bool internal = uc != nullptr;
+  T mx = 0;
+  if constexpr (REG) {  // S <= SMAX = 4 and C <= kRegCats: E and UP in registers
+    T e[kRegCats * SMAX];
+#pragma unroll
+    for (int c = 0; c < kRegCats; ++c) {
+      if (c < C) {
+        T b[SMAX];
+        load_col(b, b_col, c, S);
+#pragma unroll
+        for (int x = 0; x < SMAX; ++x) {
+          const T v = x < S ? upn.base[c * upn.cs + x * upn.ys] *
+                                  row_dot_s<T, SMAX>(Mj + c * SS, b, x, S)
+                            : T(0);
+          e[c * SMAX + x] = v;
+          mx = v > mx ? v : mx;
+        }
+      }
+    }
+    const bool low_e = mx < Scaling<T>::thresh;
+    const T fe = low_e ? Scaling<T>::factor : T(1);
+#pragma unroll
+    for (int c = 0; c < kRegCats; ++c)
+#pragma unroll
+      for (int x = 0; x < SMAX; ++x)
+        if (c < C && x < S) {
+          e[c * SMAX + x] *= fe;
+          Ek[(size_t)(c * S + x) * Pp] = e[c * SMAX + x];
+        }
+    const int e_count = e_base + (low_e ? 1 : 0);
+    *esc_out = e_count;
+    if (!internal) return;  // leaf child: no outside partial to propagate
+    T u[kRegCats * SMAX];
+    mx = 0;
+#pragma unroll
+    for (int c = 0; c < kRegCats; ++c)
+#pragma unroll
+      for (int y = 0; y < SMAX; ++y) {
+        const T v = (c < C && y < S) ? col_dot_s<T, SMAX>(Mk + c * SS, e + c * SMAX, y, S)
+                                     : T(0);
+        u[c * SMAX + y] = v;
+        mx = v > mx ? v : mx;
+      }
+    const bool low_u = mx < Scaling<T>::thresh;
+    const T fu = low_u ? Scaling<T>::factor : T(1);
+#pragma unroll
+    for (int c = 0; c < kRegCats; ++c)
+#pragma unroll
+      for (int y = 0; y < SMAX; ++y)
+        if (c < C && y < S) uc[(size_t)(c * S + y) * Pp] = u[c * SMAX + y] * fu;
+    *upsc_out = e_count + (low_u ? 1 : 0);
+  } else {  // E's max; E stored and UP's max; UP stored from E read back
+    for (int c = 0; c < C; ++c) {
+      T b[SMAX];
+      load_col(b, b_col, c, S);
+      for (int x = 0; x < S; ++x) {
+        const T v = upn.base[c * upn.cs + x * upn.ys] * row_dot_s<T, SMAX>(Mj + c * SS, b, x, S);
+        mx = v > mx ? v : mx;
+      }
+    }
+    const bool low_e = mx < Scaling<T>::thresh;
+    const T fe = low_e ? Scaling<T>::factor : T(1);
+    const int e_count = e_base + (low_e ? 1 : 0);
+    T mu = 0;
+    for (int c = 0; c < C; ++c) {
+      T b[SMAX], ev[SMAX];
+      load_col(b, b_col, c, S);
+      e_column(ev, upn.base + c * upn.cs, upn.ys, Mj + c * SS, b, S, fe);
+      for (int x = 0; x < S; ++x) Ek[(size_t)(c * S + x) * Pp] = ev[x];
+      if (internal) {
+#pragma unroll (SMAX <= 20 ? SMAX : 1)
+        for (int y = 0; y < SMAX; ++y) {
+          const T v = y < S ? col_dot_s<T, SMAX>(Mk + c * SS, ev, y, S) : T(0);
+          mu = v > mu ? v : mu;
+        }
+      }
+    }
+    *esc_out = e_count;
+    if (!internal) return;
+    const bool low_u = mu < Scaling<T>::thresh;
+    const T fu = low_u ? Scaling<T>::factor : T(1);
+    for (int c = 0; c < C; ++c) {
+      T ev[SMAX];  // the E this thread just stored (plain loads)
+      for (int x = 0; x < SMAX; ++x) ev[x] = x < S ? Ek[(size_t)(c * S + x) * Pp] : T(0);
+#pragma unroll (SMAX <= 20 ? SMAX : 1)
+      for (int y = 0; y < SMAX; ++y)
+        if (y < S) uc[(size_t)(c * S + y) * Pp] = col_dot_s<T, SMAX>(Mk + c * SS, ev, y, S) * fu;
+    }
+    *upsc_out = e_count + (low_u ? 1 : 0);
+  }
+}
+
+// Shared memory of one warp of a pass block, in values of T: its slot's two
+// matrix sets, and with prefetch (float only) also two columns of kTile
+// patterns and their two scale counts.
+__host__ __device__ constexpr size_t warp_values(size_t C, size_t S, bool pf) {
+  return 2 * C * S * S + (pf ? 2 * C * S * kTile + 2 * kTile : 0);
 }
 
 // ------------------------------------------------------------------ H1
-// grid (ceil(Pp / kThreads), G): block (., g) handles node step_row[g].
-template <typename T, int SMAX>
-__global__ void down_step_kernel(const T* __restrict__ P, const T* __restrict__ tip,
-                                 T* __restrict__ all, int* __restrict__ sc,
-                                 const int* __restrict__ child_src,
-                                 const int* __restrict__ child_edge,
-                                 const int* __restrict__ step_row, int n_int, int L, int C,
-                                 int S, int Pp) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= Pp) return;
-  const int nid = step_row[blockIdx.y];
-  if (nid >= n_int) return;  // pad slot (JAX drops this write; here it would fault)
-  const size_t CS = (size_t)C * S, P64 = (size_t)Pp;
-  const int s0 = child_src[2 * nid], s1 = child_src[2 * nid + 1];
-  const int e0 = child_edge[2 * nid], e1 = child_edge[2 * nid + 1];
-  const int count = (s0 >= L ? sc[(size_t)s0 * P64 + p] : 0) +
-                    (s1 >= L ? sc[(size_t)s1 * P64 + p] : 0);
-  T* out = all + (size_t)(L + nid) * CS * P64 + p;
-  T mx = 0;
-  for (int c = 0; c < C; ++c) {
-    T a[SMAX], b[SMAX];
-    load_column(a, tip, all, s0, L, c, S, CS, P64, p);
-    load_column(b, tip, all, s1, L, c, S, CS, P64, p);
-    const T* P0 = P + ((size_t)e0 * C + c) * S * S;
-    const T* P1 = P + ((size_t)e1 * C + c) * S * S;
-    for (int x = 0; x < S; ++x) {
-      const T v = row_dot(P0, a, x, S) * row_dot(P1, b, x, S);
-      out[(size_t)(c * S + x) * P64] = v;
-      mx = v > mx ? v : mx;
+// grid (ceil(Pp / kTile)), block kTile * kWarps: block b walks every level
+// step for patterns [b * kTile, (b + 1) * kTile); warp w takes the node
+// slots w, w + kWarps, ... of each step. PF: each slot's matrices, child
+// columns and counts arrive by cp.async into the warp's buffer, the next
+// slot's issued as soon as the current one is done with the buffer.
+template <typename T, int SMAX, bool REG, bool PF>
+__global__ void __launch_bounds__(kTile* kWarps, SMAX <= 4 ? kMinBlocks : kMinBlocksWide)
+    down_pass_kernel(const T* __restrict__ P, const T* __restrict__ tip, T* all, int* sc,
+                     const int* __restrict__ child_src, const int* __restrict__ child_edge,
+                     const int* __restrict__ step_node, int n_steps, int G, int n_int, int L,
+                     int C, int S, int Pp, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kTile + lane;
+  const bool live = p < Pp;
+  const size_t CSS = (size_t)C * S * S, CS = (size_t)C * S, P64 = (size_t)Pp;
+  T* slice = reinterpret_cast<T*>(smem) + (size_t)warp * warp_values(C, S, PF);
+  T* cols = slice + 2 * CSS;
+  int* cnt = reinterpret_cast<int*>(cols + 2 * CS * kTile);
+  auto fetch = [&](int nid) {  // PF: issue the copies of node nid's inputs
+    prefetch_matrices(P, child_edge[2 * nid], child_edge[2 * nid + 1], CSS, slice, lane);
+    if (live)
+      for (int k = 0; k < 2; ++k) {
+        const int src = child_src[2 * nid + k];
+        prefetch_col(cols + k * CS * kTile, child_col(tip, all, src, L, S, CS, P64, p),
+                     src < L ? S : (int)CS, lane);
+        if (src >= L)
+          cp_async(cnt + k * kTile + lane, sc + (size_t)src * P64 + p);
+        else
+          cnt[k * kTile + lane] = 0;
+      }
+    cp_async_commit();
+  };
+  for (int s = 0; s < n_steps; ++s) {
+    const int* row = step_node + (size_t)s * G;
+    int g = next_item<0>(row, warp, G, n_int);
+    if constexpr (PF)
+      if (g < G) fetch(row[g]);
+    while (g < G) {
+      const int nid = row[g];
+      const int gn = next_item<0>(row, g + kWarps, G, n_int);
+      const int s0 = child_src[2 * nid], s1 = child_src[2 * nid + 1];
+      const T *M0, *M1;
+      Col<T> a, b;
+      int count = 0;
+      if constexpr (PF) {
+        cp_async_wait();
+        __syncwarp();  // the matrices other lanes copied are in place
+        M0 = slice;
+        M1 = slice + CSS;
+        a = buffer_col<T>(cols, s0 < L, S, lane);
+        b = buffer_col<T>(cols + CS * kTile, s1 < L, S, lane);
+        if (live) count = cnt[lane] + cnt[kTile + lane];
+      } else {
+        warp_matrices(P, child_edge[2 * nid], child_edge[2 * nid + 1], CSS, slice,
+                      staged != 0, M0, M1, lane);
+        a = child_col(tip, all, s0, L, S, CS, P64, p);
+        b = child_col(tip, all, s1, L, S, CS, P64, p);
+        if (live)
+          count = (s0 >= L ? sc[(size_t)s0 * P64 + p] : 0) +
+                  (s1 >= L ? sc[(size_t)s1 * P64 + p] : 0);
+      }
+      if (live)
+        down_column<T, SMAX, REG>(M0, M1, a, b, count, all + (size_t)(L + nid) * CS * P64 + p,
+                                  sc + (size_t)(L + nid) * P64 + p, C, S, P64);
+      if (PF || staged) __syncwarp();  // every lane is done with the buffer
+      if constexpr (PF)
+        if (gn < G) fetch(row[gn]);
+      g = gn;
     }
+    __syncthreads();  // this step's rows are visible to the next step
   }
-  sc[(size_t)(L + nid) * P64 + p] = count + rescale_column(out, mx, CS, P64);
 }
 
 // ------------------------------------------------------------------ H2
@@ -190,57 +589,88 @@ __global__ void root_sitelp_kernel(const T* __restrict__ P0, const T* __restrict
 }
 
 // ------------------------------------------------------------------ H3
-// grid (ceil(Pp / kThreads), G, 2): block (., g, k) handles child slot k of
-// node step_row[g]. E of edge k = UP(node) * msg(sibling); then, for an
-// internal child, UP(child) = P_k^T E.
-template <typename T, int SMAX>
-__global__ void up_step_kernel(const T* __restrict__ P, const T* __restrict__ tip,
-                               const T* __restrict__ all, const int* __restrict__ dsc,
-                               T* __restrict__ up, int* __restrict__ upsc, T* __restrict__ E,
-                               int* __restrict__ esc, const int* __restrict__ child_src,
-                               const int* __restrict__ child_edge,
-                               const int* __restrict__ step_row, int n_int, int L, int C,
-                               int S, int Pp) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= Pp) return;
-  const int nid = step_row[blockIdx.y];
-  if (nid >= n_int) return;  // pad slot
-  const int k = blockIdx.z, j = 1 - k;
-  const size_t CS = (size_t)C * S, P64 = (size_t)Pp;
-  const int sk = child_src[2 * nid + k], sj = child_src[2 * nid + j];
-  const int ek = child_edge[2 * nid + k], ej = child_edge[2 * nid + j];
-  const T* upn = up + (size_t)nid * CS * P64 + p;
-  T* Ek = E + (size_t)ek * CS * P64 + p;
-  T mx = 0;
-  for (int c = 0; c < C; ++c) {
-    T b[SMAX];
-    load_column(b, tip, all, sj, L, c, S, CS, P64, p);
-    const T* Pj = P + ((size_t)ej * C + c) * S * S;
-    for (int x = 0; x < S; ++x) {
-      const size_t off = (size_t)(c * S + x) * P64;
-      const T v = upn[off] * row_dot(Pj, b, x, S);
-      Ek[off] = v;
-      mx = v > mx ? v : mx;
+// grid (ceil(Pp / kTile)), block kTile * kWarps: block b walks the level
+// steps in reverse for its pattern tile; warp w takes the (slot, child)
+// items w, w + kWarps, ... of each step. UP of the root and E of edge 0
+// are set before the launch (ops/pruning.up_buffers). PF as in down_pass:
+// an item's inputs are the two matrix sets, UP(node), the sibling's down
+// column and their two scale counts.
+template <typename T, int SMAX, bool REG, bool PF>
+__global__ void __launch_bounds__(kTile* kWarps, SMAX <= 4 ? kMinBlocks : kMinBlocksWide)
+    up_pass_kernel(const T* __restrict__ P, const T* __restrict__ tip,
+                   const T* __restrict__ all, const int* __restrict__ dsc, T* up, int* upsc,
+                   T* E, int* esc, const int* __restrict__ child_src,
+                   const int* __restrict__ child_edge, const int* __restrict__ step_node,
+                   int n_steps, int G, int n_int, int L, int C, int S, int Pp, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kTile + lane;
+  const bool live = p < Pp;
+  const size_t CSS = (size_t)C * S * S, CS = (size_t)C * S, P64 = (size_t)Pp;
+  T* slice = reinterpret_cast<T*>(smem) + (size_t)warp * warp_values(C, S, PF);
+  T* cols = slice + 2 * CSS;
+  int* cnt = reinterpret_cast<int*>(cols + 2 * CS * kTile);
+  const int n_items = 2 * G;
+  auto fetch = [&](const int* row, int item) {  // PF: issue the copies of item's inputs
+    const int nid = row[item >> 1], k = item & 1, j = 1 - k;
+    prefetch_matrices(P, child_edge[2 * nid + j], child_edge[2 * nid + k], CSS, slice, lane);
+    if (live) {
+      const int sj = child_src[2 * nid + j];
+      // UP(node): written by this block in an earlier step, or before the launch
+      prefetch_col(cols, Col<T>{up + (size_t)nid * CS * P64 + p, (size_t)S * P64, P64},
+                   (int)CS, lane);
+      prefetch_col(cols + CS * kTile, child_col(tip, all, sj, L, S, CS, P64, p),
+                   sj < L ? S : (int)CS, lane);
+      cp_async(cnt + lane, upsc + (size_t)nid * P64 + p);
+      if (sj >= L)
+        cp_async(cnt + kTile + lane, dsc + (size_t)sj * P64 + p);
+      else
+        cnt[kTile + lane] = 0;
     }
-  }
-  const int e_count = upsc[(size_t)nid * P64 + p] + (sj >= L ? dsc[(size_t)sj * P64 + p] : 0) +
-                      rescale_column(Ek, mx, CS, P64);
-  esc[(size_t)ek * P64 + p] = e_count;
-  if (sk < L) return;  // leaf child: no outside partial to propagate
-  T* uc = up + (size_t)(sk - L) * CS * P64 + p;
-  mx = 0;
-  for (int c = 0; c < C; ++c) {
-    T ev[SMAX];
-#pragma unroll
-    for (int x = 0; x < SMAX; ++x) ev[x] = x < S ? Ek[(size_t)(c * S + x) * P64] : T(0);
-    const T* Pk = P + ((size_t)ek * C + c) * S * S;
-    for (int y = 0; y < S; ++y) {
-      const T v = col_dot(Pk, ev, y, S);
-      uc[(size_t)(c * S + y) * P64] = v;
-      mx = v > mx ? v : mx;
+    cp_async_commit();
+  };
+  for (int s = n_steps - 1; s >= 0; --s) {
+    const int* row = step_node + (size_t)s * G;
+    int it = next_item<1>(row, warp, n_items, n_int);
+    if constexpr (PF)
+      if (it < n_items) fetch(row, it);
+    while (it < n_items) {
+      const int nid = row[it >> 1], k = it & 1, j = 1 - k;
+      const int itn = next_item<1>(row, it + kWarps, n_items, n_int);
+      const int sk = child_src[2 * nid + k], sj = child_src[2 * nid + j];
+      const int ek = child_edge[2 * nid + k];
+      const T *Mj, *Mk;
+      Col<T> upn, b;
+      int e_base = 0;
+      if constexpr (PF) {
+        cp_async_wait();
+        __syncwarp();  // the matrices other lanes copied are in place
+        Mj = slice;
+        Mk = slice + CSS;
+        upn = buffer_col<T>(cols, false, S, lane);
+        b = buffer_col<T>(cols + CS * kTile, sj < L, S, lane);
+        if (live) e_base = cnt[lane] + cnt[kTile + lane];
+      } else {
+        warp_matrices(P, child_edge[2 * nid + j], ek, CSS, slice, staged != 0, Mj, Mk, lane);
+        upn = Col<T>{up + (size_t)nid * CS * P64 + p, (size_t)S * P64, P64};
+        b = child_col(tip, all, sj, L, S, CS, P64, p);
+        if (live)
+          e_base = upsc[(size_t)nid * P64 + p] + (sj >= L ? dsc[(size_t)sj * P64 + p] : 0);
+      }
+      if (live) {
+        const bool internal = sk >= L;
+        up_column<T, SMAX, REG>(
+            Mj, Mk, upn, b, e_base, E + (size_t)ek * CS * P64 + p, esc + (size_t)ek * P64 + p,
+            internal ? up + (size_t)(sk - L) * CS * P64 + p : nullptr,
+            internal ? upsc + (size_t)(sk - L) * P64 + p : nullptr, C, S, P64);
+      }
+      if (PF || staged) __syncwarp();  // every lane is done with the buffer
+      if constexpr (PF)
+        if (itn < n_items) fetch(row, itn);
+      it = itn;
     }
+    __syncthreads();  // this step's UP rows are visible to the next step
   }
-  upsc[(size_t)(sk - L) * P64 + p] = e_count + rescale_column(uc, mx, CS, P64);
 }
 
 // ------------------------------------------------------------------ H4
@@ -278,28 +708,71 @@ __global__ void edge_theta_kernel(const T* __restrict__ E, const int* __restrict
 
 inline unsigned pattern_blocks(int Pp) { return (unsigned)((Pp + kThreads - 1) / kThreads); }
 
-// Register column width: the smallest of 4 (DNA), 20 (protein), 64 (codon)
-// that holds S. Larger S is refused (the wrapper raises before launching).
+// Block shape and dynamic shared memory of the passes. The matrices are
+// staged when every warp's slice fits in kStageBytes; the prefetch buffers
+// are added (float only, S <= 4) when they fit there too.
+struct PassShape {
+  dim3 grid, block;
+  size_t shm;
+  int staged;
+  bool pf;
+};
+
 template <typename T>
-int launch_down_step(const void* P, const void* tip, void* all, void* sc, const void* child_src,
-                     const void* child_edge, const void* step_row, int G, int n_int, int L,
-                     int C, int S, int Pp, cudaStream_t st) {
-  const dim3 grid(pattern_blocks(Pp), G), block(kThreads);
-  const T* P_ = static_cast<const T*>(P);
-  const T* tip_ = static_cast<const T*>(tip);
-  T* all_ = static_cast<T*>(all);
-  int* sc_ = static_cast<int*>(sc);
-  const int* cs = static_cast<const int*>(child_src);
-  const int* ce = static_cast<const int*>(child_edge);
-  const int* row = static_cast<const int*>(step_row);
-  if (S <= 4)
-    down_step_kernel<T, 4><<<grid, block, 0, st>>>(P_, tip_, all_, sc_, cs, ce, row, n_int, L, C, S, Pp);
-  else if (S <= 20)
-    down_step_kernel<T, 20><<<grid, block, 0, st>>>(P_, tip_, all_, sc_, cs, ce, row, n_int, L, C, S, Pp);
-  else if (S <= 64)
-    down_step_kernel<T, 64><<<grid, block, 0, st>>>(P_, tip_, all_, sc_, cs, ce, row, n_int, L, C, S, Pp);
-  else
-    return (int)cudaErrorInvalidValue;
+PassShape pass_shape(int Pp, int C, int S) {
+  PassShape ps;
+  ps.grid = dim3((unsigned)((Pp + kTile - 1) / kTile));
+  ps.block = dim3(kTile * kWarps);
+  const size_t pf_bytes = kWarps * warp_values(C, S, true) * sizeof(T);
+  const size_t bytes = kWarps * warp_values(C, S, false) * sizeof(T);
+  ps.pf = kPrefetch && sizeof(T) == 4 && S <= 4 && pf_bytes <= kStageBytes;
+  ps.staged = ps.pf || bytes <= kStageBytes;
+  ps.shm = ps.pf ? pf_bytes : ps.staged ? bytes : 0;
+  return ps;
+}
+
+// The pass kernel instance for S states: the register column width is the
+// smallest of 4 (DNA), 20 (protein), 64 (codon) that holds S; larger S is
+// refused (nullptr; the wrapper raises before launching). Prefetch
+// instances exist for float at S <= 4 only.
+#define IQ_PICK_PASS(KERNEL)                                                   \
+  if constexpr (kRegCats > 0)                                                 \
+    if (S <= 4 && C <= kRegCats) {                                            \
+      if constexpr (sizeof(T) == 4)                                           \
+        if (ps.pf) return KERNEL<T, 4, true, true>;                           \
+      return KERNEL<T, 4, true, false>;                                       \
+    }                                                                         \
+  if (S <= 4) {                                                               \
+    if constexpr (sizeof(T) == 4)                                             \
+      if (ps.pf) return KERNEL<T, 4, false, true>;                            \
+    return KERNEL<T, 4, false, false>;                                        \
+  }                                                                           \
+  if (S <= 20) return KERNEL<T, 20, false, false>;                            \
+  if (S <= 64) return KERNEL<T, 64, false, false>;                            \
+  return nullptr;
+
+template <typename T>
+auto pick_down_pass(int C, int S, const PassShape& ps) -> decltype(&down_pass_kernel<T, 4, true, false>) {
+  IQ_PICK_PASS(down_pass_kernel)
+}
+
+template <typename T>
+auto pick_up_pass(int C, int S, const PassShape& ps) -> decltype(&up_pass_kernel<T, 4, true, false>) {
+  IQ_PICK_PASS(up_pass_kernel)
+}
+
+template <typename T>
+int launch_down_pass(const void* P, const void* tip, void* all, void* sc, const void* child_src,
+                     const void* child_edge, const void* step_node, int n_steps, int G,
+                     int n_int, int L, int C, int S, int Pp, cudaStream_t st) {
+  const PassShape ps = pass_shape<T>(Pp, C, S);
+  const auto kernel = pick_down_pass<T>(C, S, ps);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  kernel<<<ps.grid, ps.block, ps.shm, st>>>(
+      static_cast<const T*>(P), static_cast<const T*>(tip), static_cast<T*>(all),
+      static_cast<int*>(sc), static_cast<const int*>(child_src),
+      static_cast<const int*>(child_edge), static_cast<const int*>(step_node), n_steps, G, n_int,
+      L, C, S, Pp, ps.staged);
   return (int)cudaGetLastError();
 }
 
@@ -328,30 +801,19 @@ int launch_root_sitelp(const void* P0, const void* tip0, const void* all, const 
 }
 
 template <typename T>
-int launch_up_step(const void* P, const void* tip, const void* all, const void* dsc, void* up,
+int launch_up_pass(const void* P, const void* tip, const void* all, const void* dsc, void* up,
                    void* upsc, void* E, void* esc, const void* child_src, const void* child_edge,
-                   const void* step_row, int G, int n_int, int L, int C, int S, int Pp,
-                   cudaStream_t st) {
-  const dim3 grid(pattern_blocks(Pp), G, 2), block(kThreads);
-  const T* P_ = static_cast<const T*>(P);
-  const T* tip_ = static_cast<const T*>(tip);
-  const T* all_ = static_cast<const T*>(all);
-  const int* dsc_ = static_cast<const int*>(dsc);
-  T* up_ = static_cast<T*>(up);
-  int* upsc_ = static_cast<int*>(upsc);
-  T* E_ = static_cast<T*>(E);
-  int* esc_ = static_cast<int*>(esc);
-  const int* cs = static_cast<const int*>(child_src);
-  const int* ce = static_cast<const int*>(child_edge);
-  const int* row = static_cast<const int*>(step_row);
-  if (S <= 4)
-    up_step_kernel<T, 4><<<grid, block, 0, st>>>(P_, tip_, all_, dsc_, up_, upsc_, E_, esc_, cs, ce, row, n_int, L, C, S, Pp);
-  else if (S <= 20)
-    up_step_kernel<T, 20><<<grid, block, 0, st>>>(P_, tip_, all_, dsc_, up_, upsc_, E_, esc_, cs, ce, row, n_int, L, C, S, Pp);
-  else if (S <= 64)
-    up_step_kernel<T, 64><<<grid, block, 0, st>>>(P_, tip_, all_, dsc_, up_, upsc_, E_, esc_, cs, ce, row, n_int, L, C, S, Pp);
-  else
-    return (int)cudaErrorInvalidValue;
+                   const void* step_node, int n_steps, int G, int n_int, int L, int C, int S,
+                   int Pp, cudaStream_t st) {
+  const PassShape ps = pass_shape<T>(Pp, C, S);
+  const auto kernel = pick_up_pass<T>(C, S, ps);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  kernel<<<ps.grid, ps.block, ps.shm, st>>>(
+      static_cast<const T*>(P), static_cast<const T*>(tip), static_cast<const T*>(all),
+      static_cast<const int*>(dsc), static_cast<T*>(up), static_cast<int*>(upsc),
+      static_cast<T*>(E), static_cast<int*>(esc), static_cast<const int*>(child_src),
+      static_cast<const int*>(child_edge), static_cast<const int*>(step_node), n_steps, G, n_int,
+      L, C, S, Pp, ps.staged);
   return (int)cudaGetLastError();
 }
 
@@ -385,13 +847,13 @@ int launch_edge_theta(const void* E, const void* esc, const void* all, const voi
 // ------------------------------------------------------------ C interface
 // Pointers and the stream arrive as void* (ctypes c_void_p), sizes as int.
 
-#define IQ_DOWN_STEP(SUFFIX, T)                                                              \
-  extern "C" int iq_down_step_##SUFFIX(const void* P, const void* tip, void* all, void* sc,  \
+#define IQ_DOWN_PASS(SUFFIX, T)                                                              \
+  extern "C" int iq_down_pass_##SUFFIX(const void* P, const void* tip, void* all, void* sc,  \
                                        const void* child_src, const void* child_edge,       \
-                                       const void* step_row, int G, int n_int, int L, int C, \
-                                       int S, int Pp, void* stream) {                       \
-    return launch_down_step<T>(P, tip, all, sc, child_src, child_edge, step_row, G, n_int,  \
-                               L, C, S, Pp, static_cast<cudaStream_t>(stream));             \
+                                       const void* step_node, int n_steps, int G, int n_int, \
+                                       int L, int C, int S, int Pp, void* stream) {         \
+    return launch_down_pass<T>(P, tip, all, sc, child_src, child_edge, step_node, n_steps,  \
+                               G, n_int, L, C, S, Pp, static_cast<cudaStream_t>(stream));   \
   }
 
 #define IQ_ROOT_SITELP(SUFFIX, T)                                                            \
@@ -404,15 +866,15 @@ int launch_edge_theta(const void* E, const void* esc, const void* all, const voi
                                  root_row, C, S, Pp, static_cast<cudaStream_t>(stream));    \
   }
 
-#define IQ_UP_STEP(SUFFIX, T)                                                                \
-  extern "C" int iq_up_step_##SUFFIX(const void* P, const void* tip, const void* all,        \
+#define IQ_UP_PASS(SUFFIX, T)                                                                \
+  extern "C" int iq_up_pass_##SUFFIX(const void* P, const void* tip, const void* all,        \
                                      const void* dsc, void* up, void* upsc, void* E,        \
                                      void* esc, const void* child_src,                      \
-                                     const void* child_edge, const void* step_row, int G,   \
-                                     int n_int, int L, int C, int S, int Pp,                \
-                                     void* stream) {                                        \
-    return launch_up_step<T>(P, tip, all, dsc, up, upsc, E, esc, child_src, child_edge,     \
-                             step_row, G, n_int, L, C, S, Pp,                               \
+                                     const void* child_edge, const void* step_node,         \
+                                     int n_steps, int G, int n_int, int L, int C, int S,    \
+                                     int Pp, void* stream) {                                \
+    return launch_up_pass<T>(P, tip, all, dsc, up, upsc, E, esc, child_src, child_edge,     \
+                             step_node, n_steps, G, n_int, L, C, S, Pp,                     \
                              static_cast<cudaStream_t>(stream));                            \
   }
 
@@ -426,11 +888,11 @@ int launch_edge_theta(const void* E, const void* esc, const void* all, const voi
                                 S, Pp, static_cast<cudaStream_t>(stream));                  \
   }
 
-IQ_DOWN_STEP(f32, float)
-IQ_DOWN_STEP(f64, double)
+IQ_DOWN_PASS(f32, float)
+IQ_DOWN_PASS(f64, double)
 IQ_ROOT_SITELP(f32, float)
 IQ_ROOT_SITELP(f64, double)
-IQ_UP_STEP(f32, float)
-IQ_UP_STEP(f64, double)
+IQ_UP_PASS(f32, float)
+IQ_UP_PASS(f64, double)
 IQ_EDGE_THETA(f32, float)
 IQ_EDGE_THETA(f64, double)

@@ -30,13 +30,13 @@ import hashlib
 import numpy as np
 import torch
 
-from iqtree2_tpu.data.alignment import Alignment
-from iqtree2_tpu.model.pack import ModelPack, build_model_pack
-from iqtree2_tpu.tree.schedule import (TreeSchedule, build_schedule,
-                                       write_blens_to_tree)
-from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu_torch.convert import pack_to_torch, sched_to_torch
+from iqtree2_tpu_torch.data.alignment import Alignment
+from iqtree2_tpu_torch.model.pack import ModelPack, build_model_pack
 from iqtree2_tpu_torch.ops import nni, prec, pruning
+from iqtree2_tpu_torch.tree.schedule import (TreeSchedule, build_schedule,
+                                             write_blens_to_tree)
+from iqtree2_tpu_torch.tree.topology import Tree
 
 DEFAULT_MIN_BLEN = 1e-6   # reference: min_branch_length (utils/tools.cpp)
 DEFAULT_MAX_BLEN = 10.0   # reference: max_branch_length

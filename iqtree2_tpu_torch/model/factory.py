@@ -1,0 +1,252 @@
+"""Model-string parser: "GTR+F+I+G4" -> (SubstModel, RateModel).
+
+Reference analog: ModelFactory (model/modelfactory.cpp:151) which parses the
+model specification into substitution-model + rate-heterogeneity objects.
+Grammar the port runs:
+
+  NAME[{p1,p2,...}] [+F|+FO|+FQ|+FC|+FU{...}|+FEQ] [+I[{p}]] [+G[n][{a}]]
+       [+R[n][{r1,w1,...}]] [+ASC]
+
+Copied from iqtree2_tpu/model/factory.py with the branches the port runs:
+named DNA and protein models (and the MK/ORDERED forms of GTR), under
+uniform, +I, +G, +I+G, +R and +I+R rates. The JAX package's other model
+families (mixtures, codon, nonreversible, Lie-Markov, PoMo, +E sequencing
+error, +H heterotachy, YAML models) stop with a SystemExit that names the
+model as not yet ported. The port keeps its own host modules and imports
+nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+
+from iqtree2_tpu_torch.data.alignment import Alignment
+from iqtree2_tpu_torch.model import dna, protein
+from iqtree2_tpu_torch.model.rates import (RateFree, RateFreeInvar, RateGamma,
+                                           RateGammaInvar, RateInvar,
+                                           RateModel)
+from iqtree2_tpu_torch.model.subst import GTRModel, SubstModel
+
+
+class ModelSpec:
+    def __init__(self, base: str, base_params, freq_type, freq_params,
+                 rate_terms, other_terms=None):
+        self.base = base
+        self.base_params = base_params
+        self.freq_type = freq_type
+        self.freq_params = freq_params
+        self.rate_terms = rate_terms  # list of (kind, ncat, params)
+        self.other_terms = other_terms or []  # e.g. mixture suffixes +C20
+
+
+_TERM_RE = re.compile(r"\+([A-Za-z]+)(\d*)(\{[^}]*\})?")
+
+
+def parse_model_string(s: str) -> ModelSpec:
+    s = s.strip()
+    # base name with optional {params}
+    m = re.match(r"^([A-Za-z0-9._]+)(\{[^}]*\})?", s)
+    if not m:
+        raise ValueError(f"cannot parse model string {s!r}")
+    base = m.group(1)
+    base_params = _parse_braces(m.group(2))
+    rest = s[m.end():]
+
+    freq_type = None
+    freq_params = None
+    rate_terms: list[tuple[str, int, list[float]]] = []
+    other_terms: list[str] = []
+    for t in _TERM_RE.finditer(rest):
+        kind = t.group(1).upper()
+        num = int(t.group(2)) if t.group(2) else None
+        params = _parse_braces(t.group(3))
+        full = f"{kind}{t.group(2) or ''}"
+        if full in ("C10", "C20", "C30", "C40", "C50", "C60", "CF4",
+                    "EX2", "EX3", "EHO", "UL2", "UL3", "EX_EHO",
+                    "LG4M", "LG4X"):
+            other_terms.append(full)
+            continue
+        if kind == "F" and num in (1, 3):
+            freq_type = f"F{num}X4"   # codon positional frequencies
+        elif kind in ("F", "FO", "FQ", "FEQ", "FU", "FC"):
+            freq_type = {"F": "empirical", "FO": "estimate", "FQ": "equal",
+                         "FEQ": "equal", "FU": "user",
+                         "FC": "empirical"}[kind]
+            freq_params = params
+        elif kind == "I":
+            rate_terms.append(("I", 1, params))
+        elif kind == "G":
+            rate_terms.append(("G", num or 4, params))
+        elif kind == "R":
+            rate_terms.append(("R", num or 4, params))
+        elif kind in ("E", "EA", "EC", "EG", "ET"):
+            rate_terms.append((kind, 1, params))  # sequencing error
+        elif kind == "ASC":
+            rate_terms.append(("ASC", 1, params))
+        elif kind == "H":
+            rate_terms.append(("H", num or 4, params))
+        elif kind == "T":
+            rate_terms.append(("T", num or 0, params))  # tree mixture
+        elif kind == "P":
+            rate_terms.append(("P", num or 9, params))  # PoMo
+        else:
+            raise ValueError(f"unsupported model term +{kind} in {s!r}")
+    return ModelSpec(base, base_params, freq_type, freq_params, rate_terms,
+                     other_terms)
+
+
+def _parse_braces(s: str | None) -> list[float] | None:
+    if not s:
+        return None
+    inner = s.strip()[1:-1]
+    if not inner:
+        return []
+    return [float(x) for x in inner.split(",")]
+
+
+MIXTURE_NAMES = {"C10", "C20", "C30", "C40", "C50", "C60", "EX2", "EX3",
+                 "EHO", "UL2", "UL3", "EX_EHO", "LG4M", "LG4X", "LG4",
+                 "CF4", "C10OPT", "C20OPT"}
+CODON_NAMES = ("GY", "MG", "MGK", "GY1KTS", "GY1KTV", "GY2K")
+# rate terms of other model families: +E* sequencing error, +P PoMo
+_SEQERR_TERMS = ("E", "EA", "EC", "EG", "ET")
+
+
+def not_ported(spec_str: str, what: str) -> SystemExit:
+    return SystemExit(f"-m {spec_str}: {what} are not yet ported to "
+                      f"iqtree2_tpu_torch")
+
+
+def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
+                                                        dict]:
+    """Instantiate model + rates for an alignment. Returns (model, rates,
+    extras) where extras carries the +ASC and +T flags."""
+    s = spec_str.strip()
+    if s.upper().startswith("MIX{"):
+        raise not_ported(spec_str, "mixture models")
+
+    spec = parse_model_string(spec_str)
+    st = aln.seqtype.name
+    extras: dict = {}
+
+    base_up = spec.base.upper()
+    if base_up in MIXTURE_NAMES or spec.other_terms:
+        raise not_ported(spec_str, "mixture models")
+    if st.startswith("CODON") or base_up in CODON_NAMES:
+        raise not_ported(spec_str, "codon models")
+    if base_up in ("UNREST", "NONREV"):
+        raise not_ported(spec_str, "nonreversible models")
+    kinds = {k for (k, _, _) in spec.rate_terms}
+    if kinds & set(_SEQERR_TERMS):
+        raise not_ported(spec_str, "+E sequencing-error models")
+    if "P" in kinds:
+        raise not_ported(spec_str, "PoMo (+P) models")
+
+    # ---------------- substitution model
+    freqs = None
+    freq_type = spec.freq_type
+    if freq_type == "user" and spec.freq_params:
+        freqs = np.asarray(spec.freq_params, dtype=np.float64)
+        freqs = freqs / freqs.sum()
+    elif freq_type == "empirical" and spec.freq_params:
+        # "+F{...}" with explicit values behaves like user frequencies
+        freqs = np.asarray(spec.freq_params, dtype=np.float64)
+        freqs = freqs / freqs.sum()
+        freq_type = "user"
+    elif freq_type == "empirical":
+        freqs = aln.state_frequencies()
+
+    if st == "DNA" and dna.is_dna_model_name(base_up):
+        # DNA named model; default '+F'-less behavior: counted frequencies
+        # for F81/HKY-class models is 'empirical' per reference defaults
+        canonical, code, def_freq = dna.DNA_MODELS.get(
+            base_up, (spec.base, base_up, "estimate"))
+        ft = freq_type or def_freq
+        if ft == "empirical" and freqs is None:
+            freqs = aln.state_frequencies()
+        if ft == "estimate" and freqs is None:
+            freqs = aln.state_frequencies()  # starting point for estimation
+        model = dna.make_dna_model(base_up, freqs=freqs, freq_type=ft)
+        if spec.base_params:
+            model.set_rate_params(np.asarray(spec.base_params))
+            model.fixed_rates = True
+    elif st == "AA" and protein.is_protein_model_name(base_up):
+        model = protein.make_protein_model(
+            spec.base, freqs=freqs, freq_type=freq_type)
+    elif base_up in ("MK", "JC2", "ORDERED") or st in ("BIN",) or \
+            st.startswith("MORPH"):
+        S = aln.num_states
+        model = GTRModel(S, freq_type=freq_type or "equal",
+                         freqs=freqs if freqs is not None
+                         else np.full(S, 1.0 / S),
+                         name=base_up, fixed_rates=True)
+        if base_up == "ORDERED":
+            # ordered states: only adjacent transitions
+            iu = np.triu_indices(S, 1)
+            model.exch_rates = np.where(
+                iu[1] - iu[0] == 1, 1.0, 0.0).astype(np.float64)
+    elif base_up == "GTR20":
+        model = protein.make_protein_model("GTR20", freq_type=freq_type)
+    elif st == "DNA":
+        raise not_ported(spec_str, f"{spec.base!r} is not a named DNA "
+                         f"model; Lie-Markov and YAML models")
+    else:
+        raise ValueError(
+            f"model {spec.base!r} not supported for seqtype {st}")
+
+    rates = _build_rates(spec, extras, spec_str)
+    return model, rates, extras
+
+
+def _build_rates(spec: ModelSpec, extras: dict, spec_str: str) -> RateModel:
+    """Rate-heterogeneity object from the +I/+G/+R/+ASC terms."""
+    kinds = {k for (k, _, _) in spec.rate_terms}
+    if "ASC" in kinds:
+        extras["asc"] = True
+    get = {k: (n, p) for (k, n, p) in spec.rate_terms}
+    if "T" in kinds:
+        # +T: tree-mixture model (IQTreeMix, tree/iqtreemix.h:21) — trees
+        # supplied separately; weights optionally pinned by +T{w1,...}
+        extras["treemix"] = True
+        extras["treemix_weights"] = get["T"][1] or None
+        kinds.discard("T")
+    if "H" in kinds:
+        raise not_ported(spec_str, "heterotachy (+H) models")
+
+    # "+X{v}" brace parameters FIX the value (reference semantics: the model
+    # string grammar of ModelFactory, model/modelfactory.cpp:151); the fix
+    # flags live on the rate objects so every optimizer path honors them.
+    p_inv = 0.0
+    fix_pinv = False
+    if "I" in kinds:
+        n, p = get["I"]
+        p_inv = p[0] if p else 0.1
+        fix_pinv = bool(p)
+        extras["fix_pinv"] = fix_pinv
+    if "G" in kinds:
+        n, p = get["G"]
+        alpha = p[0] if p else 1.0
+        fix_alpha = bool(p)
+        extras["fix_alpha"] = fix_alpha
+        if "I" in kinds:
+            return RateGammaInvar(n, alpha=alpha, p_invar=p_inv,
+                                  fix_alpha=fix_alpha, fix_pinv=fix_pinv)
+        return RateGamma(n, alpha=alpha, fix_alpha=fix_alpha)
+    if "R" in kinds:
+        n, p = get["R"]
+        rr = ww = None
+        fix_fr = False
+        if p:
+            ww = np.asarray(p[0::2])
+            rr = np.asarray(p[1::2])
+            fix_fr = True
+            extras["fix_free_rates"] = True
+        if "I" in kinds:
+            return RateFreeInvar(n, p_invar=p_inv, rates=rr, weights=ww,
+                                 fix_rates=fix_fr, fix_pinv=fix_pinv)
+        return RateFree(n, rates=rr, weights=ww, fix_rates=fix_fr)
+    if "I" in kinds:
+        return RateInvar(p_inv, fix_pinv=fix_pinv)
+    return RateModel()

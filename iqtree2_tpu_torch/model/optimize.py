@@ -18,11 +18,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from iqtree2_tpu.tree.schedule import build_schedule
-from iqtree2_tpu.tree.topology import Tree
-from iqtree2_tpu.utils.optimize import brent_minimize, lbfgsb_minimize
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.model import torchfit
+from iqtree2_tpu_torch.tree.schedule import build_schedule
+from iqtree2_tpu_torch.tree.topology import Tree
+from iqtree2_tpu_torch.utils.optimize import brent_minimize, lbfgsb_minimize
 
 DEFAULT_MODEL_EPS = 0.01  # reference: modelEps (utils/tools.cpp:1313)
 MAX_ROUNDS = 100          # alternation rounds (the JAX package's default)

@@ -27,12 +27,13 @@ import math
 import numpy as np
 import torch
 
-from iqtree2_tpu.model.rates import (RateFree, RateFreeInvar, RateGamma,
-                                     RateGammaInvar, RateInvar, RateModel)
-from iqtree2_tpu.model.subst import GTRModel
-from iqtree2_tpu.tree.schedule import build_schedule, write_blens_to_tree
+from iqtree2_tpu_torch.model.rates import (RateFree, RateFreeInvar, RateGamma,
+                                           RateGammaInvar, RateInvar,
+                                           RateModel)
+from iqtree2_tpu_torch.model.subst import GTRModel
 from iqtree2_tpu_torch.ops.prec import scaling_consts
 from iqtree2_tpu_torch.ops.pruning import expm_ss
+from iqtree2_tpu_torch.tree.schedule import build_schedule, write_blens_to_tree
 
 # residual-memory guard for reverse mode through the down pass:
 # n_int * C * S * Pp elements (the saved messages are about twice that)

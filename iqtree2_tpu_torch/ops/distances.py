@@ -2,7 +2,8 @@
 iqtree2_tpu/ops/distances.py).
 
 The numpy helpers are copied (their module imports jax); the batched
-Newton over all T = L(L-1)/2 pairs runs in torch on the engine's device.
+Newton over all T = L(L-1)/2 pairs runs in torch on the given device (the
+search passes the engine's).
 Reference analogs: utils/hammingdistance.h, alignment/alignmentpairwise.cpp
 (per-pair ML distance by 1-D Newton on the pair frequency table).
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from iqtree2_tpu.data.alignment import Alignment
+from iqtree2_tpu_torch.data.alignment import Alignment
 
 MAX_DIST = 9.0  # reference: MAX_GENETIC_DIST
 
@@ -83,8 +84,9 @@ def ml_dist_newton(F, t0, lam, U, V, n_iter: int = 20):
 
 
 def ml_distances(aln: Alignment, model, dtype=torch.float64,
-                 device="cpu") -> np.ndarray:
-    """[L, L] ML pairwise distances under a single reversible rate matrix.
+                 device="cuda") -> np.ndarray:
+    """[L, L] ML pairwise distances under a single reversible rate matrix,
+    on the card unless ``device`` says otherwise (as the engine).
     Reference analog: computeMLDist (main/phyloanalysis.cpp:1932).
 
     Raises NotImplementedError for a nonreversible or mixture model, whose

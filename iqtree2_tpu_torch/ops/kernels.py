@@ -7,21 +7,23 @@ The CUDA source is ``iqtree2_tpu_torch/csrc/pruning.cu``; it is compiled with
 
 Each kernel has, side by side here:
 
-- a wrapper (``down_step``, ``root_sitelp``, ``up_step``, ``edge_theta``):
+- a wrapper (``down_pass``, ``root_sitelp``, ``up_pass``, ``edge_theta``):
   for CUDA tensors it launches the kernel on the current stream or raises;
   for CPU tensors it runs the plain version;
 - the plain PyTorch version (``*_plain``), device-agnostic, which is the CPU
-  path and the reference the kernel is held to on the card;
+  path and the reference the kernel is held to on the card; the passes'
+  plain versions loop over ``down_step_plain`` / ``up_step_plain``, the
+  step body the kernels repeat inside one launch;
 - a launch counter in ``LAUNCHES``, incremented where the kernel launches.
 
 What the kernels replace (TPU kernel: file · ``pl.pallas_call`` line):
 
-- H1 ``down_step``: pallas_pruning.down_pass_pallas :224 (T2) and the
+- H1 ``down_pass``: pallas_pruning.down_pass_pallas :224 (T2) and the
   traversal of down_sitelp_pallas :452 (T1) and pallas_pruning2.stream_pass
   :342 in all three modes (T4, T5, T6).
 - H2 ``root_sitelp``: the root reductions of down_sitelp_pallas
   (pallas_pruning.py:112-118) and stream_pass (pallas_pruning2.py:230-238).
-- H3 ``up_step``: pallas_pruning.up_pass_pallas :372 (T3),
+- H3 ``up_pass``: pallas_pruning.up_pass_pallas :372 (T3),
   pallas_pruning2.stream_up_pass :567 (T7) and the sweep half of
   stream_theta_pass :804 (T8).
 - H4 ``edge_theta``: the theta half of stream_theta_pass
@@ -31,10 +33,11 @@ What bounds them on the card is memory bandwidth: at S=4 a step does under
 2 flops per byte in float32. The TPU kernels packed categories into
 [128, 128] block-diagonal operators to feed the matrix unit (32x the useful
 work for DNA) and kept partials in a VMEM ring; here each category's S x S
-block is contracted directly by one thread per pattern, so every partial
-crosses device memory once per step and transition matrices are broadcast
-from the read-only cache. One launch per schedule step; fusing the steps
-into one persistent launch is later work.
+block is contracted directly by one thread per pattern. Each pass is one
+launch, as each Pallas pass was: a block owns a tile of patterns and walks
+every level step of the schedule (csrc/pruning.cu says how), so a pass
+costs one operand check and one launch on the host whatever the tree's
+depth.
 """
 
 from __future__ import annotations
@@ -50,11 +53,11 @@ import torch
 
 from iqtree2_tpu_torch.ops.prec import scaling_consts
 
-LAUNCHES = {"down_step": 0, "root_sitelp": 0, "up_step": 0, "edge_theta": 0}
+LAUNCHES = {"down_pass": 0, "root_sitelp": 0, "up_pass": 0, "edge_theta": 0}
 
 # widest state space the kernels hold in registers (codon models: 61)
 MAX_STATES = 64
-# CUDA's limit on grid.y, which carries the node slot (G) or the edge id
+# CUDA's limit on grid.y, which carries edge_theta's edge id
 MAX_GRID_Y = 65535
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -66,9 +69,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument kinds of each extern "C" launcher, without the trailing stream
 _SIGNATURES = {
-    "down_step": [_P] * 7 + [_I] * 6,
+    "down_pass": [_P] * 7 + [_I] * 7,
     "root_sitelp": [_P] * 8 + [_I] * 4,
-    "up_step": [_P] * 11 + [_I] * 6,
+    "up_pass": [_P] * 11 + [_I] * 7,
     "edge_theta": [_P] * 9 + [_I] * 4,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -188,34 +191,44 @@ def root_lp(Broot, SCroot, root_freqs, cat_weight, log_ptn_invar):
 
 
 # ---------------------------------------------------------------- H1
-def down_step(P, tip, all_, sc, child_src, child_edge, step_row) -> None:
-    """One postorder step, in place: for every node of ``step_row`` (pad
-    slots = n_int are skipped) write its partial and scale count into the
-    unified buffers ``all_`` [L+n_int, C, S, Pp] and ``sc`` [L+n_int, Pp].
+def down_pass(P, tip, all_, sc, child_src, child_edge, step_node) -> None:
+    """The whole postorder pass, in place: for every level step of
+    ``step_node`` in order and every node of it (pad slots = n_int are
+    skipped), write its partial and scale count into the unified buffers
+    ``all_`` [L+n_int, C, S, Pp] and ``sc`` [L+n_int, Pp]. Tip rows of
+    ``all_`` are neither read nor written (tips come from ``tip``).
 
     P [E, C, S, S]; tip [L, S, Pp]; child_src/child_edge [n_int, 2] int32;
-    step_row [G] int32. Contract of pruning._down_pass_xla's step body.
+    step_node [n_steps, G] int32. Contract of pruning._down_pass_xla.
     """
     if not all_.is_cuda:
-        down_step_plain(P, tip, all_, sc, child_src, child_edge, step_row)
+        down_pass_plain(P, tip, all_, sc, child_src, child_edge, step_node)
         return
-    stream = _check_cuda("down_step", (P, tip, all_),
-                         (sc, child_src, child_edge, step_row))
-    launch_down_step(library(), stream, P, tip, all_, sc, child_src,
-                     child_edge, step_row)
+    stream = _check_cuda("down_pass", (P, tip, all_),
+                         (sc, child_src, child_edge, step_node))
+    launch_down_pass(library(), stream, P, tip, all_, sc, child_src,
+                     child_edge, step_node)
 
 
-def launch_down_step(lib, stream, P, tip, all_, sc, child_src, child_edge,
-                     step_row) -> None:
+def launch_down_pass(lib, stream, P, tip, all_, sc, child_src, child_edge,
+                     step_node) -> None:
     L, S, Pp = tip.shape
-    _check_states("down_step", S)
-    _call(lib, "down_step", all_.dtype, stream,
+    _check_states("down_pass", S)
+    n_steps, G = step_node.shape
+    _call(lib, "down_pass", all_.dtype, stream,
           [t.data_ptr() for t in (P, tip, all_, sc, child_src, child_edge,
-                                  step_row)],
-          [step_row.shape[0], child_src.shape[0], L, P.shape[1], S, Pp])
+                                  step_node)],
+          [n_steps, G, child_src.shape[0], L, P.shape[1], S, Pp])
+
+
+def down_pass_plain(P, tip, all_, sc, child_src, child_edge,
+                    step_node) -> None:
+    for row in step_node:
+        down_step_plain(P, tip, all_, sc, child_src, child_edge, row)
 
 
 def down_step_plain(P, tip, all_, sc, child_src, child_edge, step_row) -> None:
+    """One level step of the down pass (the kernel's step body)."""
     L = tip.shape[0]
     thresh, factor, _ = scaling_consts(all_.dtype)
     nid = step_row[step_row < child_src.shape[0]].long()
@@ -265,37 +278,48 @@ def root_sitelp_plain(P, tip, all_, sc, root_row, root_freqs, cat_weight,
 
 
 # ---------------------------------------------------------------- H3
-def up_step(P, tip, all_, dsc, up, upsc, E, esc, child_src, child_edge,
-            step_row) -> None:
-    """One reverse (pre-order) step, in place: for each node of ``step_row``
-    and child slot k, E[edge_k] = UP(node) x msg(sibling), rescaled, and for
-    internal children UP(child) = P_k^T E[edge_k], rescaled.
+def up_pass(P, tip, all_, dsc, up, upsc, E, esc, child_src, child_edge,
+            step_node) -> None:
+    """The whole pre-order sweep, in place: for the level steps of
+    ``step_node`` in reverse order, every node of a step and child slot k,
+    E[edge_k] = UP(node) x msg(sibling), rescaled, and for internal
+    children UP(child) = P_k^T E[edge_k], rescaled. UP of the root and E of
+    edge 0 must be set before (pruning.up_buffers).
 
     all_/dsc: down partials and scales (unified); up/upsc [n_int, ...];
-    E/esc [n_edges, ...]. Contract of pruning._up_pass_xla's step body.
+    E/esc [n_edges, ...]. Contract of pruning._up_pass_xla.
     """
     if not up.is_cuda:
-        up_step_plain(P, tip, all_, dsc, up, upsc, E, esc, child_src,
-                      child_edge, step_row)
+        up_pass_plain(P, tip, all_, dsc, up, upsc, E, esc, child_src,
+                      child_edge, step_node)
         return
-    stream = _check_cuda("up_step", (P, tip, all_, up, E),
-                         (dsc, upsc, esc, child_src, child_edge, step_row))
-    launch_up_step(library(), stream, P, tip, all_, dsc, up, upsc, E, esc,
-                   child_src, child_edge, step_row)
+    stream = _check_cuda("up_pass", (P, tip, all_, up, E),
+                         (dsc, upsc, esc, child_src, child_edge, step_node))
+    launch_up_pass(library(), stream, P, tip, all_, dsc, up, upsc, E, esc,
+                   child_src, child_edge, step_node)
 
 
-def launch_up_step(lib, stream, P, tip, all_, dsc, up, upsc, E, esc,
-                   child_src, child_edge, step_row) -> None:
+def launch_up_pass(lib, stream, P, tip, all_, dsc, up, upsc, E, esc,
+                   child_src, child_edge, step_node) -> None:
     L, S, Pp = tip.shape
-    _check_states("up_step", S)
-    _call(lib, "up_step", up.dtype, stream,
+    _check_states("up_pass", S)
+    n_steps, G = step_node.shape
+    _call(lib, "up_pass", up.dtype, stream,
           [t.data_ptr() for t in (P, tip, all_, dsc, up, upsc, E, esc,
-                                  child_src, child_edge, step_row)],
-          [step_row.shape[0], child_src.shape[0], L, P.shape[1], S, Pp])
+                                  child_src, child_edge, step_node)],
+          [n_steps, G, child_src.shape[0], L, P.shape[1], S, Pp])
+
+
+def up_pass_plain(P, tip, all_, dsc, up, upsc, E, esc, child_src, child_edge,
+                  step_node) -> None:
+    for s in range(step_node.shape[0] - 1, -1, -1):
+        up_step_plain(P, tip, all_, dsc, up, upsc, E, esc, child_src,
+                      child_edge, step_node[s])
 
 
 def up_step_plain(P, tip, all_, dsc, up, upsc, E, esc, child_src, child_edge,
                   step_row) -> None:
+    """One level step of the up pass (the kernel's step body)."""
     L = tip.shape[0]
     thresh, factor, _ = scaling_consts(up.dtype)
     nid = step_row[step_row < child_src.shape[0]].long()

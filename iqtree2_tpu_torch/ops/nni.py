@@ -26,10 +26,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from iqtree2_tpu.tree.schedule import TreeSchedule
-from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu_torch.ops import pruning
 from iqtree2_tpu_torch.ops.prec import scaling_consts
+from iqtree2_tpu_torch.tree.schedule import TreeSchedule
+from iqtree2_tpu_torch.tree.topology import Tree
 
 # memory for one chunk's temporaries; a candidate holds about SLABS_NNI1 or
 # SLABS_NNI5 [C, S, Pp] tensors at once over its three variants (the

@@ -1,0 +1,176 @@
+"""Bit-parallel Fitch parsimony (host numpy).
+
+States are bitmasks in uint64 (supports up to 64 states: DNA=4, AA=20,
+codon=61). Reference analogs: tree/phylotreepars.cpp:32 (Fitch kernel),
+pll/fastDNAparsimony.c (randomized stepwise addition used for start trees).
+
+The pattern axis is vectorized with numpy; edge-candidate scoring during
+stepwise addition is batched as one [n_edges, patterns] operation.
+
+Copied from iqtree2_tpu/ops/pars.py, the host half the search runs (no
+Sankoff scores, no -g constraint): the port keeps its own host modules and
+imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from iqtree2_tpu_torch.data.alignment import Alignment
+from iqtree2_tpu_torch.tree.topology import Tree
+
+
+def state_bitmasks(aln) -> np.ndarray:
+    """[ntaxa, patterns] uint64 bitmask of compatible states per tip.
+
+    SuperAlignments concatenate per-partition masks along the pattern axis
+    (bitmask width is per-column, so mixed state counts coexist)."""
+    if hasattr(aln, "partitions"):  # SuperAlignment
+        return np.concatenate([state_bitmasks(p) for p in aln.partitions],
+                              axis=1)
+    tbl = aln.seqtype.tip_table  # [codes, S]
+    S = aln.num_states
+    if S > 64:
+        raise ValueError("parsimony bitmasks support up to 64 states")
+    weights = (1 << np.arange(S, dtype=np.uint64))
+    code_masks = (tbl > 0) @ weights  # [codes]
+    code_masks = code_masks.astype(np.uint64)
+    return code_masks[aln.tip_codes()]  # [L, P]
+
+
+def fitch_combine(a: np.ndarray, b: np.ndarray):
+    """Fitch downpass combine: (sets, extra_cost_mask)."""
+    inter = a & b
+    empty = inter == 0
+    out = np.where(empty, a | b, inter)
+    return out, empty
+
+
+def fitch_score(tree: Tree, masks: np.ndarray,
+                weights: np.ndarray) -> float:
+    """Weighted Fitch parsimony score of a topology.
+
+    Uses the native bit-parallel kernel (native/iqtree2_native.cpp
+    it2_fitch_score; reference analog tree/phylotreepars.cpp:32) when
+    available; multifurcations are binarized into combine chains."""
+    from iqtree2_tpu_torch import native
+    if native.available():
+        root = tree._default_root()
+        L = tree.ntaxa
+        rows: list[tuple[int, int]] = []
+        idx: dict[int, int] = {}
+        for v, p in tree.postorder(root):
+            if tree.is_leaf(v):
+                idx[v] = v
+                continue
+            kids = [idx[u] for u in tree.adj[v] if u != p]
+            acc = kids[0]
+            for u in kids[1:]:
+                rows.append((acc, u))
+                acc = L + len(rows) - 1
+            idx[v] = acc
+        if rows:
+            out = native.fitch_score(
+                masks, weights, np.asarray(rows, dtype=np.int32))
+            if out is not None:
+                return out
+    root = tree._default_root()
+    P = masks.shape[1]
+    cost = np.zeros(P, dtype=np.float64)
+    sets: dict[int, np.ndarray] = {}
+    for v, p in tree.postorder(root):
+        if tree.is_leaf(v):
+            sets[v] = masks[v]
+            continue
+        kids = [u for u in tree.adj[v] if u != p]
+        acc = sets[kids[0]]
+        for u in kids[1:]:
+            acc, extra = fitch_combine(acc, sets[u])
+            cost += extra
+        sets[v] = acc
+    return float((cost * weights).sum())
+
+
+def random_stepwise_addition(aln: Alignment,
+                             rng: np.random.Generator) -> Tree:
+    """Randomized stepwise-addition parsimony tree.
+
+    Insert taxa in random order, each at the edge minimizing the Fitch
+    insertion cost (batched over all candidate edges). Reference analog:
+    pllComputeRandomizedStepwiseAdditionParsimonyTree (tree/iqtree.cpp:746).
+    """
+    masks = state_bitmasks(aln)
+    w = aln.pattern_weights
+    L = aln.ntaxa
+    order = list(rng.permutation(L))
+    tree = Tree(aln.names)
+    if L < 4:
+        if L == 2:
+            tree.add_edge(order[0], order[1], 0.1)
+        elif L == 3:
+            c = tree.new_node()
+            for x in order:
+                tree.add_edge(c, x, 0.1)
+        return tree
+
+    first3 = [order.pop(), order.pop(), order.pop()]
+    hub = tree.new_node()
+    for x in first3:
+        tree.add_edge(hub, x, 0.1)
+
+    for leaf in reversed(order):
+        # Fitch down+up sets for the current tree, per edge.
+        # Root at the hub: the partial tree may not contain leaf 0 yet,
+        # so Tree._default_root() is not usable here.
+        root = hub
+        sets: dict[int, np.ndarray] = {}
+        post = list(tree.postorder(root))
+        for v, p in post:
+            if tree.is_leaf(v):
+                sets[v] = masks[v]
+            else:
+                kids = [u for u in tree.adj[v] if u != p]
+                acc = sets[kids[0]]
+                for u in kids[1:]:
+                    acc, _ = fitch_combine(acc, sets[u])
+                sets[v] = acc
+        # uppass context per node (state set seen from parent side)
+        up: dict[int, np.ndarray] = {root: None}
+        for v, p in reversed(post):
+            if tree.is_leaf(v) and v != root:
+                continue
+            kids = [u for u in tree.adj[v] if u != p]
+            for u in kids:
+                ctx = up[v]
+                acc = None
+                for u2 in kids:
+                    if u2 == u:
+                        continue
+                    acc = sets[u2] if acc is None else \
+                        fitch_combine(acc, sets[u2])[0]
+                if ctx is not None:
+                    acc = ctx if acc is None else fitch_combine(acc, ctx)[0]
+                up[u] = acc
+        # candidate edges: all (child u, parent v) pairs
+        edges = []
+        ctx_sets = []
+        for v, p in post:
+            if p == -1:
+                continue
+            down = sets[v]
+            upc = up[v]
+            ctx = down if upc is None else fitch_combine(down, upc)[0]
+            edges.append((v, p))
+            ctx_sets.append(ctx)
+        C = np.stack(ctx_sets)                    # [E, P]
+        x = masks[leaf][None, :]                  # [1, P]
+        delta = (((C & x) == 0) * w[None, :]).sum(axis=1)
+
+        a, b = edges[int(np.argmin(delta))]
+        mid = tree.new_node()
+        lold = tree.get_blen(a, b)
+        tree.remove_edge(a, b)
+        tree.add_edge(a, mid, lold * 0.5)
+        tree.add_edge(mid, b, lold * 0.5)
+        tree.add_edge(mid, leaf, 0.1)
+    return tree

@@ -3,11 +3,11 @@
 The math and the layout are the JAX package's: pattern-last partials
 [.., C, S, Pp], one unified buffer DownPass.all [L + n_int, C, S, Pp] with the
 tips broadcast over categories in rows 0..L-1, int32 scale counts, and the
-2^-B per-pattern rescale of ``scaling_consts``. A pass walks the level steps
-of tree/schedule.py; each step is one call of a kernel wrapper in
-ops/kernels.py, which launches the Hopper kernel for CUDA tensors and runs
-its plain PyTorch version for CPU tensors. ``vmap`` over edges in the JAX
-engine becomes an explicit leading E axis here (edge_thetas,
+2^-B per-pattern rescale of ``scaling_consts``. A pass over the level steps
+of tree/schedule.py is one call of a kernel wrapper in ops/kernels.py,
+which launches the Hopper kernel once for CUDA tensors and runs its plain
+PyTorch version (a loop over the steps) for CPU tensors. ``vmap`` over edges
+in the JAX engine becomes an explicit leading E axis here (edge_thetas,
 branch_lh_derivs, newton_branch_step).
 
 Not yet ported: nonreversible models (pack["Q"]) and per-category (mixlen)
@@ -100,7 +100,7 @@ def tip_partials(tip_codes, tip_table):
 # ----------------------------------------------------------------- passes
 def down_buffers(P, tipP, n_int: int) -> DownPass:
     """Unified buffers of a down pass: tip rows filled, scale rows zero.
-    The internal rows are left unset: each is written once by its step."""
+    The internal rows are left unset: the pass writes each once."""
     L, S, Pp = tipP.shape
     ALL = torch.empty((L + n_int, P.shape[1], S, Pp), dtype=tipP.dtype,
                       device=tipP.device)
@@ -111,19 +111,18 @@ def down_buffers(P, tipP, n_int: int) -> DownPass:
 
 def down_pass(P, tipP, sched) -> DownPass:
     """Post-order sweep over the level steps (contract of
-    pruning._down_pass_xla): one down_step kernel call per step."""
+    pruning._down_pass_xla): one down_pass kernel call."""
     dp = down_buffers(P, tipP, sched["child_src"].shape[0])
-    for row in sched["step_node"]:
-        kernels.down_step(P, tipP, dp.all, dp.scale, sched["child_src"],
-                          sched["child_edge"], row)
+    kernels.down_pass(P, tipP, dp.all, dp.scale, sched["child_src"],
+                      sched["child_edge"], sched["step_node"])
     return dp
 
 
 def up_buffers(P, dp: DownPass, tipP, root_freqs) -> UpPass:
     """Buffers of an up pass with the root initialised (plain, as in the
     JAX package): UP[root] = pi * (P_0 tip_0) and E[0] = pi * down[root]
-    (leaf 0's edge is folded into the root). Every other row is written
-    once by the step of its node or edge."""
+    (leaf 0's edge is folded into the root). The pass writes every other
+    row once."""
     L, S, Pp = tipP.shape
     n_int = dp.all.shape[0] - L
     C = P.shape[1]
@@ -141,13 +140,11 @@ def up_buffers(P, dp: DownPass, tipP, root_freqs) -> UpPass:
 
 def up_pass(P, dp: DownPass, tipP, sched, root_freqs) -> UpPass:
     """Pre-order sweep (contract of pruning._up_pass_xla): E per edge and UP
-    per internal node, one up_step kernel call per step in reverse order."""
+    per internal node, one up_pass kernel call."""
     up = up_buffers(P, dp, tipP, root_freqs)
-    step_node = sched["step_node"]
-    for s in range(step_node.shape[0] - 1, -1, -1):
-        kernels.up_step(P, tipP, dp.all, dp.scale, up.up_in, up.up_scale,
-                        up.edge_E, up.edge_E_scale, sched["child_src"],
-                        sched["child_edge"], step_node[s])
+    kernels.up_pass(P, tipP, dp.all, dp.scale, up.up_in, up.up_scale,
+                    up.edge_E, up.edge_E_scale, sched["child_src"],
+                    sched["child_edge"], sched["step_node"])
     return up
 
 

@@ -14,10 +14,10 @@ import dataclasses
 
 import numpy as np
 
-from iqtree2_tpu.tree.schedule import build_schedule
-from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.ops.nni import NNICandidates, build_nni_candidates
+from iqtree2_tpu_torch.tree.schedule import build_schedule
+from iqtree2_tpu_torch.tree.topology import Tree
 
 MAX_ROUNDS = 100     # NNI rounds per climb
 BLEN_ROUNDS = 2      # Newton sweeps in a fused round (reference economics)

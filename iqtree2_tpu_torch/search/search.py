@@ -23,18 +23,17 @@ import time
 
 import numpy as np
 
-from iqtree2_tpu.data.alignment import Alignment
-from iqtree2_tpu.ops.pars import (fitch_score, random_stepwise_addition,
-                                  state_bitmasks)
-from iqtree2_tpu.search.bionj import bionj_tree
-from iqtree2_tpu.search.candidate import CandidateSet
-from iqtree2_tpu.search.perturb import random_nnis
-from iqtree2_tpu.search.stoprule import StopRule
-from iqtree2_tpu.tree.topology import Tree
+from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.engine import LikelihoodEngine
-from iqtree2_tpu_torch.ops.distances import (hamming_jc_distances,
-                                             ml_distances)
+from iqtree2_tpu_torch.ops.distances import hamming_jc_distances, ml_distances
+from iqtree2_tpu_torch.ops.pars import (fitch_score, random_stepwise_addition,
+                                        state_bitmasks)
+from iqtree2_tpu_torch.search.bionj import bionj_tree
+from iqtree2_tpu_torch.search.candidate import CandidateSet
 from iqtree2_tpu_torch.search.nni import nni_optimize
+from iqtree2_tpu_torch.search.perturb import random_nnis
+from iqtree2_tpu_torch.search.stoprule import StopRule
+from iqtree2_tpu_torch.tree.topology import Tree
 
 DEFAULT_BATCH = 8   # the JAX package's IQTREE2_TPU_SEARCH_BATCH default
 

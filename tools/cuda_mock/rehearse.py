@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Rehearse iqtree2_tpu_torch/csrc/pruning.cu on the CPU, without a card.
+
+    python3 tools/cuda_mock/rehearse.py [--build-dir DIR]
+
+The source is compiled by g++ against the mock cuda_runtime.h beside this
+script (every CUDA thread of a block a std::thread, __syncthreads and
+__syncwarp std::barriers, blocks one after another), after each
+``kernel<<<grid, block, shm, stream>>>(`` is rewritten into
+``mock_launch(grid, block, shm, stream, kernel, ``. The library is bound
+with ops/kernels.bind and the whole-pass kernels run on CPU tensors
+(stream None) against their plain versions: DNA (the register column, and
+C = 8 through the two-sweep column), protein and a 61-state GTR, float32
+and float64, on trees deep enough to rescale. It checks indexing, the
+barriers and the rescale; it says nothing of speed or of what nvcc
+accepts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent.parent
+sys.path.insert(0, str(ROOT))
+
+from iqtree2_tpu_torch import kernelcheck  # noqa: E402
+from iqtree2_tpu_torch.data.alignment import Alignment  # noqa: E402
+from iqtree2_tpu_torch.engine import LikelihoodEngine  # noqa: E402
+from iqtree2_tpu_torch.model.rates import RateGamma  # noqa: E402
+from iqtree2_tpu_torch.model.subst import GTRModel  # noqa: E402
+from iqtree2_tpu_torch.ops import kernels  # noqa: E402
+from iqtree2_tpu_torch.tree.topology import Tree  # noqa: E402
+
+
+def build(out_dir: Path) -> ctypes.CDLL:
+    src = kernels.SOURCE.read_text()
+    src, n = re.subn(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\(",
+                     r"mock_launch(\2, \1, ", src)
+    cpp = out_dir / "pruning_mock.cpp"
+    cpp.write_text(src)
+    so = out_dir / "libpruning_mock.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", f"-I{HERE}", "-o", str(so), str(cpp)],
+                   check=True)
+    print(f"{n} launches rewritten; built {so}")
+    return kernels.bind(ctypes.CDLL(str(so)))
+
+
+def check(lib, eng: LikelihoodEngine, tree: Tree, tag: str) -> None:
+    pb = kernelcheck.Problem(eng, tree)
+    ref = pb.down(kernels.down_pass_plain, pb.down_buffers())
+    uref = pb.up(kernels.up_pass_plain, ref, pb.up_buffers(ref))
+    got = pb.down_buffers()
+    got.all[pb.L:] = float("nan")
+    pb.down(lambda *a: kernels.launch_down_pass(lib, None, *a), got)
+    u = pb.up_buffers(ref)
+    u.edge_E[1:] = float("nan")
+    u.up_in[:pb.n_int - 1] = float("nan")
+    pb.up(lambda *a: kernels.launch_up_pass(lib, None, *a), ref, u)
+    err = max(kernelcheck.col_rel(got.all[pb.L:], ref.all[pb.L:]),
+              kernelcheck.col_rel(u.edge_E, uref.edge_E),
+              kernelcheck.col_rel(u.up_in, uref.up_in))
+    same = (torch.equal(got.scale, ref.scale)
+            and torch.equal(u.edge_E_scale, uref.edge_E_scale)
+            and torch.equal(u.up_scale, uref.up_scale))
+    tol = kernelcheck.TOLERANCE[eng.dtype]["partials"]
+    print(f"{tag} {eng.dtype}: max rel err {err:.2e}, scales equal {same}, "
+          f"rescaled columns {int((ref.scale > 0).sum())}")
+    if not (err <= tol and same):
+        raise SystemExit(f"{tag}: the mock build disagrees")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--build-dir", default="")
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    with tempfile.TemporaryDirectory() as d:
+        lib = build(Path(args.build_dir or d))
+        kernelcheck.MODELS["GTR+G8"] = (
+            "DNA", "ACGT",
+            "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G8{0.6}")
+        for name, ntaxa, nsites in (("GTR+G4", 40, 300), ("HKY+I", 9, 150),
+                                    ("GTR+G8", 30, 200), ("LG+G4", 9, 150)):
+            aln, tree, model, rates = kernelcheck.simulate(name, ntaxa,
+                                                           nsites, seed=3)
+            for dtype in (torch.float32, torch.float64):
+                check(lib, LikelihoodEngine(aln, model, rates, dtype=dtype,
+                                            device="cpu"), tree, name)
+        rng = np.random.default_rng(3)
+        names = [f"t{i}" for i in range(7)]
+        codons = [a + b + c for a in "ACGT" for b in "ACGT" for c in "ACGT"
+                  if a + b + c not in ("TAA", "TAG", "TGA")]
+        aln = Alignment.from_sequences(
+            names, ["".join(rng.choice(codons, 40)) for _ in names],
+            seqtype="CODON")
+        model = GTRModel(61, exch_rates=rng.uniform(0.2, 3.0, 1830),
+                         freq_type="equal", fixed_rates=True)
+        for dtype in (torch.float32, torch.float64):
+            check(lib, LikelihoodEngine(aln, model, RateGamma(4, alpha=0.6),
+                                        dtype=dtype, device="cpu"),
+                  Tree.random_topology(names, rng), "GTR61+G4")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""One side of a parent-vs-change comparison of the port on one NVIDIA GPU.
+
+    python3 tools/torch_compare_run.py --root DIR --tag NAME --work DIR \\
+        --out FILE [--passes-only]
+
+Imports iqtree2_tpu_torch from DIR (the root of a checkout of either
+commit, e.g. one unpacked with git archive) and measures in one process,
+with only module entry points that every version has:
+
+- one pruning.down_pass and one pruning.up_pass (buffers included, as the
+  engine calls them), CUDA events, at the flagship's shapes (example.phy
+  on ref_tree.nwk under kernelcheck's GTR+G4, Pp 1152) and at 1000 taxa x
+  16384 sites simulated under GTR+G4 (seed 1), float32, and at 64 taxa x
+  4096 sites simulated under LG+G4 (seed 1), float32 and float64;
+- the flagship, -s example.phy -m GTR+G -bb 1000 through the CLI at the
+  default settings, float32: wall, iterations, the log's wall split, logL
+  and the kernel launch counts;
+- the GTR+G fit of the 1000 x 16384 problem on its simulating tree
+  through the CLI (-te), float32: wall and logL.
+
+--passes-only measures the passes and skips the two CLI runs.
+
+The simulated problems are made once into --work by the first run and
+read back by the others. Appends one JSON line to --out. Run the sides in
+separate processes, in the order parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+GOLDEN = Path(__file__).resolve().parent.parent / "tests" / "golden"
+
+
+def timed_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the card (CUDA events, after one
+    warm-up call); defined here because the parent's kernelcheck may name
+    its own helper otherwise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def report_logl(prefix: Path) -> float:
+    for line in Path(f"{prefix}.iqtree").read_text().splitlines():
+        if line.startswith("Log-likelihood of the tree:"):
+            return float(line.split(":")[1].split()[0])
+    raise RuntimeError(f"no logL in {prefix}.iqtree")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--tag", required=True)
+    ap.add_argument("--work", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--passes-only", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is false: no GPU", file=sys.stderr)
+        return 1
+    from iqtree2_tpu_torch import cli, kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine, build_schedule
+    from iqtree2_tpu_torch.ops import kernels, pruning
+
+    work = Path(args.work)
+    work.mkdir(parents=True, exist_ok=True)
+    big = work / "big"
+    aln_path, tree_path = Path(f"{big}.phy"), Path(f"{big}.nwk")
+    if not (aln_path.exists() and tree_path.exists()):
+        aln, tree, _, _ = kernelcheck.simulate("GTR+G4", 1000, 16384, seed=1)
+        kernelcheck.write_problem(aln, tree, big)
+    lg = work / "lg"
+    lg_aln, lg_tree = Path(f"{lg}.phy"), Path(f"{lg}.nwk")
+    if not (lg_aln.exists() and lg_tree.exists()):
+        aln, tree, _, _ = kernelcheck.simulate("LG+G4", 64, 4096, seed=1)
+        kernelcheck.write_problem(aln, tree, lg)
+    row = {"tag": args.tag, "root": args.root,
+           "device": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               check=True).stdout.strip()}
+
+    # one pass through the module API, each shape
+    for shape, a_path, t_path, name, dtype in (
+            ("flagship", GOLDEN / "example.phy", GOLDEN / "ref_tree.nwk",
+             "GTR+G4", torch.float32),
+            ("1000x16384", aln_path, tree_path, "GTR+G4", torch.float32),
+            ("lg64x4096_f32", lg_aln, lg_tree, "LG+G4", torch.float32),
+            ("lg64x4096_f64", lg_aln, lg_tree, "LG+G4", torch.float64)):
+        aln, tree, model, rates = kernelcheck.load_problem(a_path, t_path,
+                                                           name)
+        eng = LikelihoodEngine(aln, model, rates, dtype=dtype,
+                               device="cuda")
+        sched = build_schedule(tree)
+        sa = eng.schedule_arrays(sched)
+        P = pruning.transition_tensors(eng._blens(sched), eng._pack)
+        dp = pruning.down_pass(P, eng._tipP, sa)
+        rf = eng._pack["root_freqs"]
+        reps = args.reps if shape != "1000x16384" else max(args.reps // 4, 3)
+        row[f"{shape}_down_pass_ms"] = timed_ms(
+            lambda: pruning.down_pass(P, eng._tipP, sa), reps)
+        row[f"{shape}_up_pass_ms"] = timed_ms(
+            lambda: pruning.up_pass(P, dp, eng._tipP, sa, rf), reps)
+        row[f"{shape}_steps"] = int(sa["step_node"].shape[0])
+
+    def run_cli(argv, prefix):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["-pre", str(prefix), "--device", "cuda",
+                              "-redo", "--quiet"])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"CLI returned {rc}: {argv}")
+        return time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    if args.passes_only:
+        print(json.dumps(row), flush=True)
+        with open(args.out, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        return 0
+    flag = work / f"flagship_{args.tag}"
+    wall, launches = run_cli(["-s", str(GOLDEN / "example.phy"), "-m",
+                              "GTR+G", "-bb", "1000"], flag)
+    log = Path(f"{flag}.log").read_text()
+    row.update(flagship_wall_s=wall, flagship_launches=launches,
+               flagship_logl=report_logl(flag),
+               flagship_iterations=int(re.search(
+                   r"Search done: (\d+) iterations", log).group(1)),
+               flagship_wall_split=re.search(r"Wall seconds: (.*)",
+                                             log).group(1))
+    fit = work / f"fit_{args.tag}"
+    wall, launches = run_cli(["-s", str(aln_path), "-m", "GTR+G", "-te",
+                              str(tree_path)], fit)
+    row.update(fit_wall_s=wall, fit_launches=launches,
+               fit_logl=report_logl(fit))
+    print(json.dumps(row), flush=True)
+    with open(args.out, "a") as f:
+        f.write(json.dumps(row) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
