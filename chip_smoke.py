@@ -9,10 +9,15 @@ It imports nothing of JAX and, itself, only iqtree2_tpu_torch. Phases, each
 ending in torch.cuda.synchronize():
 
 1. the card's name and power limit (nvidia-smi);
-2. building the kernels of iqtree2_tpu_torch/csrc/pruning.cu with nvcc;
+2. building the kernels of iqtree2_tpu_torch/csrc/pruning.cu with nvcc, and
+   the resident blocks per SM and shared memory per block of each pass
+   instance at 16384 patterns (DNA and protein, float32 and float64);
 3. each kernel against its plain PyTorch version on the same inputs, on a
-   simulated 64-taxon x 4096-site problem under GTR+G4 and LG+G4, in float32
-   and float64 (tolerances in iqtree2_tpu_torch/kernelcheck.py), timed;
+   simulated 64-taxon x 4096-site problem under GTR+G4, GTR+G8 (more
+   categories than the DNA register column holds) and LG+G4, in float32
+   and float64 (tolerances in iqtree2_tpu_torch/kernelcheck.py; down_pass
+   with its site-logL epilogue, up_pass, theta_pass), timed through the
+   wrappers and back to back;
 4. the golden run through the CLI, -s tests/golden/example.phy -m GTR+G
    -te tests/golden/ref_tree.nwk, in float64 (logL within 0.5 of the
    reference IQ-TREE's) and float32 (finite, within 10); the launch counts
@@ -22,21 +27,23 @@ ending in torch.cuda.synchronize():
 5. the fixed-topology fit at a realistic size: 1000 taxa x 16384 sites
    simulated under GTR+G4 (seed 1) and fitted through the CLI in float32
    (too large for the joint fit, so the host alternation runs the
-   kernels), with the launch counts reset just before and read just after,
-   and one down_pass and one up_pass launch required per pass; then each
-   kernel against its plain version at that problem's shapes, timed alone
-   (buffers built outside the timed region; down_buffers and up_buffers
-   are timed on their own line, beside each kernel's bound);
+   kernels: down passes with the epilogue for each log-likelihood, a down
+   pass and a theta pass for each Newton round), with the launch counts
+   reset just before and read just after, and one launch required per
+   pass; then each kernel against its plain version at that problem's
+   shapes, timed alone (buffers built outside the timed region; the
+   buffers are timed on their own line, beside each kernel's bound);
 6. the flagship, this slice's main path: -s tests/golden/example.phy
    -m GTR+G -bb 1000 through the CLI in float32 at the default search
    settings, launch counts reset just before and read just after; logL at
    least the reference topology's fit - 0.5, .contree, .splits.nex, 1000
    replicate trees in .ufboot, integer supports in .treefile, every kernel
-   launched, one down_pass and one up_pass launch per pass; wall time,
-   iterations and the split of the wall are printed;
+   launched, one down_pass, up_pass or theta_pass launch per pass and one
+   epilogue per log-likelihood pass; wall time, iterations, the split of
+   the wall and the launches are printed;
    then each kernel against its plain version at the flagship's shapes
    (example.phy in float32 under GTR+G4, at the reference topology and at
-   the tree the search returned);
+   the tree the search returned), with the bounds there;
 7. the NNI hill-climb at the realistic width: phase 5's problem, the
    simulating tree moved by 19 random NNIs, search/nni.nni_optimize on the
    card in float32 with the site log-likelihoods; the wall of each fused
@@ -46,9 +53,9 @@ ending in torch.cuda.synchronize():
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
-phase-6 flagship; times and bounds (kernelcheck.bounds) from the phase-5
-check at 1000 x 16384; no single PyTorch call computes any of the four
-kernels' functions, so library_ms is null); the last line is
+phase-6 flagship; times, back-to-back times and bounds (kernelcheck.bounds)
+from the phase-5 check at 1000 x 16384; no single PyTorch call computes a
+pruning pass, so library_ms is null); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -71,13 +78,12 @@ REPLACES = {
     "down_pass": "iqtree2_tpu/ops/pallas_pruning2.py:342, "
                  "iqtree2_tpu/ops/pallas_pruning.py:224, "
                  "iqtree2_tpu/ops/pallas_pruning.py:452",
-    "root_sitelp": "iqtree2_tpu/ops/pallas_pruning.py:452, "
-                   "iqtree2_tpu/ops/pallas_pruning2.py:342",
     "up_pass": "iqtree2_tpu/ops/pallas_pruning2.py:567, "
-               "iqtree2_tpu/ops/pallas_pruning.py:372, "
-               "iqtree2_tpu/ops/pallas_pruning2.py:804",
-    "edge_theta": "iqtree2_tpu/ops/pallas_pruning2.py:804",
+               "iqtree2_tpu/ops/pallas_pruning.py:372",
+    "theta_pass": "iqtree2_tpu/ops/pallas_pruning2.py:804",
 }
+# the kernels of the standalone launches the passes absorbed
+GONE = ("root_sitelp", "edge_theta")
 CHECK_TAXA, CHECK_SITES = 64, 4096
 BIG_TAXA, BIG_SITES = 1000, 16384
 FLAGSHIP_REPLICATES = 1000
@@ -141,21 +147,28 @@ def climb(eng, tree, rounds: list) -> tuple:
 
 
 class PassCount:
-    """Counts the calls of ops/pruning.down_pass and up_pass while active,
-    so a run can show one kernel launch per pass."""
+    """Counts the calls of ops/pruning.down_pass, up_pass and theta_pass
+    while active, and the down passes asked for site log-likelihoods
+    (sitelp), so a run can show one kernel launch per pass and one
+    epilogue per log-likelihood pass."""
+
+    PASSES = ("down_pass", "up_pass", "theta_pass")
 
     def __enter__(self):
         from iqtree2_tpu_torch.ops import pruning
-        self.calls = {"down_pass": 0, "up_pass": 0}
-        self._saved = {k: getattr(pruning, k) for k in self.calls}
+        self.calls = {"down_pass": 0, "sitelp": 0, "up_pass": 0,
+                      "theta_pass": 0}
+        self._saved = {k: getattr(pruning, k) for k in self.PASSES}
 
         def counted(name):
             def call(*args, **kw):
                 self.calls[name] += 1
+                if name == "down_pass" and kw.get("pack") is not None:
+                    self.calls["sitelp"] += 1
                 return self._saved[name](*args, **kw)
             return call
 
-        for k in self.calls:
+        for k in self.PASSES:
             setattr(pruning, k, counted(k))
         return self
 
@@ -165,6 +178,9 @@ class PassCount:
             setattr(pruning, k, fn)
 
     def check(self, launches: dict, tag: str) -> None:
+        gone = sorted(set(GONE) & set(launches))
+        if gone:
+            raise RuntimeError(f"{tag}: standalone kernels {gone} counted")
         for k, n in self.calls.items():
             if launches[k] != n:
                 raise RuntimeError(f"{tag}: {launches[k]} {k} launches for "
@@ -192,11 +208,18 @@ def check_kernels(tag: str, eng, tree, time_reps: int, errors: dict) -> list:
     res = kernelcheck.check(eng, tree, time_reps=time_reps)
     torch.cuda.synchronize()
     for r in res:
+        extra = ""
+        if "lp_err" in r:
+            extra = (f" lp_err {r['lp_err']:.3e} (tol {r['lp_tol']:g}); "
+                     f"with the epilogue kernel {r['sitelp_ms']:.4f} ms, "
+                     f"back to back {r['sitelp_b2b_ms']:.4f} ms, plain "
+                     f"{r['sitelp_plain_ms']:.4f} ms")
         print(f"{tag} {str(eng.dtype)[6:]} Pp={eng.Pp} {r['name']}: "
               f"max_abs_err {r['max_abs_err']:.3e} max_rel_err "
               f"{r['max_rel_err']:.3e} (tol {r['tol']:g}) scales_equal "
-              f"{r['scales_equal']} kernel {r['ms']:.4f} ms plain "
-              f"{r['plain_ms']:.4f} ms", flush=True)
+              f"{r['scales_equal']} kernel {r['ms']:.4f} ms, back to back "
+              f"{r['b2b_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{extra}",
+              flush=True)
         if not r["ok"]:
             raise RuntimeError(f"{r['name']} disagrees with its plain "
                                f"version ({tag}, {eng.dtype}): {r}")
@@ -234,11 +257,17 @@ def main() -> int:
     kernels.library()
     print(f"[phase 2] built {kernels.build_library().name} from {SOURCE} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    occ = {f"{kind} S={S} {str(dtype)[6:]}": kernels.pass_occupancy(
+        kind, dtype, 4, S, BIG_SITES)
+        for S in (4, 20) for dtype in (torch.float32, torch.float64)
+        for kind in kernels.PASS_KINDS}
+    print(f"[phase 2] C=4, {BIG_SITES} patterns: (blocks per SM, shared "
+          f"bytes per block) {occ}", flush=True)
     torch.cuda.synchronize()
 
     # 3. kernel vs plain on the card
     errors = {k: 0.0 for k in REPLACES}
-    for name in ("GTR+G4", "LG+G4"):
+    for name in ("GTR+G4", "GTR+G8", "LG+G4"):
         aln, tree, model, rates = kernelcheck.simulate(
             name, CHECK_TAXA, CHECK_SITES, seed=1)
         for dtype in (torch.float32, torch.float64):
@@ -287,7 +316,9 @@ def main() -> int:
           f"GiB; launches {launches}; passes {passes.calls}", flush=True)
     if not math.isfinite(logl):
         return fail(f"realistic-size logL is not finite: {logl}")
-    if not all(v > 0 for v in launches.values()):
+    # the fit runs log-likelihoods and Newton rounds, no NNI round's up_pass
+    if not all(launches[k] > 0 for k in ("down_pass", "sitelp",
+                                         "theta_pass")):
         return fail(f"a kernel of the path was never launched: {launches}")
     passes.check(launches, "[phase 5]")
     eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
@@ -297,7 +328,7 @@ def main() -> int:
     bound = kernelcheck.bounds(eng, tree)
     print(f"[phase 5] buffers alone (ms): "
           f"{kernelcheck.time_buffers(eng, tree, 3)}; bounds (ms): "
-          f"{ {k: round(v['bound_ms'], 4) for k, v in bound.items()} }",
+          f"{ {k: round(v['bound_ms'], 6) for k, v in bound.items()} }",
           flush=True)
 
     # 6. the flagship: tree search with ultrafast bootstrap
@@ -314,7 +345,10 @@ def main() -> int:
     print(f"[phase 6] flagship -m GTR+G -bb {FLAGSHIP_REPLICATES} f32, "
           f"default settings: logL {logl:.4f} (bound {g4 - 0.5:.4f}) in "
           f"{wall:.1f} s, {iters} iterations; wall seconds: {split}; "
-          f"launches {launches}; passes {passes.calls}", flush=True)
+          f"launches down_pass {launches['down_pass']} (sitelp "
+          f"{launches['sitelp']}), up_pass {launches['up_pass']}, "
+          f"theta_pass {launches['theta_pass']}; passes {passes.calls}",
+          flush=True)
     if not all(v > 0 for v in launches.values()):
         return fail(f"a kernel of the path was never launched: {launches}")
     passes.check(launches, "[phase 6]")
@@ -325,6 +359,10 @@ def main() -> int:
         f_eng = LikelihoodEngine(f_aln, f_model, f_rates,
                                  dtype=torch.float32, device="cuda")
         check_kernels(f"[phase 6] GTR+G4 {tag}", f_eng, f_tree, 3, errors)
+        f_bound = kernelcheck.bounds(f_eng, f_tree)
+        print(f"[phase 6] GTR+G4 {tag} bounds (ms): "
+              f"{ {k: round(v['bound_ms'], 6) for k, v in f_bound.items()} }",
+              flush=True)
 
     # 7. the NNI hill-climb at the realistic width
     start, n_moves = kernelcheck.perturbed(tree, seed=2, strength=0.02)
@@ -357,11 +395,9 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
-         "plain_ms": timed[k]["plain_ms"],
+         "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],
-         # no single PyTorch call computes a pruning pass, a root
-         # reduction with its scale, or edge_theta's two contractions and
-         # product
+         # no single PyTorch call computes a pruning pass
          "library_ms": None} for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """iqtree2_tpu_torch: the PyTorch/CUDA port of iqtree2_tpu for NVIDIA Hopper.
 
 The JAX package ``iqtree2_tpu`` stays the reference; this package
-re-implements its likelihood path with torch tensors and four hand-written
+re-implements its likelihood path with torch tensors and three hand-written
 CUDA kernels (ops/kernels.py, csrc/pruning.cu), and keeps its own copies of
 the host modules it needs (alignment, models, tree schedule, I/O,
 parsimony, UFBoot, host optimizers; each copy names its origin). It imports

@@ -8,8 +8,8 @@ Hopper kernels of ops/kernels.py; on the CPU through their plain versions.
 
 Ported: pattern padding, refresh_model, with_pattern_weights,
 schedule_arrays, loglik_tree/loglik_sched, site_lp, compute_passes, the
-all-branch Newton optimize_branches (the JAX "std" path; its v2 fused-theta
-path is the same math, carried here by the edge_theta kernel), NNI scoring
+all-branch Newton optimize_branches (the JAX "std" path's math, through its
+v2 fused-theta path: a down pass and one theta_pass per round), NNI scoring
 (evaluate_nni_batch) and the fused NNI round (optimize_and_evaluate_nnis)
 with their K-tree forms. The JAX engine's mechanisms for the TPU's remote
 link and compiler (_pull, _pack_flat, _unpack_ints, _dev_scalar,
@@ -81,17 +81,18 @@ def optimize_blens(blens, tipP, sched, pack, pattern_weights, t_min: float,
                    t_max: float, n_rounds: int, n_newton: int,
                    eps: float = 1e-3):
     """Iterative all-branch Newton via theta buffers with backtracking
-    (counterpart of engine._optimize_blens_jit). Each round: down + up
-    passes -> thetas of every edge -> per-edge bounded Newton (all edges in
-    parallel) -> monotonic acceptance. Returns (blens, logL)."""
+    (counterpart of engine._optimize_blens_jit). Each round: a down pass
+    (no tip rows) and a theta pass -> thetas of every edge -> per-edge
+    bounded Newton (all edges in parallel) -> monotonic acceptance. Returns
+    (blens, logL)."""
     def lg(b) -> float:
         return float(pruning.tree_loglik(b, tipP, sched, pack,
                                          pattern_weights)[0])
 
     def one_round(b, logL_prev):
         P = pruning.transition_tensors(b, pack)
-        dp, up = pruning.both_passes(P, tipP, sched, pack)
-        th = pruning.edge_thetas(up, dp, sched["edge_src"], pack)
+        dp = pruning.down_pass(P, tipP, sched, tips=False)
+        th = pruning.theta_pass(P, dp, tipP, sched, pack)
         prop = pruning.newton_branch_step(
             th.theta, th.scale, b, pack, pack["log_ptn_invar"],
             pattern_weights, t_min, t_max, n_iter=n_newton)
@@ -232,9 +233,10 @@ class LikelihoodEngine:
         """(DownPass, UpPass, logL) device tensors for one topology."""
         sa = self.schedule_arrays(sched)
         P = pruning.transition_tensors(self._blens(sched), self._pack)
-        dp, up = pruning.both_passes(P, self._tipP, sa, self._pack)
+        dp, up = pruning.both_passes(P, self._tipP, sa, self._pack,
+                                     want_lp=True)
         logL, _ = pruning.finalize_loglik(
-            pruning.site_lp(dp, P, self._tipP, self._pack), self._pw,
+            pruning.site_lp(dp), self._pw,
             asc_mask=self._pack.get("asc_mask"),
             asc_nsites=self._pack.get("asc_nsites"))
         return dp, up, logL
@@ -293,7 +295,7 @@ class LikelihoodEngine:
         """The fused NNI round: all-branch Newton (lengths written back into
         ``tree`` and ``sched``), both passes at the optimised lengths, NNI
         scoring, and with want_lp the optimised tree's site log-likelihoods
-        (the root_sitelp kernel).
+        (the epilogue of that down pass).
 
         Returns (opt_logL, logl [n, 3], t_opt [n, 3][, t5 [n, 3, 5]]
         [, site_lp [num_patterns]])."""
@@ -302,11 +304,12 @@ class LikelihoodEngine:
                                   self._pack, self._pw, t_min, t_max,
                                   n_rounds, n_newton=4)
         P = pruning.transition_tensors(nb, self._pack)
-        dp, up = pruning.both_passes(P, self._tipP, sa, self._pack)
+        dp, up = pruning.both_passes(P, self._tipP, sa, self._pack,
+                                     want_lp=want_lp)
         out = [float(logL)] + self._nni_scores(cand_arrays, nb, dp, up, sa,
                                                t_min, t_max, nni5)
         if want_lp:
-            lp = pruning.site_lp(dp, P, self._tipP, self._pack)
+            lp = pruning.site_lp(dp)
             out.append(lp[: self.aln.num_patterns].double().cpu().numpy())
         nb = nb.double().cpu().numpy()
         write_blens_to_tree(tree, sched, nb)

@@ -5,16 +5,19 @@ its ``simulate``). A problem is an alignment simulated under one of MODELS on
 a random topology; every kernel then gets exactly the inputs its plain
 version gets:
 
-- down_pass: the plain down pass (down_pass_plain) is the reference; the
-  kernel runs the whole pass on fresh buffers;
-- root_sitelp and edge_theta: one call each on the reference passes;
-- up_pass: the plain up pass is the reference; the kernel runs the whole
-  sweep on fresh buffers over the reference down pass.
+- down_pass: the plain down pass with its site-logL epilogue
+  (down_pass_plain) is the reference; the kernel runs the whole pass and
+  the epilogue on fresh buffers;
+- up_pass and theta_pass: the plain sweeps (up_pass_plain,
+  theta_pass_plain) over the reference down pass are the references; each
+  kernel runs the whole sweep on fresh buffers over that down pass.
 
-Before a pass runs, every row it writes is set to a sentinel (NaN partials,
-scale count -1), so a row the kernel leaves unwritten fails the comparison
-instead of passing as the reference's copy. ``bounds`` gives each kernel's
-least possible time on an H100 for the same work.
+Before a pass runs, every row it writes is set to a sentinel (NaN partials
+and lp, scale count -1), so a row the kernel leaves unwritten fails the
+comparison instead of passing as the reference's copy; the tip rows of the
+unified buffer are NaN in every down pass here, so a pass that reads them
+instead of the tips fails too. ``bounds`` gives each kernel's least
+possible time on an H100 for the same work.
 
 Errors are relative per (row, pattern) column: max |kernel - plain| over the
 C x S values over their largest |plain|, the scale that the per-pattern
@@ -26,6 +29,7 @@ float32 and relative to max(|lp|, 1) in float64. Scale counts must be equal.
 from __future__ import annotations
 
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,6 +51,9 @@ MODELS = {
                "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}"),
     "LG+G4": ("AA", "ARNDCQEGHILKMFPSTWYV", "LG+G{0.6}"),
     "HKY+I": ("DNA", "ACGT", "HKY{3.0}+F{0.3,0.2,0.2,0.3}+I{0.2}"),
+    # 8 categories: more than the DNA register column holds (kRegCats)
+    "GTR+G8": ("DNA", "ACGT",
+               "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G8{0.6}"),
 }
 # float64: 1e-9 relative everywhere; float32: 1e-4 relative on partials and
 # theta, 1e-3 absolute on site log-likelihoods
@@ -103,11 +110,37 @@ def col_rel(a, b) -> float:
 
 
 def timed_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card (CUDA events, after warm-up)."""
+    """Mean milliseconds of fn() on the card (CUDA events, after warm-up),
+    the host launching as it goes: where a kernel is shorter than the
+    host's work per launch, this is the host's launch rate ("loaded")."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+# clock cycles the card spins per queued call in back_to_back_ms: 100 us
+# of host time per call at 2 GHz
+SLEEP_CYCLES_PER_CALL = 200_000
+B2B_REPS = 50
+
+
+def back_to_back_ms(fn, reps: int = B2B_REPS) -> float:
+    """Mean milliseconds of fn() with its reps launches queued behind a
+    kernel that spins on the card (torch.cuda._sleep), so that they run
+    back to back whatever the host's launch rate: the device time of a
+    launch. fn must not wait for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
     t0.record()
     for _ in range(reps):
         fn()
@@ -126,6 +159,13 @@ def _pair(fk, fp, reps: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+class ThetaBuffers(NamedTuple):
+    up: torch.Tensor         # [n_int, C, S, Pp] UP per internal node
+    up_scale: torch.Tensor
+    theta: torch.Tensor      # [n_edges, C, S, Pp]
+    scale: torch.Tensor
+
+
 class Problem:
     """The tensors every kernel of one (engine, tree) problem takes."""
 
@@ -135,20 +175,52 @@ class Problem:
         self.pack, self.tipP = eng._pack, eng._tipP
         self.P = pruning.transition_tensors(eng._blens(self.sched), self.pack)
         self.cs, self.ce = sa["child_src"], sa["child_edge"]
-        self.steps, self.edge_src = sa["step_node"], sa["edge_src"]
+        self.steps = sa["step_node"]
         self.L = self.tipP.shape[0]
         self.n_int = self.sched.n_int
-        self.root_row = self.L + self.n_int - 1
+        cat_mix = self.pack["cat_mix"]
+        self.U = self.pack["U"][cat_mix].contiguous()
+        self.V = self.pack["V"][cat_mix].contiguous()
 
     def down_buffers(self):
-        return pruning.down_buffers(self.P, self.tipP, self.n_int)
+        """Down-pass buffers without tips, their tip rows NaN: no pass may
+        read them."""
+        dp = pruning.down_buffers(self.P, self.tipP, self.n_int, tips=False)
+        dp.all[:self.L] = float("nan")
+        return dp
 
     def up_buffers(self, dp):
         return pruning.up_buffers(self.P, dp, self.tipP,
                                   self.pack["root_freqs"])
 
-    def down(self, fn, dp):
-        fn(self.P, self.tipP, dp.all, dp.scale, self.cs, self.ce, self.steps)
+    def lp_buffer(self):
+        return torch.full(self.tipP.shape[-1:], float("nan"),
+                          dtype=self.tipP.dtype, device=self.tipP.device)
+
+    def sitelp(self, lp):
+        """down_pass's epilogue operands, writing into lp."""
+        return (self.pack["root_freqs"], self.pack["cat_weight"],
+                self.pack["log_ptn_invar"], lp)
+
+    def theta_buffers(self) -> ThetaBuffers:
+        """theta_pass's outputs, every row a sentinel (NaN, scale -1)."""
+        L, S, Pp = self.tipP.shape
+        C, n_edges = self.P.shape[1], self.P.shape[0]
+        kw = dict(dtype=self.tipP.dtype, device=self.tipP.device)
+        ikw = dict(dtype=torch.int32, device=self.tipP.device)
+        return ThetaBuffers(
+            torch.full((self.n_int, C, S, Pp), float("nan"), **kw),
+            torch.full((self.n_int, Pp), -1, **ikw),
+            torch.full((n_edges, C, S, Pp), float("nan"), **kw),
+            torch.full((n_edges, Pp), -1, **ikw))
+
+    def down(self, fn, dp, sitelp=None):
+        args = (self.P, self.tipP, dp.all, dp.scale, self.cs, self.ce,
+                self.steps)
+        if sitelp is None:
+            fn(*args)
+        else:
+            fn(*args, sitelp=sitelp)
         return dp
 
     def up(self, fn, dp, u):
@@ -156,50 +228,63 @@ class Problem:
            u.edge_E, u.edge_E_scale, self.cs, self.ce, self.steps)
         return u
 
+    def theta(self, fn, dp, t: ThetaBuffers):
+        fn(self.P, self.tipP, dp.all, dp.scale, t.up, t.up_scale, t.theta,
+           t.scale, self.cs, self.ce, self.steps, self.U, self.V,
+           self.pack["root_freqs"])
+        return t
+
+
+def lp_error(lp, ref, dtype) -> float:
+    """Site log-likelihood error: absolute in float32, relative to
+    max(|lp|, 1) in float64 (TOLERANCE["lp"])."""
+    err = (lp - ref).abs()
+    if dtype == torch.float64:
+        err = err / ref.abs().clamp(min=1.0)
+    return float(err.max())
+
 
 def check(eng: LikelihoodEngine, tree: Tree, time_reps: int = 0) -> list:
-    """Compare the four kernels with their plain versions on one problem.
+    """Compare the three kernels with their plain versions on one problem.
 
-    Returns one dict per kernel: name, max_abs_err, max_rel_err,
-    scales_equal, tol, ok, and with time_reps > 0 also ms and plain_ms:
-    the mean time of one pass (down_pass, up_pass) or call (root_sitelp,
-    edge_theta) alone, its buffers built outside the timed region
-    (time_buffers times those)."""
+    Returns one dict per kernel, down_pass (with its site-logL epilogue),
+    up_pass, theta_pass: name, max_abs_err, max_rel_err, scales_equal, tol,
+    ok (down_pass also lp_err against lp_tol; theta_pass compares theta and
+    UP). With time_reps > 0 also ms and plain_ms, the mean time of one pass
+    alone, its buffers built outside the timed region (time_buffers times
+    those), and b2b_ms, the kernel's launches back to back
+    (back_to_back_ms); down_pass's are without the epilogue, its
+    sitelp_ms, sitelp_plain_ms and sitelp_b2b_ms with it."""
     pb = Problem(eng, tree)
-    L, P, tipP = pb.L, pb.P, pb.tipP
-    rf, w, li = (pb.pack[k] for k in ("root_freqs", "cat_weight",
-                                      "log_ptn_invar"))
-    U = pb.pack["U"][pb.pack["cat_mix"]].contiguous()
-    V = pb.pack["V"][pb.pack["cat_mix"]].contiguous()
+    L = pb.L
     tol = TOLERANCE[eng.dtype]
 
-    dp = pb.down(kernels.down_pass_plain, pb.down_buffers())
+    # the references: the plain passes, on down-pass buffers whose tip rows
+    # are NaN
+    lp_ref = pb.lp_buffer()
+    dp = pb.down(kernels.down_pass_plain, pb.down_buffers(), pb.sitelp(lp_ref))
     up_ref = pb.up(kernels.up_pass_plain, dp, pb.up_buffers(dp))
+    th_ref = pb.theta(kernels.theta_pass_plain, dp, pb.theta_buffers())
     out = []
 
-    # H1 down_pass: every internal row is written by the pass
+    # H1 down_pass: every internal row and lp are written by the pass
     got = pb.down_buffers()
     got.all[L:] = float("nan")
     got.scale[L:] = -1
-    pb.down(kernels.down_pass, got)
-    out.append(dict(name="down_pass",
-                    max_abs_err=float((got.all - dp.all).abs().max()),
-                    max_rel_err=col_rel(got.all[L:], dp.all[L:]),
-                    scales_equal=bool(torch.equal(got.scale, dp.scale)),
-                    tol=tol["partials"]))
+    lp = pb.lp_buffer()
+    pb.down(kernels.down_pass, got, pb.sitelp(lp))
+    # np.max, not max(): a NaN in either operand must carry through
+    out.append(dict(
+        name="down_pass",
+        max_abs_err=float(np.max([float((got.all[L:] - dp.all[L:]).abs()
+                                        .max()),
+                                  float((lp - lp_ref).abs().max())])),
+        max_rel_err=col_rel(got.all[L:], dp.all[L:]),
+        scales_equal=bool(torch.equal(got.scale, dp.scale)),
+        tol=tol["partials"], lp_err=lp_error(lp, lp_ref, eng.dtype),
+        lp_tol=tol["lp"]))
 
-    # H2 root_sitelp
-    lp = kernels.root_sitelp(P, tipP, dp.all, dp.scale, pb.root_row, rf, w,
-                             li)
-    lp_ref = kernels.root_sitelp_plain(P, tipP, dp.all, dp.scale,
-                                       pb.root_row, rf, w, li)
-    err = (lp - lp_ref).abs()
-    rel = float((err / lp_ref.abs().clamp(min=1.0)).max())
-    out.append(dict(name="root_sitelp", max_abs_err=float(err.max()),
-                    max_rel_err=rel, scales_equal=True, tol=tol["lp"],
-                    lp_metric="abs" if eng.dtype == torch.float32 else "rel"))
-
-    # H3 up_pass: E of every child edge and UP of every internal child;
+    # H2 up_pass: E of every child edge and UP of every internal child;
     # E of edge 0 and UP of the root come from up_buffers
     u = pb.up_buffers(dp)
     eid = pb.ce.flatten().long()
@@ -210,7 +295,6 @@ def check(eng: LikelihoodEngine, tree: Tree, time_reps: int = 0) -> list:
     u.up_in[kid] = float("nan")
     u.up_scale[kid] = -1
     pb.up(kernels.up_pass, dp, u)
-    # np.max, not max(): a NaN in either operand must carry through
     out.append(dict(
         name="up_pass",
         max_abs_err=float(np.max([
@@ -222,55 +306,63 @@ def check(eng: LikelihoodEngine, tree: Tree, time_reps: int = 0) -> list:
                           and torch.equal(u.up_scale, up_ref.up_scale)),
         tol=tol["partials"]))
 
-    # H4 edge_theta
-    args = (up_ref.edge_E, up_ref.edge_E_scale, dp.all, dp.scale,
-            pb.edge_src, U, V)
-    th, tsc = kernels.edge_theta(*args)
-    th_ref, tsc_ref = kernels.edge_theta_plain(*args)
-    out.append(dict(name="edge_theta",
-                    max_abs_err=float((th - th_ref).abs().max()),
-                    max_rel_err=col_rel(th, th_ref),
-                    scales_equal=bool(torch.equal(tsc, tsc_ref)),
-                    tol=tol["partials"]))
-    if tipP.is_cuda:
+    # H3 theta_pass: theta of every edge and UP of every internal node
+    t = pb.theta(kernels.theta_pass, dp, pb.theta_buffers())
+    out.append(dict(
+        name="theta_pass",
+        max_abs_err=float(np.max([
+            float((t.theta - th_ref.theta).abs().max()),
+            float((t.up - th_ref.up).abs().max())])),
+        max_rel_err=float(np.max([col_rel(t.theta, th_ref.theta),
+                                  col_rel(t.up, th_ref.up)])),
+        scales_equal=bool(torch.equal(t.scale, th_ref.scale)
+                          and torch.equal(t.up_scale, th_ref.up_scale)),
+        tol=tol["partials"]))
+    if pb.tipP.is_cuda:
         torch.cuda.synchronize()
 
     for r in out:
-        metric = r["max_abs_err"] if r.get("lp_metric") == "abs" \
-            else r["max_rel_err"]
-        r["ok"] = bool(metric <= r["tol"] and r["scales_equal"])
+        r["ok"] = bool(r["max_rel_err"] <= r["tol"] and r["scales_equal"]
+                       and r.get("lp_err", 0.0) <= r.get("lp_tol", 1.0))
 
     if time_reps:
-        # one set of buffers per version, built once: a pass rewrites
-        # every row it owns, so repeating it on the same buffers is the
-        # same work
-        dk, dpl = pb.down_buffers(), pb.down_buffers()
-        uk, upl = pb.up_buffers(dp), pb.up_buffers(dp)
+        # the kernels rewrite their checked outputs, the plain versions the
+        # references: a pass rewrites every row it owns, so repeating it on
+        # the same buffers is the same work
+        lp_k, lp_p = pb.sitelp(lp), pb.sitelp(lp_ref)
         timings = {
-            "down_pass": (lambda: pb.down(kernels.down_pass, dk),
-                          lambda: pb.down(kernels.down_pass_plain, dpl)),
-            "root_sitelp": (
-                lambda: kernels.root_sitelp(P, tipP, dp.all, dp.scale,
-                                            pb.root_row, rf, w, li),
-                lambda: kernels.root_sitelp_plain(P, tipP, dp.all, dp.scale,
-                                                  pb.root_row, rf, w, li)),
-            "up_pass": (lambda: pb.up(kernels.up_pass, dp, uk),
-                        lambda: pb.up(kernels.up_pass_plain, dp, upl)),
-            "edge_theta": (lambda: kernels.edge_theta(*args),
-                           lambda: kernels.edge_theta_plain(*args)),
+            "down_pass": (lambda: pb.down(kernels.down_pass, got),
+                          lambda: pb.down(kernels.down_pass_plain, dp)),
+            "sitelp": (lambda: pb.down(kernels.down_pass, got, lp_k),
+                       lambda: pb.down(kernels.down_pass_plain, dp, lp_p)),
+            "up_pass": (lambda: pb.up(kernels.up_pass, dp, u),
+                        lambda: pb.up(kernels.up_pass_plain, dp, up_ref)),
+            "theta_pass": (lambda: pb.theta(kernels.theta_pass, dp, t),
+                           lambda: pb.theta(kernels.theta_pass_plain, dp,
+                                            th_ref)),
         }
+        ms = {}
+        for key, (fk, fp) in timings.items():
+            ms[key] = (*_pair(fk, fp, time_reps), back_to_back_ms(fk))
         for r in out:
-            r["ms"], r["plain_ms"] = _pair(*timings[r["name"]], time_reps)
+            r["ms"], r["plain_ms"], r["b2b_ms"] = ms[r["name"]]
+        out[0]["sitelp_ms"], out[0]["sitelp_plain_ms"], \
+            out[0]["sitelp_b2b_ms"] = ms["sitelp"]
     return out
 
 
 def time_buffers(eng: LikelihoodEngine, tree: Tree, reps: int) -> dict:
-    """Mean milliseconds of pruning.down_buffers (the unified buffer with
-    the tips copied in) and pruning.up_buffers (the root's rows) on the
-    card: the set-up of a pass that check() leaves out of its times."""
+    """Mean milliseconds of pruning.down_buffers with the tips copied in
+    (the NNI round's), without them (a log-likelihood's, a theta pass's),
+    and pruning.up_buffers (the root's rows) on the card: the set-up of a
+    pass that check() leaves out of its times."""
     pb = Problem(eng, tree)
     dp = pb.down(kernels.down_pass, pb.down_buffers())
-    return {"down_buffers": timed_ms(pb.down_buffers, reps),
+    return {"down_buffers": timed_ms(
+                lambda: pruning.down_buffers(pb.P, pb.tipP, pb.n_int), reps),
+            "down_buffers_no_tips": timed_ms(
+                lambda: pruning.down_buffers(pb.P, pb.tipP, pb.n_int,
+                                             tips=False), reps),
             "up_buffers": timed_ms(lambda: pb.up_buffers(dp), reps)}
 
 
@@ -294,10 +386,15 @@ def bounds(eng: LikelihoodEngine, tree: Tree) -> dict:
     mats = n_edges * C * S * S * f
     index = 4 * (4 * n_int + sched.step_node.size)
     tips = L * S * Pp * f
+    down = (mats + tips + index + n_int * (col + scale),
+            n_int * Pp * C * (4 * S * S + S))
     work = {
         # read P, tips, schedule; write every internal row and its scale
-        "down_pass": (mats + tips + index + n_int * (col + scale),
-                      n_int * Pp * C * (4 * S * S + S)),
+        "down_pass": down,
+        # ... and the epilogue: read pi, w, log_inv (P_0, tip 0 and the
+        # root row are counted above); write lp
+        "down_pass_sitelp": (down[0] + (C * S + C) * f + 2 * Pp * f,
+                             down[1] + Pp * C * (2 * S * S + 3 * S + 2)),
         # read P, tips, down rows and scales, the root's UP; write E of
         # every child edge and UP of every internal child, with scales
         "up_pass": (mats + tips + index + n_int * (col + scale)
@@ -305,15 +402,17 @@ def bounds(eng: LikelihoodEngine, tree: Tree) -> dict:
                     + (n_edges - 1 + n_int - 1) * (col + scale),
                     Pp * C * ((n_edges - 1) * (2 * S * S + S)
                               + (n_int - 1) * 2 * S * S)),
-        # read P_0, tip 0, the root row, its scale, pi, w, log_inv; write lp
-        "root_sitelp": (C * S * S * f + S * Pp * f + col + scale
-                        + (C * S + C) * f + 2 * Pp * f,
-                        Pp * C * (2 * S * S + 3 * S + 2)),
-        # read E, its scales, every edge's child row and scale, U, V;
-        # write theta and its scales
-        "edge_theta": (n_edges * (3 * col + 3 * scale + 4)
-                       + 2 * C * S * S * f,
-                       n_edges * Pp * C * (4 * S * S + S)),
+        # read P, tips, down rows and scales, U, V, pi; write theta of every
+        # edge with its scale. E and UP are the sweep's own intermediates,
+        # not its result (the kernel keeps E in registers and sends UP
+        # through device memory; T8 kept UP in VMEM), so neither counts
+        "theta_pass": (mats + tips + index + n_int * (col + scale)
+                       + (2 * C * S * S + C * S) * f
+                       + n_edges * (col + scale),
+                       Pp * C * (2 * S * S
+                                 + (n_edges - 1) * (2 * S * S + S)
+                                 + (n_int - 1) * 2 * S * S
+                                 + n_edges * (4 * S * S + S))),
     }
     out = {}
     for name, (nbytes, flops) in work.items():

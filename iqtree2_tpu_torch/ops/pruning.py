@@ -6,9 +6,12 @@ tips broadcast over categories in rows 0..L-1, int32 scale counts, and the
 2^-B per-pattern rescale of ``scaling_consts``. A pass over the level steps
 of tree/schedule.py is one call of a kernel wrapper in ops/kernels.py,
 which launches the Hopper kernel once for CUDA tensors and runs its plain
-PyTorch version (a loop over the steps) for CPU tensors. ``vmap`` over edges
-in the JAX engine becomes an explicit leading E axis here (edge_thetas,
-branch_lh_derivs, newton_branch_step).
+PyTorch version (a loop over the steps) for CPU tensors. The site
+log-likelihoods are the down pass's epilogue (down_pass with ``pack``) and
+the Newton round's theta buffers come from one theta_pass, which never
+writes E; both_passes and edge_thetas keep E and the tip rows for NNI
+scoring. ``vmap`` over edges in the JAX engine becomes an explicit leading
+E axis here (theta_pass, branch_lh_derivs, newton_branch_step).
 
 Not yet ported: nonreversible models (pack["Q"]) and per-category (mixlen)
 branch lengths; transition_tensors raises for both. ``expm_ss`` is here for
@@ -29,6 +32,7 @@ from iqtree2_tpu_torch.ops.prec import scaling_consts
 class DownPass(NamedTuple):
     all: torch.Tensor        # [L + n_int, C, S, Pp] unified partials
     scale: torch.Tensor      # [L + n_int, Pp] int32 scale counts
+    lp: torch.Tensor | None = None   # [Pp] site log-likelihoods, if asked
 
 
 class UpPass(NamedTuple):
@@ -98,24 +102,45 @@ def tip_partials(tip_codes, tip_table):
 
 
 # ----------------------------------------------------------------- passes
-def down_buffers(P, tipP, n_int: int) -> DownPass:
-    """Unified buffers of a down pass: tip rows filled, scale rows zero.
-    The internal rows are left unset: the pass writes each once."""
+def down_buffers(P, tipP, n_int: int, tips: bool = True) -> DownPass:
+    """Unified buffers of a down pass: tip rows of the scales zero, tip rows
+    of the partials filled with the tips (broadcast over categories) only
+    with ``tips``; no kernel reads them, NNI scoring does. The internal rows
+    are left unset: the pass writes each once."""
     L, S, Pp = tipP.shape
     ALL = torch.empty((L + n_int, P.shape[1], S, Pp), dtype=tipP.dtype,
                       device=tipP.device)
-    ALL[:L] = tipP[:, None]
-    SC = torch.zeros((L + n_int, Pp), dtype=torch.int32, device=tipP.device)
+    if tips:
+        ALL[:L] = tipP[:, None]
+    SC = torch.empty((L + n_int, Pp), dtype=torch.int32, device=tipP.device)
+    SC[:L] = 0
     return DownPass(ALL, SC)
 
 
-def down_pass(P, tipP, sched) -> DownPass:
+def down_pass(P, tipP, sched, pack=None, tips: bool = True) -> DownPass:
     """Post-order sweep over the level steps (contract of
-    pruning._down_pass_xla): one down_pass kernel call."""
-    dp = down_buffers(P, tipP, sched["child_src"].shape[0])
+    pruning._down_pass_xla): one down_pass kernel call. With ``pack`` the
+    same launch also writes the site log-likelihoods (DownPass.lp); with
+    ``tips=False`` the tip rows of DownPass.all are left unset (a
+    log-likelihood or a theta pass does not read them)."""
+    dp = down_buffers(P, tipP, sched["child_src"].shape[0], tips)
+    sitelp = None
+    if pack is not None:
+        dp = dp._replace(lp=torch.empty(tipP.shape[-1], dtype=tipP.dtype,
+                                        device=tipP.device))
+        sitelp = (pack["root_freqs"], pack["cat_weight"],
+                  pack["log_ptn_invar"], dp.lp)
     kernels.down_pass(P, tipP, dp.all, dp.scale, sched["child_src"],
-                      sched["child_edge"], sched["step_node"])
+                      sched["child_edge"], sched["step_node"], sitelp=sitelp)
     return dp
+
+
+def _rows(n: int, P, tipP):
+    """Unset [n, C, S, Pp] partials and [n, Pp] int32 scales."""
+    _, S, Pp = tipP.shape
+    return (torch.empty((n, P.shape[1], S, Pp), dtype=tipP.dtype,
+                        device=tipP.device),
+            torch.empty((n, Pp), dtype=torch.int32, device=tipP.device))
 
 
 def up_buffers(P, dp: DownPass, tipP, root_freqs) -> UpPass:
@@ -123,18 +148,10 @@ def up_buffers(P, dp: DownPass, tipP, root_freqs) -> UpPass:
     JAX package): UP[root] = pi * (P_0 tip_0) and E[0] = pi * down[root]
     (leaf 0's edge is folded into the root). The pass writes every other
     row once."""
-    L, S, Pp = tipP.shape
-    n_int = dp.all.shape[0] - L
-    C = P.shape[1]
-    kw = dict(dtype=tipP.dtype, device=tipP.device)
-    UP = torch.empty((n_int, C, S, Pp), **kw)
-    UPS = torch.empty((n_int, Pp), dtype=torch.int32, device=tipP.device)
-    E = torch.empty((P.shape[0], C, S, Pp), **kw)
-    ES = torch.empty((P.shape[0], Pp), dtype=torch.int32, device=tipP.device)
-    UP[n_int - 1] = root_freqs[:, :, None] * apply_P(P[0], tipP[0])
-    UPS[n_int - 1] = 0
-    E[0] = root_freqs[:, :, None] * dp.all[L + n_int - 1]
-    ES[0] = dp.scale[L + n_int - 1]
+    E, ES = _rows(P.shape[0], P, tipP)
+    UP, UPS = _rows(dp.all.shape[0] - tipP.shape[0], P, tipP)
+    kernels.root_init_plain(P, tipP, dp.all, dp.scale, UP, UPS, E, ES,
+                            root_freqs)
     return UpPass(E, ES, UP, UPS)
 
 
@@ -148,10 +165,27 @@ def up_pass(P, dp: DownPass, tipP, sched, root_freqs) -> UpPass:
     return up
 
 
-def both_passes(P, tipP, sched, pack):
-    """(DownPass, UpPass) for one topology."""
-    dp = down_pass(P, tipP, sched)
+def both_passes(P, tipP, sched, pack, want_lp: bool = False):
+    """(DownPass, UpPass) for one topology, with the tip rows set for NNI
+    scoring; with ``want_lp`` the down pass also writes DownPass.lp."""
+    dp = down_pass(P, tipP, sched, pack=pack if want_lp else None)
     return dp, up_pass(P, dp, tipP, sched, pack["root_freqs"])
+
+
+def theta_pass(P, dp: DownPass, tipP, sched, pack) -> Thetas:
+    """Theta buffers of every edge from one theta_pass kernel call over a
+    finished down pass (tip rows of dp.all not needed): the outside sweep
+    with theta formed per edge inside it, E never stored (contract of
+    pallas_pruning2.thetas_v2; the same values as edge_thetas on
+    both_passes)."""
+    UP, UPS = _rows(dp.all.shape[0] - tipP.shape[0], P, tipP)
+    theta, tsc = _rows(P.shape[0], P, tipP)
+    cat_mix = pack["cat_mix"]
+    kernels.theta_pass(P, tipP, dp.all, dp.scale, UP, UPS, theta, tsc,
+                       sched["child_src"], sched["child_edge"],
+                       sched["step_node"], pack["U"][cat_mix].contiguous(),
+                       pack["V"][cat_mix].contiguous(), pack["root_freqs"])
+    return Thetas(theta, tsc)
 
 
 def gather_messages(dp: DownPass, P, src_idx, eids):
@@ -182,14 +216,13 @@ def root_loglik(Broot, SCroot, root_freqs, cat_weight, log_ptn_invar,
                            asc_nsites=asc_nsites)
 
 
-def site_lp(dp: DownPass, P, tipP, pack):
-    """Per-pattern log-likelihoods [Pp] of a finished down pass (the
-    root_sitelp kernel)."""
-    L = tipP.shape[0]
-    n_int = dp.all.shape[0] - L
-    return kernels.root_sitelp(P, tipP, dp.all, dp.scale, L + n_int - 1,
-                               pack["root_freqs"], pack["cat_weight"],
-                               pack["log_ptn_invar"])
+def site_lp(dp: DownPass):
+    """Per-pattern log-likelihoods [Pp] of a down pass run with ``pack``
+    (its epilogue's output)."""
+    if dp.lp is None:
+        raise ValueError("site_lp: the down pass ran without pack, so it "
+                         "wrote no site log-likelihoods")
+    return dp.lp
 
 
 def finalize_loglik(lp, pattern_weights, asc_mask=None, asc_nsites=None):
@@ -204,31 +237,33 @@ def finalize_loglik(lp, pattern_weights, asc_mask=None, asc_nsites=None):
 
 
 def tree_loglik(blens, tipP, sched, pack, pattern_weights):
-    """(logL, lp) of one topology: transition tensors, the down pass, the
-    root site log-likelihoods, the weighted sum."""
+    """(logL, lp) of one topology: transition tensors, the down pass with
+    its site-logL epilogue (no tip rows), the weighted sum."""
     P = transition_tensors(blens.to(tipP.dtype), pack)
-    dp = down_pass(P, tipP, sched)
-    return finalize_loglik(site_lp(dp, P, tipP, pack), pattern_weights,
+    dp = down_pass(P, tipP, sched, pack=pack, tips=False)
+    return finalize_loglik(site_lp(dp), pattern_weights,
                            asc_mask=pack.get("asc_mask"),
                            asc_nsites=pack.get("asc_nsites"))
 
 
 # ------------------------------------------------------------- theta buffers
 def edge_down_partials(dp: DownPass, edge_src):
-    """Per-edge child-side partials and scale counts (one gather)."""
+    """Per-edge child-side partials and scale counts (one gather; dp needs
+    its tip rows)."""
     src = edge_src.long()
     return dp.all[src], dp.scale[src]
 
 
 def edge_thetas(up: UpPass, dp: DownPass, edge_src, pack) -> Thetas:
     """theta_e(c,k,p) = (sum_x E_e(c,x,p) U(c,x,k)) (sum_y V(c,k,y) D_e(c,y,p))
-    for every edge at once (the edge_theta kernel). Branch likelihood:
+    for every edge at once, from both passes' E (plain torch; theta_pass
+    computes the same inside the sweep). Branch likelihood:
     f(t) = sum_k theta_k exp(lambda_k r_c t) per category."""
     cat_mix = pack["cat_mix"]
-    theta, scale = kernels.edge_theta(up.edge_E, up.edge_E_scale, dp.all,
-                                      dp.scale, edge_src,
-                                      pack["U"][cat_mix].contiguous(),
-                                      pack["V"][cat_mix].contiguous())
+    D, Dsc = edge_down_partials(dp, edge_src)
+    theta, scale = kernels.edge_theta_plain(
+        up.edge_E, up.edge_E_scale, D, Dsc, pack["U"][cat_mix],
+        pack["V"][cat_mix])
     return Thetas(theta, scale)
 
 

@@ -1,4 +1,4 @@
-"""The Hopper kernels (H1-H4) against their plain PyTorch versions on a card,
+"""The Hopper kernels (H1-H3) against their plain PyTorch versions on a card,
 and the search path on the card (fused NNI round, NNI hill-climb, joint
 fit) against the CPU engine.
 
@@ -23,7 +23,7 @@ from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.model.rates import RateGamma
 from iqtree2_tpu_torch.model.subst import GTRModel
-from iqtree2_tpu_torch.ops import kernels
+from iqtree2_tpu_torch.ops import kernels, pruning
 from iqtree2_tpu_torch.ops.nni import build_nni_candidates
 from iqtree2_tpu_torch.search.nni import nni_optimize
 from iqtree2_tpu_torch.search.perturb import random_nnis
@@ -40,13 +40,16 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("model_name", ["GTR+G4", "LG+G4", "HKY+I"])
+@pytest.mark.parametrize("model_name", ["GTR+G4", "LG+G4", "HKY+I",
+                                        "GTR+G8"])
 def test_kernels_match_plain(cuda, model_name, dtype):
     aln, tree, model, rates = kernelcheck.simulate(model_name, 24, 700,
                                                    seed=2)
     eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=cuda)
     before = dict(kernels.LAUNCHES)
-    for r in kernelcheck.check(eng, tree):
+    res = kernelcheck.check(eng, tree)
+    assert [r["name"] for r in res] == ["down_pass", "up_pass", "theta_pass"]
+    for r in res:
         assert r["ok"], r
     assert all(kernels.LAUNCHES[k] > before[k] for k in before)
 
@@ -132,22 +135,71 @@ def test_engine_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model_name", ["GTR+G4", "LG+G4"])
+def test_theta_and_sitelp_on_cuda_match_cpu(cuda, model_name, dtype):
+    """The Newton round's theta_pass and a log-likelihood's epilogue on the
+    card against the CPU's plain versions (edge_thetas of both passes, the
+    plain site log-likelihoods), one launch each."""
+    aln, tree, model, rates = kernelcheck.simulate(model_name, 30, 600,
+                                                   seed=9)
+    tol = kernelcheck.TOLERANCE[dtype]
+    out = []
+    for dev in ("cpu", cuda):
+        eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=dev)
+        pb = kernelcheck.Problem(eng, tree)
+        sa = eng.schedule_arrays(pb.sched)
+        before = dict(kernels.LAUNCHES)
+        dp = pruning.down_pass(pb.P, pb.tipP, sa, pack=pb.pack, tips=False)
+        th = pruning.theta_pass(pb.P, dp, pb.tipP, sa, pb.pack)
+        if dev == "cpu":
+            rdp, rup = pruning.both_passes(pb.P, pb.tipP, sa, pb.pack)
+            ref = pruning.edge_thetas(rup, rdp, sa["edge_src"], pb.pack)
+            assert kernelcheck.col_rel(th.theta, ref.theta) <= tol["partials"]
+            assert torch.equal(th.scale, ref.scale)
+        else:
+            assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
+                "down_pass": 1, "sitelp": 1, "up_pass": 0, "theta_pass": 1}
+        out.append((dp.lp.cpu(), th.theta.cpu(), th.scale.cpu()))
+    (lp_c, th_c, sc_c), (lp_g, th_g, sc_g) = out
+    assert kernelcheck.lp_error(lp_g, lp_c, dtype) <= tol["lp"]
+    assert kernelcheck.col_rel(th_g, th_c) <= tol["partials"]
+    assert torch.equal(sc_g, sc_c)
+
+
+@pytest.mark.cuda
+def test_occupancy_of_the_dna_passes(cuda):
+    """Every float32 DNA pass instance, the theta pass's 55.5 KB blocks
+    included, keeps 4 blocks per SM (one wave at 16384 patterns)."""
+    for kind in kernels.PASS_KINDS:
+        blocks, shm = kernels.pass_occupancy(kind, torch.float32, 4, 4, 16384)
+        assert blocks >= 4, (kind, blocks, shm)
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_bad_operands(cuda):
     aln, tree, model, rates = kernelcheck.simulate("GTR+G4", 6, 100, seed=1)
     eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
                            device=cuda)
-    E = torch.zeros((3, 4, 4, 128), device=cuda)
-    sc = torch.zeros((3, 128), dtype=torch.int32, device=cuda)
-    all_ = torch.zeros((4, 4, 4, 128), device=cuda)
-    dsc = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
-    U, V = (eng._pack[k][eng._pack["cat_mix"]].contiguous() for k in "UV")
-    edge_src = torch.zeros(3, dtype=torch.int32)
+    pb = kernelcheck.Problem(eng, tree)
+    dp = pb.down_buffers()
+    lp = pb.lp_buffer()
     with pytest.raises(ValueError, match="operand 6 .* on cpu"):
-        kernels.edge_theta(E, sc, all_, dsc, edge_src, U, V)
+        pb.down(kernels.down_pass, dp, pb.sitelp(lp.cpu()))
     with pytest.raises(ValueError, match="operand 3 .*float64"):
-        kernels.edge_theta(E, sc, all_, dsc, edge_src.to(cuda), U,
-                           V.double())
-    kernels.edge_theta(E, sc, all_, dsc, edge_src.to(cuda), U, V)
+        pb.down(kernels.down_pass, dp, (pb.pack["root_freqs"].double(),)
+                + pb.sitelp(lp)[1:])
+    with pytest.raises(ValueError, match="must hold"):
+        pb.down(kernels.down_pass, dp, pb.sitelp(lp[:-1]))
+    pb.down(kernels.down_pass, dp, pb.sitelp(lp))
+    t = pb.theta_buffers()
+    with pytest.raises(ValueError, match="operand 5 .*float64"):
+        kernels.theta_pass(pb.P, pb.tipP, dp.all, dp.scale, *t, pb.cs, pb.ce,
+                           pb.steps, pb.U.double(), pb.V,
+                           pb.pack["root_freqs"])
+    pb.theta(kernels.theta_pass, dp, t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(lp).all() and torch.isfinite(t.theta).all()
 
 
 def _cpu_and_cuda(cuda, model_name="GTR+G4", ntaxa=20, nsites=500, seed=5):

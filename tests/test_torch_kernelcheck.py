@@ -2,9 +2,10 @@
 
 On the CPU the wrappers run their plain versions, so an unchanged check
 passes every kernel; a pass replaced by one that skips its work, one step's
-writes or one slot of every step, must then fail that kernel alone. The
-helpers that chip_smoke.py uses to set up its problems are tested here as
-well.
+writes or one slot of every step, the site-logL epilogue, one edge's theta
+or edge 0's, or that reads the tip rows of the unified buffer instead of
+the tips, must then fail that kernel alone. The helpers that chip_smoke.py
+uses to set up its problems are tested here as well.
 """
 
 import re
@@ -30,7 +31,7 @@ def problem():
     torch.set_num_threads(n)
 
 
-def _noop(*args):
+def _noop(*args, **kw):
     pass
 
 
@@ -44,7 +45,7 @@ def _steps_in_order(step_plain, steps):
 
 def _skip_first_slot(step_plain):
     """The plain pass with the first slot of every step left out."""
-    def pass_(*args):
+    def pass_(*args, **kw):
         for s in _steps_in_order(step_plain, args[-1]):
             step_plain(*args[:-1], args[-1][s][1:])
     return pass_
@@ -52,17 +53,49 @@ def _skip_first_slot(step_plain):
 
 def _skip_step(step_plain):
     """The plain pass with the writes of step 0 left out."""
-    def pass_(*args):
+    def pass_(*args, **kw):
         for s in _steps_in_order(step_plain, args[-1]):
             if s:
                 step_plain(*args[:-1], args[-1][s])
     return pass_
 
 
+def _down_without_epilogue(*args, sitelp=None):
+    """The plain down pass that leaves lp unwritten."""
+    kernels.down_pass_plain(*args)
+
+
+def _down_reading_tip_rows(P, tip, all_, *rest, sitelp=None):
+    """The plain down pass taking its tips from the unified buffer's tip
+    rows."""
+    kernels.down_pass_plain(P, all_[:tip.shape[0], 0].contiguous(), all_,
+                            *rest, sitelp=sitelp)
+
+
+def _theta_skipping(edge):
+    """The plain theta pass with one edge's theta and scale left out."""
+    def pass_(*args):
+        th, tsc = args[6], args[7]
+        tmp_th, tmp_sc = th.clone(), tsc.clone()
+        kernels.theta_pass_plain(*args[:6], tmp_th, tmp_sc, *args[8:])
+        keep = torch.ones(th.shape[0], dtype=torch.bool)
+        keep[edge] = False
+        th[keep] = tmp_th[keep]
+        tsc[keep] = tmp_sc[keep]
+    return pass_
+
+
+def _theta_reading_tip_rows(P, tip, all_, *rest):
+    """The plain theta pass taking its tips from the unified buffer's tip
+    rows."""
+    kernels.theta_pass_plain(P, all_[:tip.shape[0], 0].contiguous(), all_,
+                             *rest)
+
+
 def test_check_passes_plain_versions(problem):
     res = kernelcheck.check(*problem)
-    assert [r["name"] for r in res] == ["down_pass", "root_sitelp",
-                                        "up_pass", "edge_theta"]
+    assert [r["name"] for r in res] == ["down_pass", "up_pass",
+                                        "theta_pass"]
     assert all(r["ok"] for r in res), res
 
 
@@ -70,15 +103,38 @@ def test_check_passes_plain_versions(problem):
     ("down_pass", _noop),
     ("down_pass", _skip_first_slot(kernels.down_step_plain)),
     ("down_pass", _skip_step(kernels.down_step_plain)),
+    ("down_pass", _down_without_epilogue),
+    ("down_pass", _down_reading_tip_rows),
     ("up_pass", _noop),
     ("up_pass", _skip_first_slot(kernels.up_step_plain)),
     ("up_pass", _skip_step(kernels.up_step_plain)),
-], ids=["down_noop", "down_skip_slot", "down_skip_step", "up_noop",
-        "up_skip_slot", "up_skip_step"])
+    ("theta_pass", _noop),
+    ("theta_pass", _theta_skipping(-1)),
+    ("theta_pass", _theta_skipping(0)),
+    ("theta_pass", _theta_reading_tip_rows),
+], ids=["down_noop", "down_skip_slot", "down_skip_step", "down_skip_lp",
+        "down_reads_tip_rows", "up_noop", "up_skip_slot", "up_skip_step",
+        "theta_noop", "theta_skip_edge", "theta_skip_edge0",
+        "theta_reads_tip_rows"])
 def test_check_fails_unwritten_rows(problem, monkeypatch, name, fake):
     monkeypatch.setattr(kernels, name, fake)
     ok = {r["name"]: r["ok"] for r in kernelcheck.check(*problem)}
     assert ok == {k: k != name for k in ok}
+
+
+def test_theta_bound_counts_its_result_only(problem):
+    """theta_pass's bytes: each input read once (P, tips, the schedule, the
+    down pass's internal rows and scales, U, V, pi) and theta with its scale
+    written once; E and UP are the sweep's intermediates, not its result."""
+    eng, tree = problem
+    pb = kernelcheck.Problem(eng, tree)
+    dp = pb.down(kernels.down_pass_plain, pb.down_buffers())
+    t = pb.theta_buffers()
+    want = sum(x.numel() * x.element_size() for x in (
+        pb.P, pb.tipP, pb.cs, pb.ce, pb.steps, dp.all[pb.L:],
+        dp.scale[pb.L:], pb.U, pb.V, pb.pack["root_freqs"], t.theta,
+        t.scale))
+    assert kernelcheck.bounds(eng, tree)["theta_pass"]["bytes"] == want
 
 
 @pytest.mark.parametrize("labels", [False, True], ids=["plain", "supports"])

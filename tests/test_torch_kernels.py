@@ -8,14 +8,14 @@ alignment (built on the JAX side by the JAX package, tests/torch_parity.py),
 and the JAX engine's model pack, schedule and transition tensors as numpy
 arrays.
 
-  T1 down_sitelp_pallas   -> down_pass + site_lp          lp
+  T1 down_sitelp_pallas   -> down_pass(pack, tips=False)  lp (epilogue)
   T2 down_pass_pallas     -> down_pass                    partials, scales
   T3 up_pass_pallas       -> up_pass                      E, UP, scales
-  T4 stream_pass sitelp   -> down_pass + site_lp          lp
+  T4 stream_pass sitelp   -> down_pass(pack, tips=False)  lp (epilogue)
   T5 stream_pass export   -> down_pass                    partials, scales
   T6 stream_pass slim     -> down_pass                    child blocks, root
   T7 stream_up_pass       -> up_pass                      E, UP
-  T8 stream_theta_pass    -> edge_thetas                  theta
+  T8 stream_theta_pass    -> theta_pass                   theta
 
 Tolerances (test_pallas2._tol for float32): 2e-5 on site log-likelihoods;
 1e-4 relative on partials, E, UP and theta, measured per (row, pattern)
@@ -92,6 +92,8 @@ def prob(request):
     t_P = torch.as_tensor(np.array(P))
     dp = tpr.down_pass(t_P, t_tip, t_sched)
     up = tpr.up_pass(t_P, dp, t_tip, t_sched, t_pack["root_freqs"])
+    # a log-likelihood's and a Newton round's down pass: no tip rows
+    dp_lp = tpr.down_pass(t_P, t_tip, t_sched, pack=t_pack, tips=False)
     C = int(pack["cat_rate"].shape[0])
     S = tipP.shape[1]
     plan = build_stream_plan(sched, S=S, C=C)
@@ -118,7 +120,7 @@ def prob(request):
         flat_src=jnp.asarray(sched.child_src.reshape(-1)),
         flat_eid=jnp.asarray(sched.child_edge.reshape(-1)),
         t_pack=t_pack, t_sched=t_sched, t_tip=t_tip, t_P=t_P, dp=dp, up=up,
-        lp=tpr.site_lp(dp, t_P, t_tip, t_pack))
+        dp_lp=dp_lp, lp=tpr.site_lp(dp_lp))
 
 
 def test_t1_down_sitelp_pallas(prob):
@@ -260,8 +262,8 @@ def test_t8_stream_theta_pass(prob):
         ring_blocks=plan.ring_blocks, up_ring_blocks=plan.up_ring_blocks,
         pt=pick_tile_export(plan, Pp), ptu=pick_tile_up(plan, Pp),
         interpret=True)
-    th = tpr.edge_thetas(p["up"], p["dp"], p["t_sched"]["edge_src"],
-                         p["t_pack"])
+    th = tpr.theta_pass(p["t_P"], p["dp_lp"], p["t_tip"], p["t_sched"],
+                        p["t_pack"])
     e_step, e_side, e_slot = p["edge_maps"]
     packed = [(np.asarray(thA), np.asarray(tscA)),
               (np.asarray(thB), np.asarray(tscB))]

@@ -6,8 +6,10 @@ schedule and tip partials, the JAX engine the JAX package's, and the tip
 partials must be equal. The transition tensors of the JAX side then go
 through iqtree2_tpu/ops/pruning.py (_down_pass_xla, _up_pass_xla,
 edge_thetas, branch_lh_derivs, tree_loglik with force_xla) and through
-iqtree2_tpu_torch/ops/pruning.py on the CPU; every output must agree to
-1e-9 relative. The golden fixed-parameter logLs (g1/g2/g3/g6) are checked
+iqtree2_tpu_torch/ops/pruning.py on the CPU (the passes, edge_thetas, the
+Newton round's theta_pass and the down pass's site-logL epilogue without
+tip rows, branch_lh_derivs, tree_loglik); every output must agree to 1e-9
+relative. The golden fixed-parameter logLs (g1/g2/g3/g6) are checked
 through the port's engine against the reference IQ-TREE values.
 """
 
@@ -100,12 +102,7 @@ def test_passes_thetas_and_derivs_match_jax(model_name, ntaxa):
         _close(a, b)
     jth = jpr.edge_thetas(jup, jdp, j["sched"]["edge_src"], j["pack"])
     tth = tpr.edge_thetas(tup, tdp, t["sched"]["edge_src"], t["pack"])
-    # theta mixes signs: cancellation leaves absolute noise of the order of
-    # 1e-9 of the largest |theta| of the (edge, pattern) column
-    scale = np.abs(np.asarray(jth.theta)).max(axis=(1, 2), keepdims=True)
-    assert (np.abs(tth.theta.numpy() - np.asarray(jth.theta))
-            <= RTOL * scale).all()
-    np.testing.assert_array_equal(tth.scale.numpy(), np.asarray(jth.scale))
+    _theta_close(tth, jth)
 
     li = j["pack"]["log_ptn_invar"]
     jd = jax.vmap(lambda th, sc, tt: jpr.branch_lh_derivs(
@@ -154,6 +151,44 @@ def test_tree_loglik_matches_jax(model_name, ntaxa):
     tl2, _ = tpr.root_loglik(tB, tS, p["root_freqs"], p["cat_weight"],
                              p["log_ptn_invar"], t["pw"])
     _close(tl2, jl)
+
+
+def _theta_close(got, want):
+    """theta within RTOL of the largest |theta| of each (edge, pattern)
+    column, scale counts equal: theta mixes signs, and cancellation leaves
+    absolute noise of the order of 1e-9 of that largest value."""
+    scale = np.abs(np.asarray(want.theta)).max(axis=(1, 2), keepdims=True)
+    assert (np.abs(got.theta.numpy() - np.asarray(want.theta))
+            <= RTOL * scale).all()
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+
+
+@pytest.mark.parametrize("model_name,ntaxa", CASES)
+def test_theta_pass_matches_jax(model_name, ntaxa):
+    """The Newton round's theta: one theta_pass over a down pass without
+    tip rows, against the JAX package's edge_thetas of both passes."""
+    j, t = _both(model_name, ntaxa, seed=ntaxa)
+    jdp, jup = jpr.both_passes(j["P"], j["tipP"], j["sched"], j["pack"],
+                               force_xla=True)
+    jth = jpr.edge_thetas(jup, jdp, j["sched"]["edge_src"], j["pack"])
+    tdp = tpr.down_pass(t["P"], t["tipP"], t["sched"], tips=False)
+    _theta_close(tpr.theta_pass(t["P"], tdp, t["tipP"], t["sched"],
+                                t["pack"]), jth)
+
+
+@pytest.mark.parametrize("model_name,ntaxa", CASES)
+def test_sitelp_epilogue_matches_jax(model_name, ntaxa):
+    """The down pass's site-logL epilogue without tip rows (tree_loglik's
+    pass) against the JAX package's site log-likelihoods."""
+    j, t = _both(model_name, ntaxa, seed=100 + ntaxa)
+    _, jlp = jpr.tree_loglik(j["blens"], j["tipP"], j["sched"], j["pack"],
+                             j["pw"], force_xla=True)
+    tdp = tpr.down_pass(t["P"], t["tipP"], t["sched"], pack=t["pack"],
+                        tips=False)
+    _close(tpr.site_lp(tdp), jlp, atol=1e-12)   # padded patterns: ~1e-16
+    jdp = jpr._down_pass_xla(j["P"], j["tipP"], j["sched"])
+    L = t["tipP"].shape[0]
+    _close(tdp.all[L:], jdp.all[L:])
 
 
 def test_asc_terms_match_jax():

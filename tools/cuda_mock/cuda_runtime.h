@@ -24,8 +24,23 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 typedef void* cudaStream_t;
+typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncAttributePreferredSharedMemoryCarveout
+};
+enum { cudaSharedmemCarveoutMaxShared = 100 };
 inline int cudaGetLastError() { return 0; }
+template <typename K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+// no card, no occupancy: reports 0 blocks per SM
+template <typename K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 0;
+  return cudaSuccess;
+}
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* mock_block_bar = nullptr;

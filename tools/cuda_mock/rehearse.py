@@ -9,11 +9,13 @@ __syncwarp std::barriers, blocks one after another), after each
 ``kernel<<<grid, block, shm, stream>>>(`` is rewritten into
 ``mock_launch(grid, block, shm, stream, kernel, ``. The library is bound
 with ops/kernels.bind and the whole-pass kernels run on CPU tensors
-(stream None) against their plain versions: DNA (the register column, and
-C = 8 through the two-sweep column), protein and a 61-state GTR, float32
-and float64, on trees deep enough to rescale. It checks indexing, the
-barriers and the rescale; it says nothing of speed or of what nvcc
-accepts.
+(stream None) against their plain versions: the down pass with its
+site-logL epilogue, the up pass and the theta pass, on down-pass buffers
+whose tip rows are NaN (no kernel may read them); DNA (the register
+column, and C = 8 through the two-sweep column), protein and a 61-state
+GTR, float32 and float64, on trees deep enough to rescale. It checks
+indexing, the barriers and the rescale; it says nothing of speed or of
+what nvcc accepts.
 """
 
 from __future__ import annotations
@@ -58,25 +60,38 @@ def build(out_dir: Path) -> ctypes.CDLL:
 
 def check(lib, eng: LikelihoodEngine, tree: Tree, tag: str) -> None:
     pb = kernelcheck.Problem(eng, tree)
-    ref = pb.down(kernels.down_pass_plain, pb.down_buffers())
+    lp_ref, lp = pb.lp_buffer(), pb.lp_buffer()
+    ref = pb.down(kernels.down_pass_plain, pb.down_buffers(),
+                  pb.sitelp(lp_ref))
     uref = pb.up(kernels.up_pass_plain, ref, pb.up_buffers(ref))
+    tref = pb.theta(kernels.theta_pass_plain, ref, pb.theta_buffers())
     got = pb.down_buffers()
     got.all[pb.L:] = float("nan")
-    pb.down(lambda *a: kernels.launch_down_pass(lib, None, *a), got)
+    pb.down(lambda *a, **kw: kernels.launch_down_pass(lib, None, *a, **kw),
+            got, pb.sitelp(lp))
     u = pb.up_buffers(ref)
     u.edge_E[1:] = float("nan")
     u.up_in[:pb.n_int - 1] = float("nan")
     pb.up(lambda *a: kernels.launch_up_pass(lib, None, *a), ref, u)
+    t = pb.theta(lambda *a: kernels.launch_theta_pass(lib, None, *a), ref,
+                 pb.theta_buffers())
     err = max(kernelcheck.col_rel(got.all[pb.L:], ref.all[pb.L:]),
               kernelcheck.col_rel(u.edge_E, uref.edge_E),
-              kernelcheck.col_rel(u.up_in, uref.up_in))
+              kernelcheck.col_rel(u.up_in, uref.up_in),
+              kernelcheck.col_rel(t.theta, tref.theta),
+              kernelcheck.col_rel(t.up, tref.up))
+    lp_err = kernelcheck.lp_error(lp, lp_ref, eng.dtype)
     same = (torch.equal(got.scale, ref.scale)
             and torch.equal(u.edge_E_scale, uref.edge_E_scale)
-            and torch.equal(u.up_scale, uref.up_scale))
-    tol = kernelcheck.TOLERANCE[eng.dtype]["partials"]
-    print(f"{tag} {eng.dtype}: max rel err {err:.2e}, scales equal {same}, "
-          f"rescaled columns {int((ref.scale > 0).sum())}")
-    if not (err <= tol and same):
+            and torch.equal(u.up_scale, uref.up_scale)
+            and torch.equal(t.scale, tref.scale)
+            and torch.equal(t.up_scale, tref.up_scale))
+    tol = kernelcheck.TOLERANCE[eng.dtype]
+    print(f"{tag} {eng.dtype}: max rel err {err:.2e}, lp err {lp_err:.2e}, "
+          f"scales equal {same}, rescaled columns: down "
+          f"{int((ref.scale > 0).sum())}, UP "
+          f"{int((tref.up_scale > 0).sum())}")
+    if not (err <= tol["partials"] and lp_err <= tol["lp"] and same):
         raise SystemExit(f"{tag}: the mock build disagrees")
 
 
@@ -87,9 +102,6 @@ def main() -> int:
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as d:
         lib = build(Path(args.build_dir or d))
-        kernelcheck.MODELS["GTR+G8"] = (
-            "DNA", "ACGT",
-            "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G8{0.6}")
         for name, ntaxa, nsites in (("GTR+G4", 40, 300), ("HKY+I", 9, 150),
                                     ("GTR+G8", 30, 200), ("LG+G4", 9, 150)):
             aln, tree, model, rates = kernelcheck.simulate(name, ntaxa,
