@@ -11,13 +11,17 @@ ending in torch.cuda.synchronize():
 1. the card's name and power limit (nvidia-smi);
 2. building the kernels of iqtree2_tpu_torch/csrc/pruning.cu with nvcc, and
    the resident blocks per SM and shared memory per block of each pass
-   instance at 16384 patterns (DNA and protein, float32 and float64);
+   instance at 16384 patterns (DNA and protein, 1, 4 and 10 categories,
+   float32 and float64);
 3. each kernel against its plain PyTorch version on the same inputs, on a
    simulated 64-taxon x 4096-site problem under GTR+G4, GTR+G8 (more
-   categories than the DNA register column holds) and LG+G4, in float32
-   and float64 (tolerances in iqtree2_tpu_torch/kernelcheck.py; down_pass
-   with its site-logL epilogue, up_pass, theta_pass), timed through the
-   wrappers and back to back;
+   categories than the DNA register column holds), LG+G4, and the shapes
+   ModelFinder's candidates bring: JC (one category), GTR+I+R3 (unequal
+   FreeRate weights and a finite invariant-site term), GTR+R10, LG+I and
+   LG+F+R10 (C * S = 200), in float32 and float64 (tolerances in
+   iqtree2_tpu_torch/kernelcheck.py; down_pass with its site-logL
+   epilogue, up_pass, theta_pass), timed through the wrappers and back to
+   back, with each problem's bounds;
 4. the golden run through the CLI, -s tests/golden/example.phy -m GTR+G
    -te tests/golden/ref_tree.nwk, in float64 (logL within 0.5 of the
    reference IQ-TREE's) and float32 (finite, within 10); the launch counts
@@ -49,14 +53,33 @@ ending in torch.cuda.synchronize():
    card in float32 with the site log-likelihoods; the wall of each fused
    round, the peak device memory (under 40 GiB) and the launches are
    printed, and the final logL must be finite and no lower than the start
-   tree's after optimize_branches.
+   tree's after optimize_branches;
+8. the program's default command, -s tests/golden/example.phy -bb 1000
+   with no -m, through the CLI in float32: ModelFinder (-m MFP) on the
+   parsimony tree, then the search with UFBoot under the winner, launch
+   counts reset just before and read just after. The winner must be
+   TIM2+I+G, the JAX package's on the same file; the .iqtree must hold the
+   selection table; the search's files pass phase 6's checks, its logL at
+   least the winner's fit on the reference tree (-te, float64) - 0.5; one
+   launch per pass. ModelFinder's wall split (screen, refit, +R, final
+   refit), its fits by route (the joint fit or the host alternation) and
+   the launches during ModelFinder and during the search are printed;
+9. model selection at the realistic width: -m TESTONLY -mset HKY,GTR
+   -mrate E,G,R -cmax 4 through the CLI on phase 5's alignment in float32.
+   Candidates with C <= 3 fit jointly; C = 4 is above the joint fit's
+   size guard there, so its fits run the host alternation through the
+   kernels: down_pass, its epilogue and theta_pass must launch, once per
+   pass, and the winner's base must be GTR (the data are simulated under
+   GTR+G4). The wall, the fits by route, the peak device memory and the
+   table's top 4 are printed.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
-phase-6 flagship; times, back-to-back times and bounds (kernelcheck.bounds)
-from the phase-5 check at 1000 x 16384; no single PyTorch call computes a
-pruning pass, so library_ms is null); the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+phase-8 default command, this slice's main path; times, back-to-back times
+and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
+single PyTorch call computes a pruning pass, so library_ms is null); the
+last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 """
 
 from __future__ import annotations
@@ -85,9 +108,16 @@ REPLACES = {
 # the kernels of the standalone launches the passes absorbed
 GONE = ("root_sitelp", "edge_theta")
 CHECK_TAXA, CHECK_SITES = 64, 4096
+# phase 3's problems: the search's models, then ModelFinder's shapes
+CHECK_MODELS = ("GTR+G4", "GTR+G8", "LG+G4", "JC", "GTR+I+R3", "GTR+R10",
+                "LG+I", "LG+F+R10")
 BIG_TAXA, BIG_SITES = 1000, 16384
 FLAGSHIP_REPLICATES = 1000
 MAX_CLIMB_GIB = 40.0
+# the JAX package's ModelFinder winner on example.phy (BIC), run on the CPU
+DEFAULT_WINNER = "TIM2+I+G"
+WIDE_SELECTION = ["-m", "TESTONLY", "-mset", "HKY,GTR", "-mrate", "E,G,R",
+                  "-cmax", "4"]
 
 
 def fail(msg: str) -> int:
@@ -187,6 +217,46 @@ class PassCount:
                                    f"{n} passes, not one per pass")
 
 
+class ModelFinderSpy:
+    """While active, wraps analysis.run_modelfinder: keeps its result, the
+    kernel launches during it, and the route of each candidate fit
+    (torchfit.try_fit returning a logL: the joint fit; None: the host
+    alternation, whose passes run the kernels)."""
+
+    def __enter__(self):
+        import torch
+        from iqtree2_tpu_torch import analysis
+        from iqtree2_tpu_torch.model import torchfit
+        from iqtree2_tpu_torch.ops import kernels
+        self.routes = {"joint fit": 0, "alternation": 0}
+        self.result, self.launches = None, {}
+        self._mf, self._fit = analysis.run_modelfinder, torchfit.try_fit
+
+        def fit(*args, **kw):
+            out = self._fit(*args, **kw)
+            self.routes["alternation" if out is None else "joint fit"] += 1
+            return out
+
+        def mf(*args, **kw):
+            before = dict(kernels.LAUNCHES)
+            torchfit.try_fit = fit
+            try:
+                self.result = self._mf(*args, **kw)
+            finally:
+                torchfit.try_fit = self._fit
+            torch.cuda.synchronize()
+            self.launches = {k: kernels.LAUNCHES[k] - before[k]
+                             for k in before}
+            return self.result
+
+        analysis.run_modelfinder = mf
+        return self
+
+    def __exit__(self, *exc):
+        from iqtree2_tpu_torch import analysis
+        analysis.run_modelfinder = self._mf
+
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -257,23 +327,31 @@ def main() -> int:
     kernels.library()
     print(f"[phase 2] built {kernels.build_library().name} from {SOURCE} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    occ = {f"{kind} S={S} {str(dtype)[6:]}": kernels.pass_occupancy(
-        kind, dtype, 4, S, BIG_SITES)
-        for S in (4, 20) for dtype in (torch.float32, torch.float64)
-        for kind in kernels.PASS_KINDS}
-    print(f"[phase 2] C=4, {BIG_SITES} patterns: (blocks per SM, shared "
-          f"bytes per block) {occ}", flush=True)
+    for C in (1, 4, 10):
+        occ = {f"{kind} S={S} {str(dtype)[6:]}": kernels.pass_occupancy(
+            kind, dtype, C, S, BIG_SITES)
+            for S in (4, 20) for dtype in (torch.float32, torch.float64)
+            for kind in kernels.PASS_KINDS}
+        print(f"[phase 2] C={C}, {BIG_SITES} patterns: (blocks per SM, "
+              f"shared bytes per block) {occ}", flush=True)
+        if min(b for b, _ in occ.values()) < 1:
+            return fail(f"a pass instance fits no block on an SM: {occ}")
     torch.cuda.synchronize()
 
     # 3. kernel vs plain on the card
     errors = {k: 0.0 for k in REPLACES}
-    for name in ("GTR+G4", "GTR+G8", "LG+G4"):
+    for name in CHECK_MODELS:
         aln, tree, model, rates = kernelcheck.simulate(
             name, CHECK_TAXA, CHECK_SITES, seed=1)
         for dtype in (torch.float32, torch.float64):
             eng = LikelihoodEngine(aln, model, rates, dtype=dtype,
                                    device="cuda")
             check_kernels(f"[phase 3] {name}", eng, tree, 10, errors)
+            c_bound = kernelcheck.bounds(eng, tree)
+            print(f"[phase 3] {name} {str(dtype)[6:]} C="
+                  f"{eng._pack['cat_rate'].shape[0]} bounds (ms): "
+                  f"{ {k: round(v['bound_ms'], 6) for k, v in c_bound.items()} }",
+                  flush=True)
 
     # 4. the golden run: GTR+G fitted on example.phy + ref_tree.nwk
     ref = json.loads((GOLDEN / "golden.json").read_text())["logL"]
@@ -391,9 +469,75 @@ def main() -> int:
     if not peak < MAX_CLIMB_GIB:
         return fail(f"climb peak device memory {peak:.2f} GiB")
 
+    # 8. the default command: ModelFinder, then the search under the winner
+    dflt = OUT / "default"
+    with PassCount() as passes, ModelFinderSpy() as spy:
+        kernels.reset_launch_counts()
+        wall = run_cli(["-s", str(GOLDEN / "example.phy"),
+                        "-bb", str(FLAGSHIP_REPLICATES), "-pre", str(dflt)])
+        main_launches = dict(kernels.LAUNCHES)
+    mf = spy.result
+    top = [(e["name"], round(e["BIC"], 3)) for e in mf["table"][:8]]
+    search_launches = {k: main_launches[k] - spy.launches[k]
+                       for k in main_launches}
+    text = log_lines(dflt)
+    print(f"[phase 8] default command -bb {FLAGSHIP_REPLICATES} f32: "
+          f"winner {mf['best']} (expected {DEFAULT_WINNER}) in {wall:.1f} s; "
+          f"ModelFinder wall seconds {mf['seconds']}; fits by route "
+          f"{spy.routes}; {len(mf['table'])} candidates, top 8 by BIC {top}; "
+          f"launches during ModelFinder {spy.launches}, during the search "
+          f"{search_launches}; passes {passes.calls}; wall seconds: "
+          f"{re.search(r'Wall seconds: (.*)', text).group(1)}", flush=True)
+    if mf["best"] != DEFAULT_WINNER:
+        return fail(f"ModelFinder picked {mf['best']} on example.phy, the "
+                    f"JAX package {DEFAULT_WINNER}")
+    report = Path(f"{dflt}.iqtree").read_text()
+    if f"Best-fit model according to BIC: {DEFAULT_WINNER}" not in report \
+            or "List of models sorted by BIC score:" not in report:
+        return fail(f"{dflt}.iqtree holds no model-selection table")
+    run_cli(["-s", str(GOLDEN / "example.phy"), "-m", DEFAULT_WINNER,
+             "-te", str(GOLDEN / "ref_tree.nwk"), "--f64",
+             "-pre", str(OUT / "winner_ref")])
+    w_ref = report_logl(OUT / "winner_ref")
+    logl = check_flagship(dflt, w_ref - 0.5)
+    iters = re.search(r"Search done: (\d+) iterations", text).group(1)
+    print(f"[phase 8] search under {DEFAULT_WINNER}: logL {logl:.4f} (the "
+          f"reference tree's f64 fit {w_ref:.4f} - 0.5), {iters} "
+          f"iterations", flush=True)
+    if not all(v > 0 for v in search_launches.values()):
+        return fail(f"a kernel of the path was never launched: "
+                    f"{search_launches}")
+    passes.check(main_launches, "[phase 8]")
+
+    # 9. model selection at the realistic width
+    wide = OUT / "wide"
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes, ModelFinderSpy() as spy:
+        kernels.reset_launch_counts()
+        wall = run_cli(["-s", aln_path] + WIDE_SELECTION + ["-pre", str(wide)])
+        launches = dict(kernels.LAUNCHES)
+    mf = spy.result
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    top = [(e["name"], round(e["logL"], 3), e["df"], round(e["BIC"], 3))
+           for e in mf["table"][:4]]
+    print(f"[phase 9] {' '.join(WIDE_SELECTION)} on {aln.ntaxa} x "
+          f"{aln.nsites} f32: winner {mf['best']} in {wall:.1f} s "
+          f"(ModelFinder wall seconds {mf['seconds']}); fits by route "
+          f"{spy.routes}; peak device memory {peak:.2f} GiB; top 4 (name, "
+          f"logL, df, BIC) {top}; launches {launches}; passes "
+          f"{passes.calls}", flush=True)
+    if not mf["best"].startswith("GTR"):
+        return fail(f"phase 9 picked {mf['best']}; the data are GTR+G4")
+    if not (spy.routes["joint fit"] and spy.routes["alternation"]):
+        return fail(f"phase 9 did not take both routes: {spy.routes}")
+    if not all(launches[k] > 0 for k in ("down_pass", "sitelp",
+                                         "theta_pass")):
+        return fail(f"a kernel of the path was never launched: {launches}")
+    passes.check(launches, "[phase 9]")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[k], "launches": launches[k],
+         "replaces": REPLACES[k], "launches": main_launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],

@@ -1,19 +1,25 @@
 """Single-alignment analysis (counterpart of iqtree2_tpu/analysis.py's
 run_analysis for what the port covers).
 
-Flow: read the alignment, build the model and the engine; then either fit
-the model and branch lengths on a fixed topology (-te; under -blfix only
-the model parameters), or run the stochastic tree search: a quick model
-fit on a stepwise-addition tree, the search (optionally collecting UFBoot
-replicates by RELL), and a thorough refit on the best tree. Outputs:
-.treefile (with UFBoot supports), .iqtree, .log and .ckp.gz, and under -bb
-also .contree, .splits.nex and .ufboot, written through the port's copies
-of io/report.py and search/ufboot.py. The search checkpoints its state
-(search.* keys), so an interrupted run resumes where it stopped.
+Flow: read the alignment; under -m MFP/TEST/MF/TESTONLY/AUTO select the
+model with ModelFinder (modelfinder.py, on a parsimony tree; MF and
+TESTONLY stop there and write the selection table), build the model and the
+engine; then either fit the model and branch lengths on a fixed topology
+(-te; under -blfix only the model parameters), or run the stochastic tree
+search: a quick model fit on a stepwise-addition tree, the search
+(optionally collecting UFBoot replicates by RELL), and a thorough refit on
+the best tree. Outputs: .treefile (with UFBoot supports), .iqtree, .log and
+.ckp.gz, and under -bb also .contree, .splits.nex and .ufboot, written
+through the port's copies of io/report.py and search/ufboot.py. The search
+checkpoints its state (search.* keys) and ModelFinder its fits
+(ModelFinder.* keys), so an interrupted run resumes where it stopped.
+-m WHTEST runs a GTR+G analysis and then the Weiss-von Haeseler test of
+model homogeneity (whtest.py) on its tree, written to .whtest.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -26,6 +32,7 @@ from iqtree2_tpu_torch.io.alignment_io import read_alignment
 from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.model.optimize import optimize_model_parameters
+from iqtree2_tpu_torch.modelfinder import MODES, run_modelfinder
 from iqtree2_tpu_torch.ops.pars import random_stepwise_addition
 from iqtree2_tpu_torch.ops.prec import compute_dtype
 from iqtree2_tpu_torch.params import Params
@@ -35,13 +42,15 @@ from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
 from iqtree2_tpu_torch.utils.checkpoint import Checkpoint
 from iqtree2_tpu_torch.utils.optimize import lbfgsb_minimize
+from iqtree2_tpu_torch.whtest import run_whtest
 
 QUICK_FIT_EPS = 0.1   # the search's initial model fit (screening precision)
+WHTEST_SIMULATIONS = 100  # parametric replicates of -m WHTEST's null
 
 
 class Logger:
-    def __init__(self, path, verbose=1):
-        self.f = open(path, "w") if path else None
+    def __init__(self, path, verbose=1, mode="w"):
+        self.f = open(path, mode) if path else None
         self.verbose = verbose
 
     def __call__(self, msg: str) -> None:
@@ -101,11 +110,14 @@ def optimize_model_only(eng: LikelihoodEngine, tree: Tree,
 
 
 def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
-                log, search_info: dict) -> tuple[Tree, float]:
+                log, search_info: dict,
+                mf_seconds: float | None = None) -> tuple[Tree, float]:
     """Quick model fit, checkpointed stochastic search, thorough refit.
-    Returns (best tree, its logL after the refit)."""
-    seconds = {"quick fit": 0.0, "start trees": 0.0, "iterations": 0.0,
-               "RELL": 0.0}
+    Returns (best tree, its logL after the refit). mf_seconds: the wall of
+    the ModelFinder run before it, the first entry of the split."""
+    seconds = {} if mf_seconds is None else {"ModelFinder": mf_seconds}
+    seconds.update({"quick fit": 0.0, "start trees": 0.0, "iterations": 0.0,
+                    "RELL": 0.0})
     fin = ckp.get("search.finished")
     if fin and not params.redo:
         tree = Tree.from_newick(fin["tree"], aln.names)
@@ -171,9 +183,32 @@ def _write_ufboot(prefix: str, ufboot: UFBoot) -> None:
                 f.write(ufboot.trees_newick[tid] + "\n")
 
 
+def run_whtest_analysis(params: Params, device="cuda") -> dict:
+    """-m WHTEST: a GTR+G analysis (its outputs under the same prefix),
+    then the WH test on its tree under its fitted model, written to .whtest
+    (iqtree2_tpu/analysis.py's WHTEST branch). Returns the analysis' result
+    with "whtest"."""
+    res = run_analysis(dataclasses.replace(params, model="GTR+G"), device)
+    log = Logger(f"{params.prefix}.log", params.verbose, mode="a")
+    try:
+        wh = run_whtest(res["aln"], res["tree"], res["model"], res["rates"],
+                        n_sim=WHTEST_SIMULATIONS, seed=params.seed, log=log)
+        with open(f"{params.prefix}.whtest", "w") as f:
+            f.write(f"WH-test statistic: {wh['statistic']}\n"
+                    f"p-value: {wh['p_value']}\n"
+                    f"simulations: {wh.get('n_sim')}\n")
+        log(f"WH-test written to {params.prefix}.whtest")
+    finally:
+        log.close()
+    return {**res, "whtest": wh}
+
+
 def run_analysis(params: Params, device="cuda") -> dict:
-    """Fixed-topology fit (-te) or tree search. Returns a result summary
-    dict."""
+    """Model selection, then a fixed-topology fit (-te) or tree search;
+    -m WHTEST runs run_whtest_analysis. Returns a result summary dict
+    ({"model_selection": ...} alone after -m MF/TESTONLY)."""
+    if params.model.upper() == "WHTEST":
+        return run_whtest_analysis(params, device)
     t_start = time.time()
     prefix = params.prefix
     log = Logger(f"{prefix}.log", params.verbose)
@@ -189,8 +224,24 @@ def run_analysis(params: Params, device="cuda") -> dict:
         aln = read_alignment(params.aln_file, seqtype=params.seqtype)
         log(f"Alignment: {aln.ntaxa} sequences, {aln.nsites} sites, "
             f"{aln.num_patterns} patterns ({aln.seqtype.name})")
-        model, rates, extras = build_model(params.model, aln)
-        check_model_ported(params.model, extras)
+        model_str, model_selection, mf_seconds = params.model, None, None
+        if model_str.upper() in MODES:
+            t0 = time.perf_counter()
+            model_selection = run_modelfinder(aln, params, log=log, ckp=ckp,
+                                              device=device)
+            mf_seconds = time.perf_counter() - t0
+            model_str = model_selection["best"]
+            log(f"Best-fit model: {model_str}")
+            if params.model.upper() in ("MF", "TESTONLY"):
+                elapsed = time.time() - t_start
+                report_io.write_modelfinder_report(
+                    f"{prefix}.iqtree", params=params, aln=aln,
+                    model_selection=model_selection, elapsed=elapsed)
+                log(f"ModelFinder-only run finished ({elapsed:.2f}s); "
+                    f"selection written to {prefix}.iqtree")
+                return {"model_selection": model_selection}
+        model, rates, extras = build_model(model_str, aln)
+        check_model_ported(model_str, extras)
         eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=device)
         log(f"Likelihood engine: {eng.device}, {dtype}, "
             f"{eng.Pp} padded patterns")
@@ -213,7 +264,7 @@ def run_analysis(params: Params, device="cuda") -> dict:
                                                  epsilon=params.model_eps)
         else:
             tree, logL = _run_search(params, eng, aln, ckp, ufboot, log,
-                                     search_info)
+                                     search_info, mf_seconds)
         if ufboot is not None:
             # integer percentages, as the reference prints UFBoot supports
             support = {k: round(v)
@@ -226,8 +277,8 @@ def run_analysis(params: Params, device="cuda") -> dict:
         report_io.write_iqtree_report(
             f"{prefix}.iqtree", params=params, aln=aln, model=model,
             rates=rates, tree=tree, logL=logL, search_info=search_info,
-            model_selection=None, support=support, elapsed=elapsed,
-            tree_tests=None)
+            model_selection=model_selection, support=support,
+            elapsed=elapsed, tree_tests=None)
         ckp.put("finished", True)
         ckp.dump(force=True)
         log(f"Analysis finished in {elapsed:.2f} sec. Best logL: {logL:.4f}")
@@ -235,4 +286,5 @@ def run_analysis(params: Params, device="cuda") -> dict:
     finally:
         log.close()
     return {"logL": logL, "tree": tree, "model": model, "rates": rates,
-            "support": support, "elapsed": elapsed}
+            "support": support, "elapsed": elapsed, "aln": aln,
+            "model_selection": model_selection}

@@ -1,16 +1,19 @@
 """Command line of the PyTorch/CUDA port (counterpart of iqtree2_tpu/cli.py).
 
-  python -m iqtree2_tpu_torch -s ALN -m MODEL [-te TREE [-blfix]]
-                              [-bb N] [-n N] [-nstop N] [-ninit N]
-                              [-ntop N] [-nbest N] [-pers X] [--f64]
-                              [--device cuda|cpu]
+  python -m iqtree2_tpu_torch -s ALN [-m MODEL|MFP|TEST|MF|TESTONLY|AUTO|WHTEST]
+                              [-mset M1,M2,..] [-mrate E,I,G,I+G,R]
+                              [-cmax K] [-merit AIC|AICc|BIC]
+                              [-te TREE [-blfix]] [-bb N] [-n N]
+                              [-nstop N] [-ninit N] [-ntop N] [-nbest N]
+                              [-pers X] [--f64] [--device cuda|cpu]
 
 The flags are the JAX package's: build_parser and params_from_args are
 copied from iqtree2_tpu/cli.py, the whole parser, so that refuse_unported
 names every flag the port does not run. One flag is added, ``--device``,
 the counterpart of IQTREE2_TPU_PLATFORM: ``cuda`` (the default) runs the
 Hopper kernels and fails where there is no card; ``cpu`` runs their plain
-PyTorch versions. The port runs the fixed-topology
+PyTorch versions. The port runs model selection
+(ModelFinder, the default -m MFP, and the WH test), the fixed-topology
 model fit (-te) and the stochastic tree search with ultrafast bootstrap;
 any flag whose path is not yet ported stops the run with a SystemExit that
 names it, so nothing is silently ignored.
@@ -30,8 +33,7 @@ PORTED_DESTS = frozenset({
     "model_eps", "fix_branch_lengths", "use_f64", "redo", "quiet",
     "num_threads", "device", "n_iterations", "unsuccess_iteration",
     "n_init_trees", "n_nni_trees", "pop_size", "pertub_strength",
-    "ufboot_replicates"})
-MODEL_SELECTION = ("MFP", "TEST", "MF", "TESTONLY", "AUTO", "WHTEST")
+    "ufboot_replicates", "mset", "mrate", "cmax", "merit"})
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -280,10 +282,10 @@ def refuse_unported(args: argparse.Namespace,
     if args.fix_branch_lengths and not args.user_tree:
         raise SystemExit("-blfix: fixes the branch lengths of a -te tree; "
                          "a search has none to fix")
-    m = args.model.upper()
-    if m in MODEL_SELECTION or "MERGE" in m:
-        raise SystemExit(f"-m {args.model}: model selection is not yet ported "
-                         f"to iqtree2_tpu_torch; name a model with -m")
+    if "MERGE" in args.model.upper():
+        raise SystemExit(f"-m {args.model}: partition merging needs "
+                         f"partitions (-p/-q/-Q), which are not yet ported "
+                         f"to iqtree2_tpu_torch")
 
 
 def main(argv=None) -> int:

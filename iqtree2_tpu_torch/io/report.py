@@ -5,8 +5,8 @@ sections from reportModel (:293), reportRate (:533), reportTree (:594).
 The output surface follows SURVEY A1.
 
 Copied from iqtree2_tpu/io/report.py, without the partitioned report (not
-ported): the port keeps its own host modules and imports nothing of the JAX
-package.
+ported), plus the report of a run that stops after model selection: the
+port keeps its own host modules and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -35,14 +35,9 @@ def _fmt_matrix(Q: np.ndarray, states: str) -> str:
     return "\n".join(lines)
 
 
-def write_iqtree_report(path, *, params, aln, model, rates, tree, logL,
-                        search_info=None, partitions=None,
-                        model_selection=None, support=None,
-                        elapsed=None, tree_tests=None) -> None:
-    from iqtree2_tpu_torch.model.subst import build_gtr_rate_matrix
-
-    out = []
-    a = out.append
+def _input_and_selection(a, params, aln, model_selection) -> None:
+    """The report's INPUT DATA section and, after model selection, its
+    MODEL SELECTION table."""
     a(f"IQ-TREE-TPU, PyTorch/CUDA port {iqtree2_tpu_torch.__version__} — "
       "maximum-likelihood phylogenomics (capability parity target: "
       "IQ-TREE 2)")
@@ -69,7 +64,8 @@ def write_iqtree_report(path, *, params, aln, model, rates, tree, logL,
         a("")
         tbl = model_selection.get("table")
         if tbl:
-            a("List of models sorted by BIC score:")
+            a(f"List of models sorted by "
+              f"{model_selection.get('criterion', 'BIC')} score:")
             a(f"{'Model':<20}{'LogL':>14}{'df':>5}{'AIC':>14}"
               f"{'AICc':>14}{'BIC':>14}")
             for row in tbl[:30]:
@@ -77,6 +73,29 @@ def write_iqtree_report(path, *, params, aln, model, rates, tree, logL,
                   f"{row['AIC']:>14.4f}{row['AICc']:>14.4f}"
                   f"{row['BIC']:>14.4f}")
             a("")
+
+
+def write_modelfinder_report(path, *, params, aln, model_selection,
+                             elapsed=None) -> None:
+    """The .iqtree of a run that stops after model selection (-m MF,
+    TESTONLY): the input data and the selection table."""
+    out = []
+    _input_and_selection(out.append, params, aln, model_selection)
+    if elapsed is not None:
+        out.append(f"Total wall-clock time used: {elapsed:.3f} sec")
+    out.append("")
+    Path(path).write_text("\n".join(out))
+
+
+def write_iqtree_report(path, *, params, aln, model, rates, tree, logL,
+                        search_info=None, partitions=None,
+                        model_selection=None, support=None,
+                        elapsed=None, tree_tests=None) -> None:
+    from iqtree2_tpu_torch.model.subst import build_gtr_rate_matrix
+
+    out = []
+    a = out.append
+    _input_and_selection(a, params, aln, model_selection)
     a("SUBSTITUTION PROCESS")
     a("-" * 20)
     a(f"Model of substitution: {model_string(model, rates)}")

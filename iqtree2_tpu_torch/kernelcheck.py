@@ -44,6 +44,13 @@ from iqtree2_tpu_torch.simulator import simulate_alignment
 from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
 
+# fixed FreeRate categories (weights, rates) and protein frequencies of the
+# +R10 and +F problems below
+_R10_WEIGHTS = (0.02, 0.05, 0.08, 0.1, 0.15, 0.2, 0.15, 0.12, 0.08, 0.05)
+_R10_RATES = (0.01, 0.05, 0.15, 0.3, 0.5, 0.8, 1.2, 1.8, 2.8, 4.5)
+_AA_FREQS = (0.08, 0.06, 0.04, 0.05, 0.02, 0.04, 0.07, 0.07, 0.02, 0.05,
+             0.1, 0.06, 0.02, 0.04, 0.05, 0.07, 0.05, 0.01, 0.03, 0.07)
+
 # name -> (sequence type, state alphabet, model string with every parameter
 # fixed, so the problem is the same in every run)
 MODELS = {
@@ -54,6 +61,22 @@ MODELS = {
     # 8 categories: more than the DNA register column holds (kRegCats)
     "GTR+G8": ("DNA", "ACGT",
                "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G8{0.6}"),
+    # the shapes ModelFinder's candidates bring: one category (C = 1), a
+    # FreeRate model's unequal weights with +I (a finite log_ptn_invar in
+    # the epilogue), ten categories, and both at 20 states (C * S = 200)
+    "JC": ("DNA", "ACGT", "JC"),
+    "GTR+I+R3": ("DNA", "ACGT",
+                 "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+I{0.2}"
+                 "+R3{0.2,0.3,0.5,1.0,0.3,2.2}"),
+    "GTR+R10": ("DNA", "ACGT",
+                "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+R10{"
+                + ",".join(f"{w},{r}" for w, r in zip(_R10_WEIGHTS,
+                                                      _R10_RATES)) + "}"),
+    "LG+I": ("AA", "ARNDCQEGHILKMFPSTWYV", "LG+I{0.2}"),
+    "LG+F+R10": ("AA", "ARNDCQEGHILKMFPSTWYV",
+                 "LG+F{" + ",".join(str(f) for f in _AA_FREQS) + "}+R10{"
+                 + ",".join(f"{w},{r}" for w, r in zip(_R10_WEIGHTS,
+                                                       _R10_RATES)) + "}"),
 }
 # float64: 1e-9 relative everywhere; float32: 1e-4 relative on partials and
 # theta, 1e-3 absolute on site log-likelihoods

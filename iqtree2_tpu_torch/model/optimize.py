@@ -30,17 +30,24 @@ BLEN_ROUNDS = 8           # Newton sweeps per branch-length step
 
 
 def optimize_model_parameters(eng: LikelihoodEngine, tree: Tree,
-                              epsilon: float = DEFAULT_MODEL_EPS) -> float:
+                              epsilon: float = DEFAULT_MODEL_EPS,
+                              max_rounds: int = MAX_ROUNDS,
+                              blen_rounds: int = BLEN_ROUNDS,
+                              screen_iters: int | None = None) -> float:
     """Optimize (model params, rate params, branch lengths) in place.
 
-    Returns the final log-likelihood.
+    max_rounds caps the alternation's rounds, blen_rounds the Newton
+    sweeps of each branch-length step, and screen_iters the joint fit's
+    L-BFGS iterations (torchfit.try_fit's max_iters); ModelFinder passes
+    3, 4 and 8 for its screen. Returns the final log-likelihood.
     """
-    fitted = torchfit.try_fit(eng, tree, epsilon=epsilon)
+    fitted = torchfit.try_fit(eng, tree, epsilon=epsilon,
+                              max_iters=screen_iters)
     if fitted is not None:
         return fitted
     model, rates = eng.model, eng.rates
-    logL = eng.optimize_branches(tree, n_rounds=BLEN_ROUNDS)
-    for _ in range(MAX_ROUNDS):
+    logL = eng.optimize_branches(tree, n_rounds=blen_rounds)
+    for _ in range(max_rounds):
         prev = logL
 
         # ---- substitution + rate parameters via bounded L-BFGS-B ---------
@@ -70,7 +77,7 @@ def optimize_model_parameters(eng: LikelihoodEngine, tree: Tree,
             logL = -neg
 
         # ---- branch lengths ---------------------------------------------
-        logL = eng.optimize_branches(tree, n_rounds=BLEN_ROUNDS)
+        logL = eng.optimize_branches(tree, n_rounds=blen_rounds)
         if logL - prev < epsilon:
             break
     return logL

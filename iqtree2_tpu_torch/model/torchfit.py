@@ -444,14 +444,16 @@ def _writeback(spec: FitSpec, x: np.ndarray) -> None:
             rates._p_invar = p_inv
 
 
-def try_fit(eng, tree, fix_blens: bool = False,
-            epsilon: float = 0.01) -> float | None:
+def try_fit(eng, tree, fix_blens: bool = False, epsilon: float = 0.01,
+            max_iters: int | None = None) -> float | None:
     """Joint fit of (model parameters, branch lengths) on one topology.
 
     Returns the final logL (at the fit's precision) and updates the host
     model, rates and tree in place, or None when the objective does not
     cover this (engine, model, rates) or the problem is too large for
-    reverse mode; the caller then runs the host alternation.
+    reverse mode; the caller then runs the host alternation. max_iters
+    caps the L-BFGS iterations (None: 400 for a thorough fit, 25 for a
+    screening one; ModelFinder's quick screen passes 8).
     """
     if eng.asc:
         return None
@@ -469,7 +471,8 @@ def try_fit(eng, tree, fix_blens: bool = False,
         [spec.mask, np.full(len(blens), 0.0 if fix_blens else 1.0)])
     if not np.any(mask):
         return None
-    max_iters = 400 if epsilon < 0.05 else 25
+    if max_iters is None:
+        max_iters = 400 if epsilon < 0.05 else 25
     gtol = 1e-4 if epsilon < 0.05 else 0.05
     if dtype == torch.float32:
         gtol = max(gtol, 1e-2)

@@ -1,5 +1,5 @@
-"""The port's command line: the golden -te fit and the tree search with
-UFBoot end to end, and the refusals.
+"""The port's command line: the golden -te fit, the tree search with UFBoot
+and model selection end to end, and the refusals.
 
 python -m iqtree2_tpu_torch runs in a subprocess on the CPU (--device cpu);
 every flag whose path is not yet ported must stop the run with a SystemExit
@@ -112,7 +112,7 @@ def test_unported_flag_is_refused(tmp_path, extra, message):
     (["-m", "GTR+G", "-g", TREE], "-g: not yet ported"),
     (["-m", "GTR+G", "-te", TREE, "-bb", "100"], "-bb/-B: the ultrafast"),
     (["-m", "GTR+G", "-blfix"], "-blfix: fixes the branch lengths"),
-    (["-te", TREE], "-m MFP: model selection"),
+    (["-te", TREE, "-m", "MF+MERGE"], r"-m MF\+MERGE: partition merging"),
     (["-te", TREE, "-m", "GTR+G+ASC"], "ascertainment"),
     (["-te", TREE, "-m", "UNREST"], "nonreversible"),
     (["-te", TREE, "-m", "MIX{JC,HKY}"], "mixture"),
@@ -121,6 +121,46 @@ def test_unported_path_is_refused(tmp_path, argv, message):
     with pytest.raises(SystemExit, match=message):
         cli.main(["-s", ALN, "--device", "cpu", "-pre", str(tmp_path / "x"),
                   "--quiet"] + argv)
+
+
+def _report(prefix) -> str:
+    return Path(f"{prefix}.iqtree").read_text()
+
+
+def test_default_model_selection_with_te(tmp_path):
+    """No -m: ModelFinder (MFP) selects on the parsimony tree, then the
+    winner is fitted on the -te tree; the report names it and holds the
+    selection table (a small -mset/-mrate keeps the grid short)."""
+    prefix = tmp_path / "x"
+    assert cli.main(["-s", ALN, "-te", TREE, "-mset", "HKY,GTR", "-mrate",
+                     "E,G", "--device", "cpu", "-pre", str(prefix),
+                     "--quiet"]) == 0
+    report = _report(prefix)
+    best = re.search(r"Best-fit model according to BIC: (\S+)",
+                     report).group(1)
+    assert best == "GTR+G"
+    assert re.search(r"^GTR\+G +-21", report, re.M)
+    assert "Model of substitution: GTR+F+G4" in report
+    assert f"Best-fit model: {best}" in Path(f"{prefix}.log").read_text()
+    # the winner's fit on the reference tree: golden g4 as in the GTR+G case
+    golden = json.loads((GOLDEN / "golden.json").read_text())["logL"]
+    assert _logl(prefix) == pytest.approx(golden["g4_gtrg_opt"], abs=0.5)
+
+
+def test_testonly_stops_after_selection(tmp_path):
+    """-m TESTONLY writes the selection table and the log, and no tree."""
+    prefix = tmp_path / "x"
+    assert cli.main(["-s", ALN, "-m", "TESTONLY", "-mset", "JC,HKY",
+                     "-mrate", "E,I", "-merit", "AIC", "--device", "cpu",
+                     "-pre", str(prefix), "--quiet"]) == 0
+    report = _report(prefix)
+    assert "Best-fit model according to AIC: HKY+I" in report
+    assert "List of models sorted by AIC score:" in report
+    assert len(re.findall(r"^(JC|HKY)(\+I)? ", report, re.M)) == 4
+    assert "Log-likelihood of the tree" not in report
+    assert "ModelFinder-only run finished" in \
+        Path(f"{prefix}.log").read_text()
+    assert not Path(f"{prefix}.treefile").exists()
 
 
 def test_blfix_with_free_parameters_is_refused(tmp_path):

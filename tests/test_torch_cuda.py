@@ -41,7 +41,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("model_name", ["GTR+G4", "LG+G4", "HKY+I",
-                                        "GTR+G8"])
+                                        "GTR+G8", "JC", "GTR+I+R3",
+                                        "GTR+R10", "LG+I", "LG+F+R10"])
 def test_kernels_match_plain(cuda, model_name, dtype):
     aln, tree, model, rates = kernelcheck.simulate(model_name, 24, 700,
                                                    seed=2)
@@ -244,6 +245,26 @@ def test_nni_optimize_on_cuda_matches_cpu(cuda):
     assert out[1][0] == out[0][0]
     assert out[1][1] == pytest.approx(out[0][1], rel=1e-10)
     np.testing.assert_allclose(out[1][2], out[0][2], rtol=1e-8)
+
+
+@pytest.mark.cuda
+def test_testonly_on_cuda_matches_cpu(cuda, tmp_path):
+    """A tiny ModelFinder run (-m TESTONLY) on the card and on the CPU:
+    the same candidates, winner and degrees of freedom, logLs within 0.05
+    (float32 fits of 8 and 25 L-BFGS iterations)."""
+    from iqtree2_tpu_torch.modelfinder import run_modelfinder
+    from iqtree2_tpu_torch.params import Params
+    aln, _, _, _ = kernelcheck.simulate("GTR+G4", 10, 300, seed=3)
+    params = Params(model="TESTONLY", mset="JC,HKY,GTR", mrate="E,G")
+    out = [run_modelfinder(aln, params, log=lambda s: None, device=dev)
+           for dev in ("cpu", cuda)]
+    assert out[1]["best"] == out[0]["best"]
+    for tbl in (out[0]["table"], out[1]["table"]):
+        tbl.sort(key=lambda e: e["name"])
+    assert [(e["name"], e["df"]) for e in out[1]["table"]] == \
+        [(e["name"], e["df"]) for e in out[0]["table"]]
+    for g, c in zip(out[1]["table"], out[0]["table"]):
+        assert g["logL"] == pytest.approx(c["logL"], abs=0.05), g["name"]
 
 
 @pytest.mark.cuda

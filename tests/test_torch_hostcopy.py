@@ -2,10 +2,12 @@
 originals, on the same inputs (files of tests/golden, numpy seeds).
 
 iqtree2_tpu_torch keeps copies of the alignment, model, tree-schedule,
-parsimony, BIONJ, UFBoot, simulation and optimizer modules so that it
-imports nothing of iqtree2_tpu; each case builds its inputs twice, once per
-package, and the outputs must be equal, bit for bit.
+parsimony, BIONJ, UFBoot, simulation, optimizer and WH-test modules so that
+it imports nothing of iqtree2_tpu; each case builds its inputs twice, once
+per package, and the outputs must be equal, bit for bit.
 """
+
+import types
 
 from pathlib import Path
 
@@ -20,11 +22,13 @@ from iqtree2_tpu.ops import pars as jpars
 from iqtree2_tpu.search.bionj import bionj_tree as jbionj_tree
 from iqtree2_tpu.search.ufboot import UFBoot as JUFBoot
 from iqtree2_tpu.simulator import simulate_alignment as jsimulate_alignment
+from iqtree2_tpu import symtest as jsymtest
+from iqtree2_tpu import whtest as jwhtest
 from iqtree2_tpu.tree.schedule import build_schedule as jbuild_schedule
 from iqtree2_tpu.tree.topology import Tree as JTree
 from iqtree2_tpu.utils.optimize import brent_minimize as jbrent
 from iqtree2_tpu.utils.optimize import lbfgsb_minimize as jlbfgsb
-from iqtree2_tpu_torch import kernelcheck
+from iqtree2_tpu_torch import kernelcheck, native, symtest, whtest
 from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.io.alignment_io import (read_alignment, write_fasta,
                                                write_phylip)
@@ -37,7 +41,7 @@ from iqtree2_tpu_torch.simulator import simulate_alignment
 from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
 from iqtree2_tpu_torch.utils.optimize import brent_minimize, lbfgsb_minimize
-from tests.torch_parity import both_trees
+from tests.torch_parity import both_trees, jax_alignment
 
 GOLDEN = Path(__file__).parent / "golden"
 
@@ -119,6 +123,25 @@ def test_parsimony_matches_jax(seed):
     assert score == jscore
 
 
+@pytest.mark.parametrize("model_name,ntaxa,nsites", [
+    ("GTR+G4", 60, 500), ("LG+G4", 25, 200), ("HKY+I", 9, 100)])
+def test_native_stepwise_matches_numpy(model_name, ntaxa, nsites,
+                                       monkeypatch):
+    """The start tree with the stepwise costs of the host library (uint8
+    masks for DNA, uint32 for protein) and of the numpy loop, the JAX
+    package's too: the same Newick text."""
+    aln = kernelcheck.simulate(model_name, ntaxa, nsites, seed=5)[0]
+    assert native.stepwise_costs(pars.state_bitmasks(aln),
+                                 aln.pattern_weights, 2 * ntaxa) is not None
+    fast = pars.random_stepwise_addition(aln, np.random.default_rng(3))
+    monkeypatch.setattr(native, "stepwise_costs", lambda *a: None)
+    loop = pars.random_stepwise_addition(aln, np.random.default_rng(3))
+    jt = jpars.random_stepwise_addition(jax_alignment(aln),
+                                        np.random.default_rng(3))
+    assert fast.to_newick(digits=17) == loop.to_newick(digits=17) == \
+        jt.to_newick(digits=17)
+
+
 def test_bionj_matches_jax():
     rng = np.random.default_rng(5)
     X = rng.normal(size=(12, 6))
@@ -169,6 +192,32 @@ def test_simulate_alignment_matches_jax(model_name):
         model, rates, _ = bm(model_str, dummy)
         out.append(sim(tree, model, rates, 120, rng))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("name", ["example.phy", "protein"])
+def test_divergence_matrix_matches_jax(name, tmp_path):
+    aln, jaln = _both_alignments(name, tmp_path)
+    for i, j in ((0, 1), (2, 5), (3, 8)):
+        np.testing.assert_array_equal(symtest.divergence_matrix(aln, i, j),
+                                      jsymtest.divergence_matrix(jaln, i, j))
+
+
+def test_whtest_matches_jax():
+    """Pair estimates, the statistic, and the parametric p-value (the same
+    tree, model and seed: the same simulations)."""
+    aln, tree, model, rates = kernelcheck.simulate("GTR+G4", 9, 400, seed=6)
+    jaln = jax_alignment(aln)
+    for i, j in ((0, 1), (4, 7)):
+        N = symtest.divergence_matrix(aln, i, j)
+        np.testing.assert_array_equal(whtest.pair_q_estimate(N),
+                                      jwhtest.pair_q_estimate(N))
+    assert whtest.wh_statistic(aln) == jwhtest.wh_statistic(jaln)
+    tree, jtree = both_trees(tree, aln.names)
+    jmodel, jrates, _ = jbuild_model(kernelcheck.MODELS["GTR+G4"][2], jaln)
+    res = whtest.run_whtest(aln, tree, model, rates, n_sim=6, seed=2)
+    jres = jwhtest.run_whtest(jaln, jtree, types.SimpleNamespace(
+        model=jmodel, rates=jrates), n_sim=6, seed=2)
+    assert res == jres
 
 
 def test_host_optimizers_match_jax():

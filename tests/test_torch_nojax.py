@@ -4,8 +4,9 @@ host modules it needs.
 
 A subprocess blocks jax, optax and iqtree2_tpu (sys.modules[...] = None
 makes any import of them fail), imports every module of iqtree2_tpu_torch,
-and runs through the CLI on the CPU a golden fixed-tree evaluation and a
-two-iteration tree search with UFBoot. A source scan fails on any import of
+and runs through the CLI on the CPU a golden fixed-tree evaluation, a
+two-iteration tree search with UFBoot and a small ModelFinder run
+(-m TESTONLY). A source scan fails on any import of
 iqtree2_tpu itself in the port, in chip_smoke.py and in the card-only
 tests/test_torch_cuda.py.
 """
@@ -40,6 +41,10 @@ with tempfile.TemporaryDirectory() as d:
                      "3", "-ntop", "2", "-nbest", "2", "-bb", "20",
                      "--device", "cpu", "-pre", d + "/s", "--quiet"]) == 0
     assert len(open(d + "/s.ufboot").read().splitlines()) == 20
+    assert cli.main(["-s", sys.argv[1], "-m", "TESTONLY", "-mset", "JC,K2P",
+                     "-mrate", "E,I", "--device", "cpu", "-pre", d + "/m",
+                     "--quiet"]) == 0
+    assert "Best-fit model according to BIC" in open(d + "/m.iqtree").read()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu")
             and sys.modules[m] is not None]

@@ -13,7 +13,9 @@ with ops/kernels.bind and the whole-pass kernels run on CPU tensors
 site-logL epilogue, the up pass and the theta pass, on down-pass buffers
 whose tip rows are NaN (no kernel may read them); DNA (the register
 column, and C = 8 through the two-sweep column), protein and a 61-state
-GTR, float32 and float64, on trees deep enough to rescale. It checks
+GTR, float32 and float64, on trees deep enough to rescale; and the shapes
+ModelFinder brings (one category, FreeRate weights with +I, ten
+categories, at 4 and 20 states). It checks
 indexing, the barriers and the rescale; it says nothing of speed or of
 what nvcc accepts.
 """
@@ -103,7 +105,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         lib = build(Path(args.build_dir or d))
         for name, ntaxa, nsites in (("GTR+G4", 40, 300), ("HKY+I", 9, 150),
-                                    ("GTR+G8", 30, 200), ("LG+G4", 9, 150)):
+                                    ("GTR+G8", 30, 200), ("LG+G4", 9, 150),
+                                    ("JC", 30, 200), ("GTR+I+R3", 30, 200),
+                                    ("GTR+R10", 30, 200), ("LG+I", 9, 150),
+                                    ("LG+F+R10", 9, 150)):
             aln, tree, model, rates = kernelcheck.simulate(name, ntaxa,
                                                            nsites, seed=3)
             for dtype in (torch.float32, torch.float64):
