@@ -71,11 +71,37 @@ ending in torch.cuda.synchronize():
    kernels: down_pass, its epilogue and theta_pass must launch, once per
    pass, and the winner's base must be GTR (the data are simulated under
    GTR+G4). The wall, the fits by route, the peak device memory and the
-   table's top 4 are printed.
+   table's top 4 are printed;
+10. the branch supports, user-tree tests and per-site outputs through the
+   CLI on example.phy in float32 at the default settings, the launch
+   counts reset just before each run and read just after: (1) -m GTR+G
+   -B 1000 -alrt 1000 -abayes --tbe -bnni -wsl -wsr -wspr -asr --mlrate
+   -mldist -o Frog,Turtle: every file parses, the .treefile labels read
+   aLRT/aBayes/UFBoot in range, .state holds 15 x 1998 rows summing to 1,
+   the weighted .sitelh sum is the reported logL within 1e-2, the logL
+   passes phase 6's bound; (2) -te ref_tree.nwk -z (the reference tree and
+   two trees moved by random NNIs) -au -zb 10000: the table ranks the
+   reference tree first; (3) -m GTR+G+ASC -te on the alignment's variable
+   columns (written to chip_smoke_out/): a finite logL. Each analysis's
+   launches are held to what its code asks for: ASR one down_pass and one
+   up_pass, the rate posteriors one down_pass, a site logL one epilogue
+   pass, the branch tests one down_pass and one up_pass, --mlrate 33
+   epilogue passes, -bnni one up_pass per replicate, the tree tests none;
+11. the slice at the realistic width, through the functions, in float32:
+   ancestral_posteriors (every row sums to 1 within 1e-4),
+   site_rate_posterior, tests_branch.test_all_branches(n_rell=1000),
+   siterates.site_rates_ml and treetesting.run_tree_tests on phase 5's
+   fitted tree and two trees moved by 19 random NNIs, each with its wall,
+   launches and peak device memory; then the same functions at 64 x 4096
+   on the card and on the CPU (the plain versions), in float32 and
+   float64, held within 1e-4 relative (the largest difference over the
+   largest value); SH-aLRT and aBayes, steps of the float32 logLs, are
+   held in float64.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
-phase-8 default command, this slice's main path; times, back-to-back times
+phase-8 default command, the program's main path, and slice_launches
+from phase 10's first command line, the supports' path; times, back-to-back times
 and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
 single PyTorch call computes a pruning pass, so library_ms is null); the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -118,6 +144,14 @@ MAX_CLIMB_GIB = 40.0
 DEFAULT_WINNER = "TIM2+I+G"
 WIDE_SELECTION = ["-m", "TESTONLY", "-mset", "HKY,GTR", "-mrate", "E,G,R",
                   "-cmax", "4"]
+# phase 10's first command line: every support and per-site output
+SUPPORT_FLAGS = ["-m", "GTR+G", "-B", str(FLAGSHIP_REPLICATES), "-alrt",
+                 "1000", "-abayes", "--tbe", "-bnni", "-wsl", "-wsr", "-wspr",
+                 "-asr", "--mlrate", "-mldist", "-o", "Frog,Turtle"]
+ML_RATE_GRID = 33          # siterates.site_rates_ml's rate grid
+# phase 11: card against the plain versions, and ASR rows summing to 1
+SLICE_TOL = 1e-4
+SUPPORT_KEYS = ("SH-aLRT / 100", "aBayes")   # held in float64 only
 
 
 def fail(msg: str) -> int:
@@ -153,6 +187,153 @@ def check_flagship(prefix: Path, bound: float) -> float:
     if not labels or not all(lab.isdigit() for lab in labels[:-1]):
         raise RuntimeError(f"support labels are not integers: {labels}")
     return logl
+
+
+def check_supports(prefix: Path, bound: float) -> float:
+    """Phase 10's checks of the first command line's files; returns the
+    logL."""
+    import numpy as np
+    logl = report_logl(prefix)
+    if not logl >= bound:
+        raise RuntimeError(f"logL {logl} below {bound}")
+    text = {ext: Path(f"{prefix}{ext}").read_text()
+            for ext in (".contree", ".splits.nex", ".ufboot", ".treefile",
+                        ".sitelh", ".rate", ".siteprob", ".state", ".mlrate",
+                        ".mldist")}
+    empty = [ext for ext, t in text.items() if not t.strip()]
+    if empty:
+        raise RuntimeError(f"empty outputs {empty}")
+    if len(text[".ufboot"].splitlines()) != FLAGSHIP_REPLICATES:
+        raise RuntimeError(".ufboot does not hold every replicate tree")
+    labels = re.findall(r"\)([^:,();]+)", text[".treefile"])
+    if len(labels) != 14:
+        raise RuntimeError(f"{len(labels)} support labels, not 14")
+    for lab in labels:
+        sh, ab, uf = lab.split("/")
+        if not (0 <= float(sh) <= 100 and 0 <= float(ab) <= 1
+                and uf.isdigit() and int(uf) <= 100):
+            raise RuntimeError(f"support label {lab} is not aLRT/aBayes/"
+                               f"UFBoot in range")
+    head, row = text[".sitelh"].splitlines()
+    n_sites = int(head.split()[1])
+    lh = np.array(row.split()[1:], float)
+    if len(lh) != n_sites or not abs(lh.sum() - logl) <= 1e-2:
+        raise RuntimeError(f".sitelh sums to {lh.sum()}, logL {logl}")
+
+    def table(ext, skip):
+        return np.array([ln.split("\t")[3 if ext == ".state" else 1:]
+                         for ln in text[ext].splitlines()[skip:]], float)
+
+    state, prob = table(".state", 2), table(".siteprob", 1)
+    rate, mlrate = table(".rate", 2), table(".mlrate", 2)
+    if state.shape != (15 * n_sites, 4) or prob.shape != (n_sites, 4):
+        raise RuntimeError(f".state {state.shape}, .siteprob {prob.shape}")
+    for name, t in ((".state", state), (".siteprob", prob)):
+        if not np.abs(t.sum(1) - 1.0).max() <= 1e-4:
+            raise RuntimeError(f"{name} rows do not sum to 1")
+    if not (len(rate) == len(mlrate) == n_sites and (mlrate > 0).all()
+            and np.isfinite(rate).all()):
+        raise RuntimeError(".rate / .mlrate do not hold every site")
+    rows = text[".mldist"].splitlines()
+    D = np.array([r.split()[1:] for r in rows[1:]], float)
+    if not (int(rows[0]) == 17 and D.shape == (17, 17)
+            and np.abs(D - D.T).max() <= 1e-6 and (np.diag(D) == 0).all()):
+        raise RuntimeError(".mldist is not a symmetric 17 x 17 matrix")
+    return logl
+
+
+SLICE_WANT = {"asr": (1, 0, 1, 0), "site rates": (1, 0, 0, 0),
+              "nni scores": (1, 0, 1, 0), "branch tests": (1, 0, 1, 0),
+              "mlrate": (ML_RATE_GRID, ML_RATE_GRID, 0, 0)}
+
+
+def run_slice(eng, tree, tag: str, report: bool = False) -> dict:
+    """Phase 11: the slice's functions on one engine and tree (the tree
+    tests on it and two copies moved by 19 random NNIs). On the card each
+    call's launches are held to SLICE_WANT (the tree tests: no up_pass);
+    with report, each call's wall, launches and peak device memory are
+    printed."""
+    import numpy as np
+    import torch
+    from iqtree2_tpu_torch import kernelcheck, siterates, tests_branch
+    from iqtree2_tpu_torch import treetesting
+    from iqtree2_tpu_torch.ops import kernels
+    from iqtree2_tpu_torch.ops.nni import build_nni_candidates
+    from iqtree2_tpu_torch.params import Params
+    from iqtree2_tpu_torch.tree.schedule import build_schedule
+    cuda = eng.device.type == "cuda"
+    trees = [tree] + [kernelcheck.perturbed(tree, seed=s, strength=0.02)[0]
+                      for s in (2, 3)]
+    sched = build_schedule(tree)
+    c = build_nni_candidates(tree, sched)
+    cand = np.stack([c.iu, c.iv, c.slot_c, c.edge_id])
+    calls = {
+        "asr": lambda: eng.ancestral_posteriors(tree)[0],
+        "site rates": lambda: eng.site_rate_posterior(tree),
+        "branch tests": lambda: tests_branch.test_all_branches(
+            eng, tree, n_rell=1000, rng=np.random.default_rng(1),
+            do_abayes=True),
+        "mlrate": lambda: siterates.site_rates_ml(eng, tree),
+        "tree tests": lambda: treetesting.run_tree_tests(
+            eng, trees, Params(topo_test_replicates=1000, do_au_test=True),
+            log=lambda s: None)[0].logL}
+    if not report:
+        calls["nni scores"] = lambda: eng.evaluate_nni_batch(
+            sched, cand, return_site_lp=True)
+    out = {}
+    for name, fn in calls.items():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = tuple(kernels.LAUNCHES[k] for k in CallLaunches.KEYS)
+        if cuda and not (got == SLICE_WANT[name] if name in SLICE_WANT
+                         else got[2] == 0 and got[1] >= len(trees)):
+            raise RuntimeError(f"{tag} {name} launched (down, sitelp, up, "
+                               f"theta) {got}")
+        if report:
+            print(f"{tag} {name}: {wall:.3f} s; launches (down, sitelp, "
+                  f"up, theta) {got}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+                  flush=True)
+    return out
+
+
+def slice_errors(card: dict, plain: dict) -> dict:
+    """Phase 11's differences of the card's results from the plain
+    versions': the largest difference over the largest value per array;
+    the supports (rounded as written) as the largest difference in SH-aLRT
+    points / 100 and in aBayes; the ML rates as the share of patterns off
+    by more than SLICE_TOL relative (a near-flat pattern may pick the
+    neighbouring grid point)."""
+    import numpy as np
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    br, pbr = card["branch tests"], plain["branch tests"]
+    if br.keys() != pbr.keys():
+        raise RuntimeError("the branch tests cover other branches")
+    r, pr = card["mlrate"][0], plain["mlrate"][0]
+    return {
+        "asr": rel(card["asr"], plain["asr"]),
+        "rate posterior": rel(card["site rates"][1], plain["site rates"][1]),
+        "mean rate": rel(card["site rates"][0], plain["site rates"][0]),
+        "nni logL": rel(card["nni scores"][0], plain["nni scores"][0]),
+        "nni length": rel(card["nni scores"][1], plain["nni scores"][1]),
+        "nni site logL": rel(card["nni scores"][2], plain["nni scores"][2]),
+        "SH-aLRT / 100": max(abs(br[k][0] - pbr[k][0]) for k in br) / 100,
+        "aBayes": max(abs(br[k][1] - pbr[k][1]) for k in br),
+        "mlrate lp": rel(card["mlrate"][1], plain["mlrate"][1]),
+        "mlrate share off": float(np.mean(np.abs(r - pr)
+                                          > SLICE_TOL * np.abs(pr))),
+        "tree logL": rel(card["tree tests"], plain["tree tests"])}
 
 
 def climb(eng, tree, rounds: list) -> tuple:
@@ -257,6 +438,59 @@ class ModelFinderSpy:
         analysis.run_modelfinder = self._mf
 
 
+class CallLaunches:
+    """While active, wraps the slice's analyses (ASR, the rate-category
+    posteriors, a site logL, the branch tests, --mlrate, the tree tests,
+    -bnni) and keeps the launches made during each call, as (down_pass,
+    sitelp, up_pass, theta_pass)."""
+
+    KEYS = ("down_pass", "sitelp", "up_pass", "theta_pass")
+
+    def __enter__(self):
+        from iqtree2_tpu_torch import analysis, tests_branch
+        from iqtree2_tpu_torch.engine import LikelihoodEngine
+        from iqtree2_tpu_torch.ops import kernels
+        from iqtree2_tpu_torch.search.ufboot import UFBoot
+        self.calls: dict = {}
+        self._saved = []
+        for owner, attr, label in (
+                (LikelihoodEngine, "ancestral_posteriors", "asr"),
+                (LikelihoodEngine, "site_rate_posterior", "site rates"),
+                (LikelihoodEngine, "site_lp", "site logL"),
+                (tests_branch, "test_all_branches", "branch tests"),
+                (analysis, "site_rates_ml", "mlrate"),
+                (analysis, "run_tree_tests", "tree tests"),
+                (UFBoot, "refine_boot_trees", "bnni")):
+            fn = getattr(owner, attr)
+
+            def call(*args, _fn=fn, _label=label, **kw):
+                before = dict(kernels.LAUNCHES)
+                out = _fn(*args, **kw)
+                self.calls.setdefault(_label, []).append(tuple(
+                    kernels.LAUNCHES[k] - before[k] for k in self.KEYS))
+                return out
+
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+    def check(self, want: dict, tag: str) -> None:
+        """want: label -> the launches of every call, or a predicate on
+        them."""
+        for label, w in want.items():
+            got = self.calls.get(label)
+            if not got:
+                raise RuntimeError(f"{tag}: {label} never ran")
+            for g in got:
+                if not (w(g) if callable(w) else g == w):
+                    raise RuntimeError(f"{tag}: {label} launched (down, "
+                                       f"sitelp, up, theta) {g}")
+
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -308,7 +542,9 @@ def main() -> int:
     import numpy as np
     from iqtree2_tpu_torch import kernelcheck
     from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.io.alignment_io import write_phylip
     from iqtree2_tpu_torch.ops import kernels
+    from iqtree2_tpu_torch.tree.topology import Tree
 
     OUT.mkdir(parents=True, exist_ok=True)
     kind = torch.cuda.get_device_name(0)
@@ -535,9 +771,110 @@ def main() -> int:
         return fail(f"a kernel of the path was never launched: {launches}")
     passes.check(launches, "[phase 9]")
 
+    # 10. the branch supports, tree tests and per-site outputs via the CLI
+    sup = OUT / "supports"
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes, CallLaunches() as calls:
+        kernels.reset_launch_counts()
+        wall = run_cli(["-s", str(GOLDEN / "example.phy")] + SUPPORT_FLAGS
+                       + ["-pre", str(sup)])
+        slice_launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_call = {k: v if len(v) < 4 else v[:3] + ["..."]
+                for k, v in calls.calls.items()}
+    logl = report_logl(sup)
+    print(f"[phase 10] {' '.join(SUPPORT_FLAGS)} f32: logL {logl:.4f} in "
+          f"{wall:.1f} s; peak device memory {peak:.2f} GiB; launches "
+          f"{slice_launches}; per analysis (down, sitelp, up, theta) "
+          f"{per_call}; split: "
+          f"{re.search(r'Wall seconds: (.*)', log_lines(sup)).group(1)}",
+          flush=True)
+    if not all(v > 0 for v in slice_launches.values()):
+        return fail(f"a kernel of the path was never launched: "
+                    f"{slice_launches}")
+    passes.check(slice_launches, "[phase 10]")
+    calls.check({**{k: v for k, v in SLICE_WANT.items() if k != "nni scores"},
+                 "site logL": (1, 1, 0, 0),
+                 "bnni": lambda g: g[2] == FLAGSHIP_REPLICATES
+                 and g[3] >= g[2]}, "[phase 10]")
+    check_supports(sup, g4 - 0.5)
+    ref_aln, ref_tree, _, _ = kernelcheck.load_problem(
+        GOLDEN / "example.phy", GOLDEN / "ref_tree.nwk", "GTR+G4")
+    ztrees = OUT / "user_trees.nwk"
+    ztrees.write_text("".join(t.to_newick() + "\n" for t in [ref_tree] + [
+        kernelcheck.perturbed(ref_tree, seed=s, strength=0.5)[0]
+        for s in (1, 2)]))
+    ztest = OUT / "usertrees"
+    with PassCount() as passes, CallLaunches() as calls:
+        kernels.reset_launch_counts()
+        wall = run_cli(["-s", str(GOLDEN / "example.phy"), "-m", "GTR+G",
+                        "-te", str(GOLDEN / "ref_tree.nwk"), "-z",
+                        str(ztrees), "-au", "-zb", "10000",
+                        "-pre", str(ztest)])
+        z_launches = dict(kernels.LAUNCHES)
+    passes.check(z_launches, "[phase 10 -z]")
+    calls.check({"tree tests": lambda g: g[2] == 0 and g[1] >= 3
+                 and g[3] >= 3}, "[phase 10 -z]")
+    table = Path(f"{ztest}.iqtree").read_text().split("USER TREES")[1]
+    rows = re.findall(r"^(\d)\s+(-\d+\.\d+)\s+(\d+\.\d+)", table, re.M)
+    print(f"[phase 10] -z 3 trees -au -zb 10000 f32 in {wall:.1f} s: "
+          f"(tree, logL, deltaL) {rows}; launches {z_launches}; tree tests "
+          f"{calls.calls['tree tests']}", flush=True)
+    if len(rows) != 3 or rows[0][2] != "0.0000":
+        return fail(f"-z does not rank the reference tree first: {rows}")
+    if len(Path(f"{ztest}.treelh").read_text().split()) != 3 or len(
+            Path(f"{ztest}.trees").read_text().splitlines()) != 3:
+        return fail("-z wrote no .treelh / .trees of 3 trees")
+    keep = ~ref_aln.is_constant_pattern()[ref_aln.site_to_pattern]
+    var_path = OUT / "variable.phy"
+    write_phylip(ref_aln.subset_sites(np.nonzero(keep)[0]), var_path)
+    asc = OUT / "asc"
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        wall = run_cli(["-s", str(var_path), "-m", "GTR+G+ASC", "-te",
+                        str(GOLDEN / "ref_tree.nwk"), "-pre", str(asc)])
+        asc_launches = dict(kernels.LAUNCHES)
+    passes.check(asc_launches, "[phase 10 +ASC]")
+    asc_logl = report_logl(asc)
+    print(f"[phase 10] -m GTR+G+ASC -te on the {int(keep.sum())} variable "
+          f"columns f32: logL {asc_logl:.4f} in {wall:.1f} s; launches "
+          f"{asc_launches}", flush=True)
+    if not (math.isfinite(asc_logl) and asc_launches["sitelp"] > 0):
+        return fail(f"+ASC fit: logL {asc_logl}, launches {asc_launches}")
+
+    # 11. the slice at the realistic width, then against the plain versions
+    ftree = Tree.from_newick(Path(f"{big}.treefile").read_text(), aln.names)
+    wide_out = run_slice(eng, ftree, "[phase 11] 1000 x 16384", report=True)
+    post = wide_out["asr"]
+    err = float(np.abs(post.sum(1, dtype=np.float64) - 1.0).max())
+    print(f"[phase 11] ASR rows sum to 1 within {err:.3e}", flush=True)
+    if not err <= SLICE_TOL:
+        return fail(f"ASR posteriors sum to 1 only within {err}")
+    if wide_out["tree tests"][0] != wide_out["tree tests"].max():
+        return fail("the fitted tree is not the best of the -z set")
+    s_aln, s_tree, s_model, s_rates = kernelcheck.simulate(
+        "GTR+G4", CHECK_TAXA, CHECK_SITES, seed=1)
+    for dtype in (torch.float32, torch.float64):
+        small = [run_slice(LikelihoodEngine(s_aln, s_model, s_rates,
+                                            dtype=dtype, device=dev),
+                           s_tree, f"[phase 11] {CHECK_TAXA} x {CHECK_SITES} "
+                           f"{dev}") for dev in ("cuda", "cpu")]
+        errs = slice_errors(*small)
+        print(f"[phase 11] {CHECK_TAXA} x {CHECK_SITES} {str(dtype)[6:]} "
+              f"card against the plain versions: {errs}", flush=True)
+        # SH-aLRT counts and aBayes are steps of the logLs: in float32 a
+        # RELL margin or a printed digit within a logL's rounding (a few
+        # 1e-2 at this size) moves, so they are held in float64
+        held = {k: v for k, v in errs.items() if dtype == torch.float64
+                or k not in SUPPORT_KEYS}
+        if not all(v <= SLICE_TOL for v in held.values()):
+            return fail(f"phase 11 disagrees with the plain versions: "
+                        f"{held}")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": main_launches[k],
+         "slice_launches": slice_launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],

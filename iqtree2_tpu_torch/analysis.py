@@ -15,6 +15,14 @@ checkpoints its state (search.* keys) and ModelFinder its fits
 (ModelFinder.* keys), so an interrupted run resumes where it stopped.
 -m WHTEST runs a GTR+G analysis and then the Weiss-von Haeseler test of
 model homogeneity (whtest.py) on its tree, written to .whtest.
+
+After the tree (iqtree2_tpu/analysis.py:368-485): -bnni refines the UFBoot
+replicate trees, --tbe replaces their supports by transfer supports,
+-alrt/-abayes add SH-aLRT and aBayes (tests_branch.py); -z evaluates a set
+of user trees (treetesting.py, with -zb and -au) into .trees, .treelh and
+the report; -o roots the printed trees on the first outgroup taxon (every
+one must exist); -wsl, -wsr, -wspr/-wspm/-wspmr, --mlrate, -asr and
+-mldist write .sitelh, .rate, .siteprob, .mlrate, .state and .mldist.
 """
 
 from __future__ import annotations
@@ -26,20 +34,26 @@ from pathlib import Path
 
 import numpy as np
 
+from iqtree2_tpu_torch import tests_branch
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.io import report as report_io
 from iqtree2_tpu_torch.io.alignment_io import read_alignment
+from iqtree2_tpu_torch.io.nexus import parse_nexus
 from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.model.optimize import optimize_model_parameters
 from iqtree2_tpu_torch.modelfinder import MODES, run_modelfinder
+from iqtree2_tpu_torch.ops.distances import ml_distances
 from iqtree2_tpu_torch.ops.pars import random_stepwise_addition
 from iqtree2_tpu_torch.ops.prec import compute_dtype
 from iqtree2_tpu_torch.params import Params
 from iqtree2_tpu_torch.search.search import SearchParams, TreeSearch
 from iqtree2_tpu_torch.search.ufboot import UFBoot
+from iqtree2_tpu_torch.siterates import site_rates_ml, write_mlrate
+from iqtree2_tpu_torch.tbe import tbe_supports
 from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
+from iqtree2_tpu_torch.treetesting import format_treetest_table, run_tree_tests
 from iqtree2_tpu_torch.utils.checkpoint import Checkpoint
 from iqtree2_tpu_torch.utils.optimize import lbfgsb_minimize
 from iqtree2_tpu_torch.whtest import run_whtest
@@ -69,11 +83,123 @@ class Logger:
 def check_model_ported(model_str: str, extras: dict) -> None:
     """SystemExit for a model term whose likelihood path is not yet ported
     (model/factory.py refuses the model families the port does not run)."""
-    for key, what in (("asc", "+ASC ascertainment correction"),
-                      ("treemix", "tree mixtures (+T)")):
-        if extras.get(key):
-            raise SystemExit(f"-m {model_str}: {what} is not yet ported to "
-                             f"iqtree2_tpu_torch")
+    if extras.get("treemix"):
+        raise SystemExit(f"-m {model_str}: tree mixtures (+T) are not yet "
+                         f"ported to iqtree2_tpu_torch")
+
+
+def outgroup_root(outgroup: str, names: list[str]) -> int | None:
+    """Leaf id of the first -o taxon, the one the printed trees are rooted
+    on; every taxon of the comma-separated list must be in the alignment
+    (the JAX package checks only the first)."""
+    if not outgroup:
+        return None
+    taxa = outgroup.split(",")
+    for name in taxa:
+        if name not in names:
+            raise SystemExit(f"ERROR: outgroup taxon '{name}' not found in "
+                             f"alignment")
+    return names.index(taxa[0])
+
+
+def read_tree_set(path, names) -> list:
+    """A set of Newick trees, one per line or a NEXUS trees block
+    (iqtree2_tpu.analysis._read_tree_set)."""
+    text = Path(path).read_text()
+    if text.lstrip().upper().startswith("#NEXUS"):
+        return [Tree.from_newick(nwk, names)
+                for _, nwk in parse_nexus(text).trees]
+    return [Tree.from_newick(ln.strip(), names)
+            for ln in text.splitlines() if ln.strip()]
+
+
+def merge_support(support, branch_tests) -> dict:
+    """UFBoot percents combined with aLRT/aBayes into 'aLRT/aBayes/UFBoot'
+    labels (iqtree2_tpu.analysis._merge_support)."""
+    out = dict(support or {})
+    for key, vals in branch_tests.items():
+        label = "/".join(f"{v:.3g}" if isinstance(v, float) else str(v)
+                         for v in vals)
+        if key in out:
+            out[key] = f"{label}/{out[key]:g}"
+        else:
+            out[key] = label
+    return out
+
+
+def write_asr(path, eng: LikelihoodEngine, tree: Tree, aln) -> None:
+    """Marginal ancestral state posteriors, the .state file of -asr
+    (iqtree2_tpu.analysis._write_asr)."""
+    post, node_ids, _ = eng.ancestral_posteriors(tree)
+    chars = aln.seqtype.state_chars[: aln.num_states]
+    s2p = aln.site_to_pattern
+    with open(path, "w") as f:
+        f.write("# Ancestral state reconstruction (marginal posteriors)\n")
+        f.write("Node\tSite\tState\t" +
+                "\t".join(f"p_{c}" for c in chars) + "\n")
+        for i, node in enumerate(node_ids):
+            name = f"Node{node}"
+            pp = post[i]  # [S, P]
+            best = pp.argmax(axis=0)
+            for s in range(aln.nsites):
+                p = s2p[s]
+                probs = "\t".join(f"{pp[x, p]:.5f}"
+                                  for x in range(len(chars)))
+                f.write(f"{name}\t{s + 1}\t{chars[best[p]]}\t{probs}\n")
+
+
+def _write_site_outputs(params: Params, eng: LikelihoodEngine, tree: Tree,
+                        aln, log) -> None:
+    """-wsl, -wsr, -wspr/-wspm/-wspmr, --mlrate, -asr and -mldist
+    (iqtree2_tpu/analysis.py:426-485)."""
+    prefix = params.prefix
+    if params.write_site_lh:
+        _, lp = eng.site_lp(tree)
+        site_lp = lp[aln.site_to_pattern]
+        with open(f"{prefix}.sitelh", "w") as f:
+            f.write(f"1 {aln.nsites}\n")
+            f.write("Site_Lh " +
+                    " ".join(f"{x:.5f}" for x in site_lp) + "\n")
+    if params.write_site_rate:
+        mean_rate, cat_post = eng.site_rate_posterior(tree)
+        cat_best = cat_post.argmax(axis=0)
+        with open(f"{prefix}.rate", "w") as f:
+            f.write("# Site-specific posterior mean rates (empirical "
+                    "Bayes)\nSite\tRate\tCategory\n")
+            for s in range(aln.nsites):
+                p = aln.site_to_pattern[s]
+                f.write(f"{s + 1}\t{mean_rate[p]:.5f}\t"
+                        f"{cat_best[p] + 1}\n")
+    if params.write_site_prob:
+        # per-site posterior of each rate category (reference
+        # printSiteProbCategory, main/phyloanalysis.cpp:2225-2226); with no
+        # mixture model ported there is one mixture class, so -wspm and
+        # -wspmr fall back to the rate categories, as in the JAX package
+        _, post = eng.site_rate_posterior(tree)
+        C = post.shape[0]
+        with open(f"{prefix}.siteprob", "w") as f:
+            f.write("Site\t" + "\t".join(f"p{c + 1}" for c in range(C))
+                    + "\n")
+            for s in range(aln.nsites):
+                p = aln.site_to_pattern[s]
+                f.write(f"{s + 1}\t" + "\t".join(
+                    f"{post[c, p]:.5f}" for c in range(C)) + "\n")
+        log(f"Site category posteriors written to {prefix}.siteprob")
+    if params.write_ml_rate:
+        mlr, _ = site_rates_ml(eng, tree)
+        write_mlrate(f"{prefix}.mlrate", aln, mlr)
+        log(f"Per-site ML rates written to {prefix}.mlrate")
+    if params.do_asr:
+        write_asr(f"{prefix}.state", eng, tree, aln)
+        log(f"Ancestral states written to {prefix}.state")
+    if params.write_ml_dist:
+        D = ml_distances(aln, eng.model, dtype=eng.dtype, device=eng.device)
+        with open(f"{prefix}.mldist", "w") as f:
+            f.write(f"{aln.ntaxa}\n")
+            for i, n in enumerate(aln.names):
+                f.write(f"{n:<12}" +
+                        " ".join(f"{D[i, j]:.6f}"
+                                 for j in range(aln.ntaxa)) + "\n")
 
 
 def optimize_model_only(eng: LikelihoodEngine, tree: Tree,
@@ -242,9 +368,14 @@ def run_analysis(params: Params, device="cuda") -> dict:
                 return {"model_selection": model_selection}
         model, rates, extras = build_model(model_str, aln)
         check_model_ported(model_str, extras)
-        eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=device)
+        out_root = outgroup_root(params.outgroup, aln.names)
+        eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=device,
+                               asc=extras.get("asc", False))
         log(f"Likelihood engine: {eng.device}, {dtype}, "
             f"{eng.Pp} padded patterns")
+        # the branch tests' RELL draws come from this generator, made where
+        # the JAX package makes it
+        rng = np.random.default_rng(params.seed)
 
         search_info: dict = {}
         support = None
@@ -266,19 +397,51 @@ def run_analysis(params: Params, device="cuda") -> dict:
             tree, logL = _run_search(params, eng, aln, ckp, ufboot, log,
                                      search_info, mf_seconds)
         if ufboot is not None:
+            if params.bnni:
+                ufboot.refine_boot_trees(eng, log=log)
+            if params.tbe:
+                # transfer bootstrap expectation over the replicate trees
+                # (reference: --tbe via booster, phyloanalysis.cpp:3668)
+                reps = [ufboot.trees_newick[t] for t in ufboot.boot_trees
+                        if t is not None]
+                sup = tbe_supports(tree, reps, aln.names)
+            else:
+                sup = ufboot.supports_for(tree)
             # integer percentages, as the reference prints UFBoot supports
-            support = {k: round(v)
-                       for k, v in ufboot.supports_for(tree).items()}
+            support = {k: round(v) for k, v in sup.items()}
             _write_ufboot(prefix, ufboot)
             search_info["UFBoot replicates"] = params.ufboot_replicates
+        if params.alrt_replicates > 0 or params.abayes:
+            br = tests_branch.test_all_branches(
+                eng, tree, n_rell=max(params.alrt_replicates, 1000), rng=rng,
+                do_abayes=params.abayes)
+            support = merge_support(support, br)
 
-        report_io.write_treefile(f"{prefix}.treefile", tree, support=support)
+        tree_tests = None
+        if params.user_trees_file:
+            log(f"Evaluating user trees from {params.user_trees_file} "
+                f"({params.topo_test_replicates} RELL replicates"
+                f"{', AU test' if params.do_au_test else ''})...")
+            res_z, opt_z = run_tree_tests(
+                eng, read_tree_set(params.user_trees_file, aln.names),
+                params, log=log)
+            tree_tests = format_treetest_table(res_z)
+            with open(f"{prefix}.trees", "w") as f:
+                for t in opt_z:
+                    f.write(t.to_newick() + "\n")
+            with open(f"{prefix}.treelh", "w") as f:
+                for v in res_z.logL:
+                    f.write(f"{v:.6f}\n")
+
+        report_io.write_treefile(f"{prefix}.treefile", tree, support=support,
+                                 root=out_root)
+        _write_site_outputs(params, eng, tree, aln, log)
         elapsed = time.time() - t_start
         report_io.write_iqtree_report(
             f"{prefix}.iqtree", params=params, aln=aln, model=model,
             rates=rates, tree=tree, logL=logL, search_info=search_info,
             model_selection=model_selection, support=support,
-            elapsed=elapsed, tree_tests=None)
+            elapsed=elapsed, tree_tests=tree_tests)
         ckp.put("finished", True)
         ckp.dump(force=True)
         log(f"Analysis finished in {elapsed:.2f} sec. Best logL: {logL:.4f}")

@@ -3,7 +3,10 @@
   python -m iqtree2_tpu_torch -s ALN [-m MODEL|MFP|TEST|MF|TESTONLY|AUTO|WHTEST]
                               [-mset M1,M2,..] [-mrate E,I,G,I+G,R]
                               [-cmax K] [-merit AIC|AICc|BIC]
-                              [-te TREE [-blfix]] [-bb N] [-n N]
+                              [-te TREE [-blfix]] [-bb N [-bnni] [--tbe]]
+                              [-alrt N] [-abayes] [-z TREES [-zb N] [-au]]
+                              [-wsl] [-wsr] [-wspr|-wspm|-wspmr] [--mlrate]
+                              [-asr] [-mldist] [-o TAXA] [-n N]
                               [-nstop N] [-ninit N] [-ntop N] [-nbest N]
                               [-pers X] [--f64] [--device cuda|cpu]
 
@@ -12,11 +15,14 @@ copied from iqtree2_tpu/cli.py, the whole parser, so that refuse_unported
 names every flag the port does not run. One flag is added, ``--device``,
 the counterpart of IQTREE2_TPU_PLATFORM: ``cuda`` (the default) runs the
 Hopper kernels and fails where there is no card; ``cpu`` runs their plain
-PyTorch versions. The port runs model selection
-(ModelFinder, the default -m MFP, and the WH test), the fixed-topology
-model fit (-te) and the stochastic tree search with ultrafast bootstrap;
-any flag whose path is not yet ported stops the run with a SystemExit that
-names it, so nothing is silently ignored.
+PyTorch versions. The port runs model selection (ModelFinder, the default
+-m MFP, and the WH test), the fixed-topology model fit (-te, with +ASC)
+and the stochastic tree search with ultrafast bootstrap, then the branch
+supports (-alrt, -abayes, -bnni, --tbe), the user-tree tests (-z, -zb,
+-au) and the per-site and per-tree outputs (-wsl, -wsr,
+-wspr/-wspm/-wspmr, --mlrate, -asr, -mldist, -o); any flag whose path is
+not yet ported stops the run with a SystemExit that names it, so nothing
+is silently ignored.
 """
 
 from __future__ import annotations
@@ -33,7 +39,11 @@ PORTED_DESTS = frozenset({
     "model_eps", "fix_branch_lengths", "use_f64", "redo", "quiet",
     "num_threads", "device", "n_iterations", "unsuccess_iteration",
     "n_init_trees", "n_nni_trees", "pop_size", "pertub_strength",
-    "ufboot_replicates", "mset", "mrate", "cmax", "merit"})
+    "ufboot_replicates", "mset", "mrate", "cmax", "merit",
+    "alrt_replicates", "abayes", "bnni", "tbe", "user_trees_file",
+    "topo_test_replicates", "do_au_test", "write_site_lh", "write_site_rate",
+    "write_site_prob", "write_ml_rate", "do_asr", "write_ml_dist",
+    "outgroup"})
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -279,6 +289,10 @@ def refuse_unported(args: argparse.Namespace,
     if args.user_tree and args.ufboot_replicates:
         raise SystemExit("-bb/-B: the ultrafast bootstrap samples the trees "
                          "of a search; drop -te or -bb")
+    for flag, dest in (("-bnni", "bnni"), ("--tbe", "tbe")):
+        if getattr(args, dest) and not args.ufboot_replicates:
+            raise SystemExit(f"{flag}: works on the ultrafast bootstrap's "
+                             f"replicate trees; add -bb/-B N")
     if args.fix_branch_lengths and not args.user_tree:
         raise SystemExit("-blfix: fixes the branch lengths of a -te tree; "
                          "a search has none to fix")

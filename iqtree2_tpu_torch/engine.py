@@ -241,6 +241,44 @@ class LikelihoodEngine:
             asc_nsites=self._pack.get("asc_nsites"))
         return dp, up, logL
 
+    def ancestral_posteriors(self, tree: Tree):
+        """(posteriors [n_int, S, num_patterns], postorder internal node
+        ids, sched): marginal ancestral states (engine._asr_jit's first
+        output; reference: computeMarginalAncestralState,
+        tree/phylotree.h:1069), posterior(node, s) proportional to
+        sum_c w_c down(node, c, s) up(node, c, s). One down pass and one up
+        pass; the scale counts are shared by the states of a pattern, so
+        the normalisation cancels them."""
+        sched = build_schedule(tree)
+        P = pruning.transition_tensors(self._blens(sched), self._pack)
+        dp, up = pruning.both_passes(P, self._tipP,
+                                     self.schedule_arrays(sched), self._pack)
+        L = self._tipP.shape[0]
+        post = torch.einsum("c,ncsp->nsp", self._pack["cat_weight"],
+                            dp.all[L:] * up.up_in)
+        post = post / post.sum(1, keepdim=True).clamp(
+            min=torch.finfo(self.dtype).tiny)
+        return (post[:, :, : self.aln.num_patterns].cpu().numpy(),
+                list(sched.postorder_nodes), sched)
+
+    def site_rate_posterior(self, tree: Tree):
+        """(posterior mean rate per pattern [num_patterns], category
+        posterior [C, num_patterns]): engine._asr_jit's second output, the
+        rate categories at the root partial, the +I class left out as
+        there (reference analog: the .rate output). It needs only the down
+        pass."""
+        sched = build_schedule(tree)
+        P = pruning.transition_tensors(self._blens(sched), self._pack)
+        dp = pruning.down_pass(P, self._tipP, self.schedule_arrays(sched),
+                               tips=False)
+        Broot, _ = pruning.root_partial(dp, P, self._tipP, sched.n_int)
+        lh_cat = torch.einsum("cx,cxp->cp", self._pack["root_freqs"], Broot)
+        cat_post = self._pack["cat_weight"][:, None] * lh_cat
+        cat_post = cat_post / cat_post.sum(0, keepdim=True).clamp(
+            min=torch.finfo(self.dtype).tiny)
+        cat_post = cat_post[:, : self.aln.num_patterns].cpu().numpy()
+        return np.asarray(self.pack_np.cat_rate) @ cat_post, cat_post
+
     def optimize_branches(self, tree: Tree, n_rounds: int = 10,
                           n_newton: int = 4,
                           t_min: float = DEFAULT_MIN_BLEN,

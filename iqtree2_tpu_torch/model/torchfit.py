@@ -5,8 +5,9 @@ The objective is the JAX package's: unconstrained parameters x (log
 exchangeabilities, log-ratio frequencies, log alpha or FreeRate rates and
 weights, logit p_invar) and log branch lengths go through Q, P(t) by
 scaling-and-squaring expm and a pruning down pass to logL, and both are
-fitted jointly by L-BFGS with a strong-Wolfe line search
-(torch.optim.LBFGS) on gradients from autograd. The finite-difference host
+fitted jointly on gradients from autograd by the JAX package's optimizer:
+optax.lbfgs() with its zoom line search (utils/lbfgs.py) under
+jaxfit._fit_core's stopping rule. The finite-difference host
 alternation of model/optimize.py stalls short of the optimum in float32;
 this fit runs in float64 whenever epsilon < 0.05, whatever the engine's
 dtype, as in the JAX package.
@@ -34,12 +35,11 @@ from iqtree2_tpu_torch.model.subst import GTRModel
 from iqtree2_tpu_torch.ops.prec import scaling_consts
 from iqtree2_tpu_torch.ops.pruning import expm_ss
 from iqtree2_tpu_torch.tree.schedule import build_schedule, write_blens_to_tree
+from iqtree2_tpu_torch.utils.lbfgs import lbfgs_minimize
 
 # residual-memory guard for reverse mode through the down pass:
 # n_int * C * S * Pp elements (the saved messages are about twice that)
 MAX_REVERSE_ELEMENTS = 2.0e8
-LBFGS_MEMORY = 10        # optax.lbfgs's default memory size
-EVALS_PER_ITER = 4       # line-search evaluations allowed per iteration
 
 
 # --------------------------------------------------------------- special fns
@@ -487,20 +487,14 @@ def try_fit(eng, tree, fix_blens: bool = False, epsilon: float = 0.01,
         # frozen entries pinned to z0: their gradient is exactly 0
         return z0 * (1.0 - m) + z * m
 
-    z = z0.clone().requires_grad_(True)
-    opt = torch.optim.LBFGS([z], lr=1.0, max_iter=max_iters,
-                            max_eval=EVALS_PER_ITER * max_iters,
-                            tolerance_grad=gtol, history_size=LBFGS_MEMORY,
-                            line_search_fn="strong_wolfe")
-
-    def closure():
-        opt.zero_grad()
+    def value_and_grad(z):
+        z = z.detach().requires_grad_(True)
         zz = pinned(z)
         loss = -fit_loglik(zz[:k], zz[k:], spec, consts)
-        loss.backward()
-        return loss
+        (g,) = torch.autograd.grad(loss, z)
+        return loss.detach(), g
 
-    opt.step(closure)
+    z, _ = lbfgs_minimize(value_and_grad, z0, max_iters, gtol)
     with torch.no_grad():
         zz = pinned(z)
         logL = float(fit_loglik(zz[:k], zz[k:], spec, consts))

@@ -45,10 +45,10 @@ def _cand_array(cand: NNICandidates) -> np.ndarray:
 def _apply_best_swaps(tree: Tree, sched, cand, logl, t_opt, t5,
                       loglh_epsilon: float):
     """Apply the best non-conflicting improving NNI swaps to ``tree`` with
-    their five optimised lengths (greedy by gain, one move per node;
-    reference applyNNIs, tree/iqtree.cpp:3426). Returns (applied, undo)
-    where undo = (swap log, branch lengths before the swaps, blen_h before
-    them)."""
+    their optimised lengths, the central one alone when t5 is None (NNI1)
+    (greedy by gain, one move per node; reference applyNNIs,
+    tree/iqtree.cpp:3426). Returns (applied, undo) where undo = (swap log,
+    branch lengths before the swaps, blen_h before them)."""
     base = logl[:, 2]
     gains = logl[:, :2] - base[:, None]
     best_var = gains.argmax(axis=1)
@@ -78,6 +78,10 @@ def _apply_best_swaps(tree: Tree, sched, cand, logl, t_opt, t5,
         tree.swap_subtrees(u, x, v, c)
         swap_log.append((u, x, v, c))
         tree.set_blen(u, v, float(t_opt[ci, var]))
+        if t5 is None:
+            used_nodes.update([u, v])
+            applied += 1
+            continue
         # the four outer optimised lengths, after the swap: the moved child
         # x now hangs off v, c off u
         tv5 = t5[ci, var]     # (a, b, c, d, e)
@@ -103,12 +107,16 @@ def _revert_swaps(tree: Tree, undo) -> None:
 
 
 def nni_optimize(eng: LikelihoodEngine, tree: Tree,
-                 loglh_epsilon: float = 0.001, want_lp: bool = False):
-    """Hill-climb with NNI moves until no improving move remains.
+                 loglh_epsilon: float = 0.001, max_rounds: int = MAX_ROUNDS,
+                 blen_rounds: int = BLEN_ROUNDS, nni5: bool = True,
+                 want_lp: bool = False):
+    """Hill-climb with NNI moves until no improving move remains, at most
+    max_rounds fused rounds of blen_rounds Newton sweeps each.
 
-    Each candidate is scored with all five surrounding branches
-    re-optimised (NNI5, the reference default params.nni5) and applied with
-    those lengths. Mutates ``tree`` in place and returns an
+    With nni5 (the reference default params.nni5) each candidate is scored
+    with all five surrounding branches re-optimised and applied with those
+    lengths; without it (NNI1, as -bnni refines replicate trees) with the
+    central branch alone. Mutates ``tree`` in place and returns an
     NNIResult; with want_lp returns (NNIResult, lp), lp being the final
     tree's per-pattern log-likelihoods for UFBoot, from the last fused
     round where the tree did not change after it.
@@ -120,15 +128,16 @@ def nni_optimize(eng: LikelihoodEngine, tree: Tree,
     dirty = False      # True iff swaps were applied after the last round
     undo = None        # reverts a regressing round's swaps, so the tree
     #                    and the returned logL stay consistent
-    for rnd in range(1, MAX_ROUNDS + 1):
+    for rnd in range(1, max_rounds + 1):
         sched = build_schedule(tree)
         cand = build_nni_candidates(tree, sched)
         if len(cand.nodes_u) == 0:
             break
         out = eng.optimize_and_evaluate_nnis(
-            tree, sched, _cand_array(cand), n_rounds=BLEN_ROUNDS, nni5=True,
+            tree, sched, _cand_array(cand), n_rounds=blen_rounds, nni5=nni5,
             want_lp=want_lp)
-        opt_logL, logl, t_opt, t5 = out[:4]
+        opt_logL, logl, t_opt = out[:3]
+        t5 = out[3] if nni5 else None
         if want_lp:
             lp = out[-1]
         dirty = False
@@ -149,10 +158,11 @@ def nni_optimize(eng: LikelihoodEngine, tree: Tree,
         total_applied += applied
         dirty = True
     else:
-        rnd = MAX_ROUNDS
+        rnd = max_rounds
     # final polish: converge the lengths once at exit (reference:
     # optimizeAllBranches() after doNNISearch, tree/iqtree.cpp:2640)
-    new_logL = eng.optimize_branches(tree, n_rounds=POLISH_ROUNDS)
+    new_logL = eng.optimize_branches(tree,
+                                     n_rounds=max(blen_rounds, POLISH_ROUNDS))
     if logL is None:      # no NNI candidate at all
         logL = new_logL
     else:

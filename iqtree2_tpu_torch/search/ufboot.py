@@ -10,8 +10,8 @@ correlation between the two replicate halves (computeBootstrapCorrelation
 :4175); supports mapped onto the ML tree (summarizeBootstrap :3816).
 
 Copied from iqtree2_tpu/search/ufboot.py, with the RELL matvec on the host
-only (no device RELL, no replicate slices of a distributed run, no -bnni
-refinement, no -bsam resampling units: none is ported) and a -inf champion
+only (no device RELL, no replicate slices of a distributed run, no -bsam
+resampling units: none is ported) and a -inf champion
 masked before it is subtracted (the JAX package's line 127 may make a NaN
 there): the port keeps its own host modules and imports nothing of the JAX
 package.
@@ -158,6 +158,35 @@ class UFBoot:
             return True
         corr = float(np.corrcoef(a, b)[0, 1])
         return corr >= self.min_correlation
+
+    # ----------------------------------------------------------- refinement
+    def refine_boot_trees(self, eng, max_rounds: int = 1,
+                          log=lambda s: None) -> int:
+        """-bnni: NNI-refine every replicate's champion tree under THAT
+        replicate's resampled pattern weights (reference: refineBootTrees,
+        tree/iqtree.cpp:2650). Returns the number of replicates whose
+        champion improved."""
+        from iqtree2_tpu_torch.search.nni import nni_optimize
+        improved = 0
+        for r in range(self.n_replicates):
+            tid = self.boot_trees[r]
+            if tid is None:
+                continue
+            t = Tree.from_newick(self.trees_newick[tid], self.aln.names)
+            eng_r = eng.with_pattern_weights(self.samples[r])
+            res = nni_optimize(eng_r, t, loglh_epsilon=0.001,
+                               max_rounds=max_rounds, blen_rounds=2,
+                               nni5=False)
+            if res.logL > self.boot_logl[r] + 1e-6:
+                self.boot_logl[r] = res.logL
+                new_tid = t.topology_id()
+                self.trees_newick.setdefault(new_tid, t.to_newick())
+                self.boot_trees[r] = new_tid
+                improved += 1
+        log(f"UFBoot refinement (-bnni): {improved}/"
+            f"{self.n_replicates} replicates improved")
+        self._splits_cache.clear()
+        return improved
 
     # ------------------------------------------------------------ summary
     def supports_for(self, tree: Tree) -> dict[tuple[int, int], float]:

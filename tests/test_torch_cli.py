@@ -94,11 +94,11 @@ def test_search_with_ufboot_through_the_module(tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["-bnni"], "-bnni: not yet ported"),
-    (["-alrt", "1000"], "-alrt: not yet ported"),
+    (["-lbp", "1000"], "-lbp: not yet ported"),
+    (["-b", "10"], "-b: not yet ported"),
     (["-p", ALN], "-p/-spp: not yet ported"),
     (["--pmsf"], "--pmsf: not yet ported"),
-    (["-wsl"], "-wsl: not yet ported"),
+    (["--symtest"], "--symtest: not yet ported"),
 ])
 def test_unported_flag_is_refused(tmp_path, extra, message):
     argv = ["-s", ALN, "-m", "GTR+G", "-te", TREE, "--device", "cpu",
@@ -113,11 +113,18 @@ def test_unported_flag_is_refused(tmp_path, extra, message):
     (["-m", "GTR+G", "-te", TREE, "-bb", "100"], "-bb/-B: the ultrafast"),
     (["-m", "GTR+G", "-blfix"], "-blfix: fixes the branch lengths"),
     (["-te", TREE, "-m", "MF+MERGE"], r"-m MF\+MERGE: partition merging"),
-    (["-te", TREE, "-m", "GTR+G+ASC"], "ascertainment"),
+    (["-m", "GTR+G", "-t", TREE], "-t: not yet ported"),
+    (["-te", TREE, "-m", "GTR+G", "-blmin", "1e-5"],
+     "-blmin: not yet ported"),
+    (["-m", "GTR+G", "-bnni"], "-bnni: works on the ultrafast bootstrap"),
+    (["-te", TREE, "-m", "GTR+G", "--tbe"],
+     "--tbe: works on the ultrafast bootstrap"),
     (["-te", TREE, "-m", "UNREST"], "nonreversible"),
     (["-te", TREE, "-m", "MIX{JC,HKY}"], "mixture"),
 ])
 def test_unported_path_is_refused(tmp_path, argv, message):
+    """Paths the port does not run, and flags that need another (-bnni and
+    --tbe act on -bb's replicate trees), stop before any work."""
     with pytest.raises(SystemExit, match=message):
         cli.main(["-s", ALN, "--device", "cpu", "-pre", str(tmp_path / "x"),
                   "--quiet"] + argv)

@@ -279,3 +279,49 @@ def test_joint_fit_on_cuda_matches_cpu(cuda):
         out.append((torchfit.try_fit(eng, t, epsilon=0.01), rates.alpha))
     assert out[1][0] == pytest.approx(out[0][0], abs=1e-3)
     assert out[1][1] == pytest.approx(out[0][1], rel=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_name", ["GTR+G4", "LG+G4"])
+def test_supports_and_site_outputs_on_cuda_match_cpu(cuda, model_name):
+    """Marginal ASR, the rate-category posteriors, the branch tests (NNI1
+    scores with site logLs, SH-aLRT and aBayes) and the per-site ML rates
+    at 64 x 4096 in float64 on the card against the CPU's plain passes,
+    with the launches each asks for: ASR a down and an up pass, the
+    posteriors a down pass, the branch tests a down and an up pass,
+    --mlrate 33 log-likelihoods."""
+    from iqtree2_tpu_torch import siterates, tests_branch
+    aln, tree, model, rates = kernelcheck.simulate(model_name, 64, 4096,
+                                                   seed=3)
+    want = {"asr": (1, 0, 1), "rates": (1, 0, 0), "branches": (1, 0, 1),
+            "mlrate": (33, 33, 0)}
+    out = []
+    for dev in ("cpu", cuda):
+        eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                               device=dev)
+        res, used = {}, {}
+        for key, call in (
+                ("asr", lambda: eng.ancestral_posteriors(tree)[0]),
+                ("rates", lambda: eng.site_rate_posterior(tree)),
+                ("branches", lambda: tests_branch.test_all_branches(
+                    eng, tree, rng=np.random.default_rng(1),
+                    do_abayes=True)),
+                ("mlrate", lambda: siterates.site_rates_ml(eng, tree))):
+            before = dict(kernels.LAUNCHES)
+            res[key] = call()
+            used[key] = tuple(kernels.LAUNCHES[k] - before[k]
+                              for k in ("down_pass", "sitelp", "up_pass"))
+        if dev != "cpu":
+            assert used == want
+        out.append(res)
+    cpu, gpu = out
+    np.testing.assert_allclose(gpu["asr"], cpu["asr"], rtol=1e-8,
+                               atol=1e-12)
+    assert np.abs(gpu["asr"].sum(1) - 1.0).max() < 1e-12
+    for g, c in zip(gpu["rates"] + gpu["mlrate"], cpu["rates"]
+                    + cpu["mlrate"]):
+        np.testing.assert_allclose(g, c, rtol=1e-8, atol=1e-12)
+    assert gpu["branches"].keys() == cpu["branches"].keys()
+    for k, (sh, ab) in gpu["branches"].items():
+        assert sh == cpu["branches"][k][0]
+        assert ab == pytest.approx(cpu["branches"][k][1], abs=1e-3)

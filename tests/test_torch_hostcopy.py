@@ -2,7 +2,8 @@
 originals, on the same inputs (files of tests/golden, numpy seeds).
 
 iqtree2_tpu_torch keeps copies of the alignment, model, tree-schedule,
-parsimony, BIONJ, UFBoot, simulation, optimizer and WH-test modules so that
+parsimony, BIONJ, UFBoot, simulation, optimizer, WH-test, transfer-support
+and tree-test modules so that
 it imports nothing of iqtree2_tpu; each case builds its inputs twice, once
 per package, and the outputs must be equal, bit for bit.
 """
@@ -23,12 +24,15 @@ from iqtree2_tpu.search.bionj import bionj_tree as jbionj_tree
 from iqtree2_tpu.search.ufboot import UFBoot as JUFBoot
 from iqtree2_tpu.simulator import simulate_alignment as jsimulate_alignment
 from iqtree2_tpu import symtest as jsymtest
+from iqtree2_tpu import tbe as jtbe
+from iqtree2_tpu import treetesting as jtreetesting
 from iqtree2_tpu import whtest as jwhtest
 from iqtree2_tpu.tree.schedule import build_schedule as jbuild_schedule
 from iqtree2_tpu.tree.topology import Tree as JTree
 from iqtree2_tpu.utils.optimize import brent_minimize as jbrent
 from iqtree2_tpu.utils.optimize import lbfgsb_minimize as jlbfgsb
-from iqtree2_tpu_torch import kernelcheck, native, symtest, whtest
+from iqtree2_tpu_torch import (kernelcheck, native, symtest, tbe,
+                               treetesting, whtest)
 from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.io.alignment_io import (read_alignment, write_fasta,
                                                write_phylip)
@@ -236,3 +240,44 @@ def test_host_optimizers_match_jax():
 
     assert brent_minimize(g, 0.0, 2.0, guess=1.0) == \
         jbrent(g, 0.0, 2.0, guess=1.0)
+
+
+def test_tbe_matches_jax():
+    """Transfer distances and supports of random trees against replicates
+    drawn the same way (bit for bit: integer products, the same means)."""
+    names = [f"t{i}" for i in range(14)]
+    rng = np.random.default_rng(8)
+    ref, jref = both_trees(Tree.random_topology(names, rng), names)
+    reps = [Tree.random_topology(names, rng).to_newick() for _ in range(7)]
+    rows, _ = tbe._split_matrix(ref)
+    jrows, _ = jtbe._split_matrix(jref)
+    np.testing.assert_array_equal(rows, jrows)
+    boot, _ = tbe._split_matrix(Tree.from_newick(reps[0], names),
+                                include_trivial=True)
+    np.testing.assert_array_equal(tbe.transfer_distances(rows, boot),
+                                  jtbe.transfer_distances(jrows, boot))
+    sup = tbe.tbe_supports(ref, reps, names)
+    assert sup == jtbe.tbe_supports(jref, reps, names) and len(sup) == 11
+
+
+@pytest.mark.parametrize("do_au", [True, False])
+def test_evaluate_trees_matches_jax(do_au):
+    """The RELL, KH, SH, weighted, ELW and AU statistics of the same site
+    log-likelihoods and seed, and the report table they print."""
+    rng = np.random.default_rng(11)
+    w = rng.integers(1, 6, 60).astype(np.float64)
+    lp = -rng.uniform(2.0, 9.0, (4, 60))
+    lp[1] = lp[0] + rng.normal(0.0, 0.05, 60)
+    res = treetesting.evaluate_trees(lp, w, nboot=2000, do_au=do_au,
+                                     rng=np.random.default_rng(3))
+    jres = jtreetesting.evaluate_trees(lp, w, nboot=2000, do_au=do_au,
+                                       rng=np.random.default_rng(3))
+    for f in ("logL", "deltaL", "bp_rell", "p_kh", "p_sh", "p_wkh", "p_wsh",
+              "c_elw"):
+        np.testing.assert_array_equal(getattr(res, f), getattr(jres, f))
+    if do_au:
+        np.testing.assert_array_equal(res.p_au, jres.p_au)
+    else:
+        assert res.p_au is None and jres.p_au is None
+    assert treetesting.format_treetest_table(res, alpha=0.05) == \
+        jtreetesting.format_treetest_table(jres, alpha=0.05)

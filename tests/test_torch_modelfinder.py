@@ -3,9 +3,10 @@ package's, and -m WHTEST through the port's command line.
 
 Each side is built by its own package from the same site matrix
 (tests/torch_parity.py); both run in float32, as ModelFinder runs, on the
-CPU with one torch thread. The fits are two different L-BFGS codes
-(optax's zoom line search, torch's strong Wolfe), a screening fit stopped
-after 8 iterations, a refit after 25, so logLs agree to a tolerance.
+CPU with one torch thread. Both fit with optax's L-BFGS and zoom line
+search (the port's transcription in utils/lbfgs.py), a screening fit
+stopped after 8 iterations, a refit after 25; float32 rounding differs
+between the two objectives, so logLs agree to a tolerance.
 """
 
 import re
@@ -22,6 +23,8 @@ from iqtree2_tpu.ops import pars as jpars
 from iqtree2_tpu.params import Params as JParams
 from iqtree2_tpu_torch import cli, kernelcheck
 from iqtree2_tpu_torch import modelfinder as mf
+from iqtree2_tpu_torch.io.alignment_io import read_alignment as \
+    mf_read_alignment
 from iqtree2_tpu_torch.io.alignment_io import write_phylip
 from iqtree2_tpu_torch.ops import pars
 from iqtree2_tpu_torch.params import Params
@@ -107,6 +110,23 @@ def test_selection_tree_matches_jax(which, request):
         aln, np.random.default_rng(seed)).to_newick(digits=17) == \
         jpars.random_stepwise_addition(
             jaln, np.random.default_rng(seed)).to_newick(digits=17)
+
+
+def test_example_candidates_match_jax():
+    """example.phy under -m MFP -mset HKY,K3Pu,TIM2 -cmax 6: the lazy +Rk
+    expansion stops each base where the JAX package's does, so both list
+    the same candidates (with torch.optim.LBFGS screens the port also
+    listed HKY+R5)."""
+    golden = str(Path(__file__).parent / "golden" / "example.phy")
+    aln = mf_read_alignment(golden)
+    res, jres = _both(aln, jread_alignment(golden), model="MFP",
+                      mset="HKY,K3Pu,TIM2", cmax=6)
+    assert [e["name"] for e in res["table"]] and \
+        sorted(e["name"] for e in res["table"]) == \
+        sorted(e["name"] for e in jres["table"])
+    assert {"HKY+R4", "K3Pu+R4", "TIM2+R4"} <= {e["name"]
+                                              for e in res["table"]}
+    _assert_same_selection(res, jres)
 
 
 def test_testonly_dna_matches_jax(dna):

@@ -5,8 +5,9 @@ host modules it needs.
 A subprocess blocks jax, optax and iqtree2_tpu (sys.modules[...] = None
 makes any import of them fail), imports every module of iqtree2_tpu_torch,
 and runs through the CLI on the CPU a golden fixed-tree evaluation, a
-two-iteration tree search with UFBoot and a small ModelFinder run
-(-m TESTONLY). A source scan fails on any import of
+two-iteration tree search with UFBoot, a small ModelFinder run
+(-m TESTONLY) and the command line of chip_smoke.py's phase 10 at -B 100
+(every support, the site outputs, -asr, -mldist, -o). A source scan fails on any import of
 iqtree2_tpu itself in the port, in chip_smoke.py and in the card-only
 tests/test_torch_cuda.py.
 """
@@ -45,6 +46,15 @@ with tempfile.TemporaryDirectory() as d:
                      "-mrate", "E,I", "--device", "cpu", "-pre", d + "/m",
                      "--quiet"]) == 0
     assert "Best-fit model according to BIC" in open(d + "/m.iqtree").read()
+    assert cli.main(["-s", sys.argv[1], "-m", "GTR+G", "-B", "100", "-alrt",
+                     "1000", "-abayes", "--tbe", "-bnni", "-wsl", "-wsr",
+                     "-wspr", "-asr", "--mlrate", "-mldist", "-o",
+                     "Frog,Turtle", "-n", "2", "-ninit", "3", "-ntop", "2",
+                     "-nbest", "2", "--device", "cpu", "-pre", d + "/f",
+                     "--quiet"]) == 0
+    for ext in (".treefile", ".sitelh", ".rate", ".siteprob", ".state",
+                ".mlrate", ".mldist", ".ufboot", ".contree"):
+        assert open(d + "/f" + ext).read(), ext
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu")
             and sys.modules[m] is not None]
