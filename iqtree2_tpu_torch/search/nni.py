@@ -108,10 +108,9 @@ def _revert_swaps(tree: Tree, undo) -> None:
 
 def nni_optimize(eng: LikelihoodEngine, tree: Tree,
                  loglh_epsilon: float = 0.001, max_rounds: int = MAX_ROUNDS,
-                 blen_rounds: int = BLEN_ROUNDS, nni5: bool = True,
-                 want_lp: bool = False):
+                 nni5: bool = True, want_lp: bool = False):
     """Hill-climb with NNI moves until no improving move remains, at most
-    max_rounds fused rounds of blen_rounds Newton sweeps each.
+    max_rounds fused rounds of BLEN_ROUNDS Newton sweeps each.
 
     With nni5 (the reference default params.nni5) each candidate is scored
     with all five surrounding branches re-optimised and applied with those
@@ -134,7 +133,7 @@ def nni_optimize(eng: LikelihoodEngine, tree: Tree,
         if len(cand.nodes_u) == 0:
             break
         out = eng.optimize_and_evaluate_nnis(
-            tree, sched, _cand_array(cand), n_rounds=blen_rounds, nni5=nni5,
+            tree, sched, _cand_array(cand), n_rounds=BLEN_ROUNDS, nni5=nni5,
             want_lp=want_lp)
         opt_logL, logl, t_opt = out[:3]
         t5 = out[3] if nni5 else None
@@ -161,8 +160,7 @@ def nni_optimize(eng: LikelihoodEngine, tree: Tree,
         rnd = max_rounds
     # final polish: converge the lengths once at exit (reference:
     # optimizeAllBranches() after doNNISearch, tree/iqtree.cpp:2640)
-    new_logL = eng.optimize_branches(tree,
-                                     n_rounds=max(blen_rounds, POLISH_ROUNDS))
+    new_logL = eng.optimize_branches(tree, n_rounds=POLISH_ROUNDS)
     if logL is None:      # no NNI candidate at all
         logL = new_logL
     else:

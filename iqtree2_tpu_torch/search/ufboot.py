@@ -26,6 +26,8 @@ import numpy as np
 from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.tree.topology import Tree
 
+BNNI_ROUNDS = 1      # NNI1 rounds per replicate under -bnni
+
 
 class UFBoot:
     def __init__(self, aln: Alignment, n_replicates: int = 1000,
@@ -160,12 +162,11 @@ class UFBoot:
         return corr >= self.min_correlation
 
     # ----------------------------------------------------------- refinement
-    def refine_boot_trees(self, eng, max_rounds: int = 1,
-                          log=lambda s: None) -> int:
+    def refine_boot_trees(self, eng, log=lambda s: None) -> int:
         """-bnni: NNI-refine every replicate's champion tree under THAT
-        replicate's resampled pattern weights (reference: refineBootTrees,
-        tree/iqtree.cpp:2650). Returns the number of replicates whose
-        champion improved."""
+        replicate's resampled pattern weights, BNNI_ROUNDS NNI1 rounds each
+        (reference: refineBootTrees, tree/iqtree.cpp:2650). Returns the
+        number of replicates whose champion improved."""
         from iqtree2_tpu_torch.search.nni import nni_optimize
         improved = 0
         for r in range(self.n_replicates):
@@ -174,9 +175,7 @@ class UFBoot:
                 continue
             t = Tree.from_newick(self.trees_newick[tid], self.aln.names)
             eng_r = eng.with_pattern_weights(self.samples[r])
-            res = nni_optimize(eng_r, t, loglh_epsilon=0.001,
-                               max_rounds=max_rounds, blen_rounds=2,
-                               nni5=False)
+            res = nni_optimize(eng_r, t, max_rounds=BNNI_ROUNDS, nni5=False)
             if res.logL > self.boot_logl[r] + 1e-6:
                 self.boot_logl[r] = res.logL
                 new_tid = t.topology_id()

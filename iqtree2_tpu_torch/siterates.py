@@ -9,7 +9,7 @@ then one parabolic step in log-rate; no per-site likelihood work.
 Copied from iqtree2_tpu/siterates.py, whose module imports jax. The JAX
 package maps one jitted log-likelihood over the grid; here each grid point
 is one ops/pruning.tree_loglik, a down pass with its site-logL epilogue,
-so n_grid passes in all.
+so ML_RATE_GRID passes in all.
 """
 
 from __future__ import annotations
@@ -20,9 +20,12 @@ import torch
 from iqtree2_tpu_torch.ops import pruning
 from iqtree2_tpu_torch.tree.schedule import build_schedule
 
+ML_RATE_GRID = 33          # log-spaced rate multipliers tried per site
+ML_RATE_MIN = 1e-3         # the grid's least rate
+ML_RATE_MAX = 20.0         # and its largest
 
-def site_rates_ml(eng, tree, n_grid: int = 33, r_min: float = 1e-3,
-                  r_max: float = 20.0):
+
+def site_rates_ml(eng, tree):
     """(ml_rate [num_patterns], lp_at_best [num_patterns]).
 
     eng should carry a single-category rate model (the reference replaces
@@ -31,11 +34,12 @@ def site_rates_ml(eng, tree, n_grid: int = 33, r_min: float = 1e-3,
     sched = build_schedule(tree)
     sa = eng.schedule_arrays(sched)
     blens = eng._blens(sched)
-    grid = torch.as_tensor(np.geomspace(r_min, r_max, n_grid),
-                           dtype=eng.dtype, device=eng.device)
+    grid = torch.as_tensor(
+        np.geomspace(ML_RATE_MIN, ML_RATE_MAX, ML_RATE_GRID),
+        dtype=eng.dtype, device=eng.device)
     lps = torch.stack([pruning.tree_loglik(blens * r, eng._tipP, sa,
                                            eng._pack, eng._pw)[1]
-                       for r in grid])             # [n_grid, Pp]
+                       for r in grid])             # [ML_RATE_GRID, Pp]
     P = eng.aln.num_patterns
     lps = lps[:, :P].cpu().numpy()
     best = lps.argmax(axis=0)
@@ -45,7 +49,7 @@ def site_rates_ml(eng, tree, n_grid: int = 33, r_min: float = 1e-3,
     logg = np.log(g)
     for p in range(P):
         b = best[p]
-        if 0 < b < n_grid - 1:
+        if 0 < b < ML_RATE_GRID - 1:
             y0, y1, y2 = lps[b - 1, p], lps[b, p], lps[b + 1, p]
             denom = (y0 - 2 * y1 + y2)
             if denom < -1e-12:

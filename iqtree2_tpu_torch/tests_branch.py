@@ -1,5 +1,4 @@
-"""Single-branch support tests: SH-aLRT, parametric aLRT, aBayes, local
-bootstrap.
+"""Single-branch support tests: SH-aLRT and aBayes.
 
 Reference analog (SURVEY A5): testAllBranches (tree/phylotree.cpp:5315) ->
 testOneBranch (:5217): per internal branch, the two NNI-alternative logLs
@@ -13,13 +12,14 @@ builds an eight-array tuple from fields NNICandidates does not have and
 raises there. All per-branch NNI configurations are scored in one engine
 call (one down pass, one up pass, then NNI1 scoring with per-pattern
 logLs); the RELL resampling is a single [reps, P] x [P, 3n] product on the
-host (a BLAS product where the JAX copy runs einsum's own loop).
+host (a BLAS product where the JAX copy runs einsum's own loop). The JAX
+copy's local bootstrap and parametric aLRT are left out: its analysis
+never asks for them (-lbp is accepted and ignored there, refused here).
 """
 
 from __future__ import annotations
 
 import numpy as np
-from scipy.stats import chi2
 
 from iqtree2_tpu_torch.ops.nni import build_nni_candidates
 from iqtree2_tpu_torch.search.nni import _cand_array
@@ -27,17 +27,11 @@ from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
 
 
-def test_all_branches(eng, tree: Tree,
-                      n_rell: int = 1000,
-                      rng: np.random.Generator | None = None,
-                      do_abayes: bool = False,
-                      do_lbp: bool = False,
-                      do_parametric_alrt: bool = False
+def test_all_branches(eng, tree: Tree, n_rell: int = 1000, *,
+                      rng: np.random.Generator, do_abayes: bool = False
                       ) -> dict[tuple[int, int], tuple]:
-    """Returns {branch key: (SH_aLRT_pct, [aLRT], [aBayes], [LBP_pct])} for
-    every internal branch."""
-    if rng is None:
-        rng = np.random.default_rng(1)
+    """Returns {branch key: (SH_aLRT_pct, [aBayes])} for every internal
+    branch; the RELL weights are drawn from rng."""
     aln = eng.aln
     sched = build_schedule(tree)
     cand = build_nni_candidates(tree, sched)
@@ -71,25 +65,14 @@ def test_all_branches(eng, tree: Tree,
     sh_count = (aLRT[:, None] > (cs_best - cs_2nd) + 0.05).sum(axis=1)
     sh_support = 100.0 * sh_count / n_rell
 
-    wins = (lh_new[:, :, 0] > lh_new[:, :, 1]) & \
-        (lh_new[:, :, 0] > lh_new[:, :, 2])
-    lbp = 100.0 * wins.sum(axis=1) / n_rell
-
     abayes = 1.0 / (1.0 + np.exp(np.minimum(lh[:, 1] - lh[:, 0], 50))
                     + np.exp(np.minimum(lh[:, 2] - lh[:, 0], 50)))
-    # parametric aLRT: mixture 0.5 chi2_0 + 0.5 chi2_1 (Anisimova-Gascuel)
-    stat = np.maximum(2.0 * aLRT, 0.0)
-    para = 1.0 - 0.5 * chi2.sf(stat, 1)
 
     out = {}
     for i in range(len(lh)):
         u, v = cand.nodes_u[i], cand.nodes_v[i]
         vals = [float(sh_support[i])]
-        if do_parametric_alrt:
-            vals.append(float(100 * para[i]))
         if do_abayes:
             vals.append(float(abayes[i]))
-        if do_lbp:
-            vals.append(float(lbp[i]))
         out[Tree._key(u, v)] = tuple(round(x, 3) for x in vals)
     return out
