@@ -75,8 +75,9 @@ ending in torch.cuda.synchronize():
 10. the branch supports, user-tree tests and per-site outputs through the
    CLI on example.phy in float32 at the default settings, the launch
    counts reset just before each run and read just after: (1) -m GTR+G
-   -B 1000 -alrt 1000 -abayes --tbe -bnni -wsl -wsr -wspr -asr --mlrate
-   -mldist -o Frog,Turtle: every file parses, the .treefile labels read
+   -B 100 (cut from 1000 for time: -bnni's NNI1 round per replicate was
+   most of this phase) -alrt 1000 -abayes --tbe -bnni -wsl -wsr -wspr
+   -asr --mlrate -mldist -o Frog,Turtle: every file parses, the .treefile labels read
    aLRT/aBayes/UFBoot in range, .state holds 15 x 1998 rows summing to 1,
    the weighted .sitelh sum is the reported logL within 1e-2, the logL
    passes phase 6's bound; (2) -te ref_tree.nwk -z (the reference tree and
@@ -92,16 +93,53 @@ ending in torch.cuda.synchronize():
    site_rate_posterior, tests_branch.test_all_branches(n_rell=1000),
    siterates.site_rates_ml and treetesting.run_tree_tests on phase 5's
    fitted tree and two trees moved by 19 random NNIs, each with its wall,
-   launches and peak device memory; then the same functions at 64 x 4096
-   on the card and on the CPU (the plain versions), in float32 and
+   launches and peak device memory; then the same functions at 64 x 1024
+   (cut from 4096 for time) on the card and on the CPU (the plain versions), in float32 and
    float64, held within 1e-4 relative (the largest difference over the
    largest value); SH-aLRT and aBayes, steps of the float32 logLs, are
-   held in float64.
+   held in float64;
+12. the partitioned path, float32 unless stated, launch counts reset just
+   before each command line and read just after, one kernel launch per pass
+   of each partition (passes counted per partition): (a) the partitioned
+   default command, -s example.phy -p example.nex -B 1000 with no -m, so
+   ModelFinder runs per partition: each partition's winner the JAX
+   package's (PART_WINNERS), .best_scheme.nex, the .iqtree partition table,
+   1000 replicate trees, integer supports, logL at least the JAX package's
+   (PART_DEFAULT_LOGL) - 0.5; (b) -m GTR+G -te ref_tree.nwk on example.nex
+   (each partition under its charpartition model): -q and -Q in float32
+   and -p in float32 and float64, each logL held to the JAX package's
+   float64 one (PART_TE_LOGL: float64 within 0.01, float32 at least it -
+   0.5; the model-parameter objectives run in float64),
+   and -S: three per-locus trees and a .partlh; (c) phase 5's 1000 x 16384
+   alignment as 16 charsets of 1024 sites, -p -m GTR+FQ+G -te on the
+   simulating tree: logL at least the unpartitioned GTR+FQ+G fit's - 1
+   (with equal frequencies the partitioned model nests it; GTR+G's
+   empirical frequencies differ per partition), every partition rate
+   within 5% of 1 and not all at their start, the peak device memory
+   and the wall split into model fits, partition rates and branch
+   lengths;
+   (d) a supermatrix of 20 loci x 1000 sites over 100 taxa, each locus
+   simulated under GTR+G4, HKY+G4, TN+I+G4 or K2P+R3 at a rate in 0.25-4
+   without a tenth of the taxa, one PHYLIP file per locus, searched with
+   -p -m GTR+G -B 1000 -n 10 -ninit 20 -nbest 2 (start trees cut for
+   time) under the charpartition's models: a .terrace
+   report, 1000 replicate trees; then each kernel against its plain
+   version at the shapes of its smallest partition and of its largest
+   (each lacks a tenth of the taxa); (e) the last single-alignment flags
+   on example.phy under -m GTR+G, each command line counted and every
+   kernel launched: -g with a 4-taxon constraint that the reference
+   topology breaks (its split in .treefile), -b 5 (5 trees in .boottrees,
+   14 supports, a .contree), --runs 2 (.run1 and .run2, the best printed)
+   and --symtest (a .symtest.csv row).
+
+A "[time]" line gives the start of each phase and the end of phase 12.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
-phase-8 default command, the program's main path, and slice_launches
-from phase 10's first command line, the supports' path; times, back-to-back times
+phase-8 default command, the program's main path, slice_launches
+from phase 10's first command line, the supports' path, and
+partition_launches from phase 12's partitioned default command; times,
+back-to-back times
 and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
 single PyTorch call computes a pruning pass, so library_ms is null); the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -145,13 +183,47 @@ DEFAULT_WINNER = "TIM2+I+G"
 WIDE_SELECTION = ["-m", "TESTONLY", "-mset", "HKY,GTR", "-mrate", "E,G,R",
                   "-cmax", "4"]
 # phase 10's first command line: every support and per-site output
-SUPPORT_FLAGS = ["-m", "GTR+G", "-B", str(FLAGSHIP_REPLICATES), "-alrt",
+# phase 10's -B, cut from 1000 for the script's time: -bnni runs one NNI1
+# round per replicate, at 1000 most of phase 10's wall
+SUPPORT_REPLICATES = 100
+SUPPORT_FLAGS = ["-m", "GTR+G", "-B", str(SUPPORT_REPLICATES), "-alrt",
                  "1000", "-abayes", "--tbe", "-bnni", "-wsl", "-wsr", "-wspr",
                  "-asr", "--mlrate", "-mldist", "-o", "Frog,Turtle"]
 ML_RATE_GRID = 33          # siterates.site_rates_ml's rate grid
-# phase 11: card against the plain versions, and ASR rows summing to 1
+# phase 11: card against the plain versions at 64 x SLICE_SITES (cut from
+# CHECK_SITES for the script's time), and ASR rows summing to 1
+SLICE_SITES = 1024
 SLICE_TOL = 1e-4
 SUPPORT_KEYS = ("SH-aLRT / 100", "aBayes")   # held in float64 only
+# phase 12: the JAX package's results on example.nex, on the CPU: the
+# per-partition ModelFinder winners (BIC) and the logL of the partitioned
+# default command (float32, -B 1000), and the -m GTR+G -te ref_tree.nwk
+# logLs (float64, float32) of each linkage
+PART_WINNERS = {"part1": "TIM2+G", "part2": "TIM2+G", "part3": "TIM2+I+G"}
+PART_DEFAULT_LOGL = -21145.4121
+PART_TE_LOGL = {"-p": (-21784.3628, -21793.6152),
+                "-q": (-21812.1665, -21816.2031),
+                "-Q": (-21723.8209, -21731.1389)}
+WIDE_CHARSETS = 16          # 12c: charsets of BIG_SITES / 16 sites
+# 12c's model: equal frequencies, so that the partitioned model nests the
+# unpartitioned one (empirical frequencies differ per partition)
+WIDE_MODEL = "GTR+FQ+G"
+MAX_RATE_DEV = 0.05         # 12c: every locus has the same rate
+# 12d: the loci's simulating models (every parameter fixed) and the model
+# the charpartition names for each
+LOCI, LOCUS_SITES, LOCUS_TAXA, LOCUS_GAPS = 20, 1000, 100, 0.1
+# 12d's start trees, cut from the defaults (-ninit 100, -nbest 5) for the
+# script's time: each NNI polish of a start tree takes about 13 s there
+LOCUS_START = ["-ninit", "20", "-nbest", "2"]
+LOCUS_MODELS = (
+    ("GTR+G", "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}"),
+    ("HKY+G", "HKY{3.0}+F{0.25,0.25,0.2,0.3}+G{0.8}"),
+    ("TN+I+G", "TN{2.0,4.0}+F{0.3,0.2,0.3,0.2}+I{0.2}+G{0.7}"),
+    ("K2P+R3", "K2P{2.5}+R3{0.2,0.3,0.5,1.0,0.3,2.2}"))
+# 12e: a 4-taxon constraint that the reference topology breaks (there
+# Frog,Turtle | Human,Mouse), and the standard bootstrap's replicates
+CONSTRAINT = "((Frog,Human),(Turtle,Mouse));"
+STANDARD_REPLICATES = 5
 
 
 def fail(msg: str) -> int:
@@ -203,7 +275,7 @@ def check_supports(prefix: Path, bound: float) -> float:
     empty = [ext for ext, t in text.items() if not t.strip()]
     if empty:
         raise RuntimeError(f"empty outputs {empty}")
-    if len(text[".ufboot"].splitlines()) != FLAGSHIP_REPLICATES:
+    if len(text[".ufboot"].splitlines()) != SUPPORT_REPLICATES:
         raise RuntimeError(".ufboot does not hold every replicate tree")
     labels = re.findall(r"\)([^:,();]+)", text[".treefile"])
     if len(labels) != 14:
@@ -369,11 +441,17 @@ class PassCount:
         from iqtree2_tpu_torch.ops import pruning
         self.calls = {"down_pass": 0, "sitelp": 0, "up_pass": 0,
                       "theta_pass": 0}
+        # passes per tip-partial tensor: one per engine, so one per
+        # partition of a partitioned run
+        self.by_tips: dict = {}
         self._saved = {k: getattr(pruning, k) for k in self.PASSES}
 
         def counted(name):
             def call(*args, **kw):
                 self.calls[name] += 1
+                tips = args[1 if name == "down_pass" else 2]
+                key = (tuple(tips.shape), tips.data_ptr())
+                self.by_tips[key] = self.by_tips.get(key, 0) + 1
                 if name == "down_pass" and kw.get("pack") is not None:
                     self.calls["sitelp"] += 1
                 return self._saved[name](*args, **kw)
@@ -491,6 +569,276 @@ class CallLaunches:
                                        f"sitelp, up, theta) {g}")
 
 
+class FitSplit:
+    """While active, times the parts of partition/optimize's alternation,
+    each ending in a device synchronize: the per-partition model fits, the
+    partition rates and the branch lengths (seconds)."""
+
+    def __enter__(self):
+        import torch
+        from iqtree2_tpu_torch.partition import optimize
+        from iqtree2_tpu_torch.partition.engine import PartitionEngine
+        self.seconds = {"model fits": 0.0, "part rates": 0.0,
+                        "branch lengths": 0.0}
+        self._saved = []
+        for owner, attr, label in (
+                (optimize, "_fit_one_partition", "model fits"),
+                (PartitionEngine, "optimize_part_rates", "part rates"),
+                (PartitionEngine, "optimize_branches", "branch lengths")):
+            fn = getattr(owner, attr)
+
+            def call(*args, _fn=fn, _label=label, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_label] += time.perf_counter() - t0
+                return out
+
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+
+def scheme_models(prefix: Path) -> dict:
+    """partition name -> model of a .best_scheme.nex."""
+    text = Path(f"{prefix}.best_scheme.nex").read_text()
+    line = re.search(r"charpartition \S+ = (.*);", text).group(1)
+    return {name.strip(): model.strip() for model, name in
+            (entry.rsplit(":", 1) for entry in line.split(","))}
+
+
+def partition_rates(prefix: Path) -> list[float]:
+    """The Rate column of the .iqtree's PARTITION TABLE."""
+    table = Path(f"{prefix}.iqtree").read_text().split(
+        "PARTITION TABLE")[1].split("\n\n")[0]
+    return [float(row.split()[-1]) for row in table.splitlines()[3:]]
+
+
+def counted(args: list[str], tag: str, split: bool = False) -> dict:
+    """Phase 12's run of one command line: the launch counts reset just
+    before and read just after, held to one launch per pass; prints the
+    wall, the launches, the passes per partition (per tip-partial tensor,
+    one per partition engine), the peak device memory and with split the
+    partition fit's wall split. Returns the launches."""
+    import torch
+    from iqtree2_tpu_torch.ops import kernels
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes, FitSplit() as fits:
+        kernels.reset_launch_counts()
+        wall = run_cli(args)
+        launches = dict(kernels.LAUNCHES)
+    passes.check(launches, tag)
+    print(f"{tag} {' '.join(args[-12:])}: {wall:.1f} s; launches "
+          f"{launches}; passes per partition (tips shape: passes) "
+          f"{ {k[0]: n for k, n in passes.by_tips.items()} }; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+          + (f"; fit split (s) {fits.seconds}" if split else ""),
+          flush=True)
+    return launches
+
+
+def part_default() -> dict:
+    """12a, the partitioned default command; returns its launches."""
+    pdef = OUT / "part_default"
+    launches = counted(["-s", str(GOLDEN / "example.phy"), "-p",
+                        str(GOLDEN / "example.nex"), "-B",
+                        str(FLAGSHIP_REPLICATES), "-pre", str(pdef)],
+                       "[phase 12a]")
+    winners = scheme_models(pdef)
+    logl = check_flagship(pdef, PART_DEFAULT_LOGL - 0.5)
+    print(f"[phase 12a] winners {winners} (the JAX package's "
+          f"{PART_WINNERS}); logL {logl:.4f} (bound "
+          f"{PART_DEFAULT_LOGL - 0.5:.4f}); wall seconds: "
+          f"{re.search(r'Wall seconds: (.*)', log_lines(pdef)).group(1)}",
+          flush=True)
+    if winners != PART_WINNERS:
+        raise RuntimeError(f"per-partition winners {winners}, the JAX "
+                           f"package's {PART_WINNERS}")
+    if "PARTITION TABLE" not in Path(f"{pdef}.iqtree").read_text():
+        raise RuntimeError(f"{pdef}.iqtree holds no partition table")
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"a kernel of the path was never launched: "
+                           f"{launches}")
+    return launches
+
+
+def part_linkages() -> None:
+    """12b: -q, -Q and -p (float32, and float64) with -te, and -S."""
+    phy, nex = str(GOLDEN / "example.phy"), str(GOLDEN / "example.nex")
+    ref = str(GOLDEN / "ref_tree.nwk")
+    for flag, f64 in (("-q", False), ("-Q", False), ("-p", False),
+                      ("-p", True)):
+        pre = OUT / f"part_te_{flag[1]}{'_f64' if f64 else ''}"
+        counted(["-s", phy, flag, nex, "-m", "GTR+G", "-te", ref]
+                + (["--f64"] if f64 else []) + ["-pre", str(pre)],
+                f"[phase 12b {flag}{' f64' if f64 else ''}]")
+        got, (ref64, ref32) = report_logl(pre), PART_TE_LOGL[flag]
+        print(f"[phase 12b] {flag} {'f64' if f64 else 'f32'}: logL "
+              f"{got:.4f} (the JAX package's f64 {ref64}, f32 {ref32})",
+              flush=True)
+        if not (abs(got - ref64) <= 0.01 if f64 else got >= ref64 - 0.5):
+            raise RuntimeError(f"{flag} logL {got} against the JAX "
+                               f"package's {ref64} (f64)")
+    unl = OUT / "part_S"
+    counted(["-s", phy, "-S", nex, "-m", "GTR+G", "-te", ref, "-pre",
+             str(unl)], "[phase 12b -S]")
+    trees = Path(f"{unl}.treefile").read_text().splitlines()
+    rows = [r.split("\t") for r in
+            Path(f"{unl}.partlh").read_text().splitlines()]
+    print(f"[phase 12b] -S: {len(trees)} trees; per-locus (name, sites, "
+          f"logL) {rows}", flush=True)
+    if len(trees) != 3 or len(rows) != 3 or not all(
+            math.isfinite(float(r[2])) for r in rows):
+        raise RuntimeError("-S wrote no three trees and logLs")
+
+
+def part_wide(big_aln: str, big_tree: str) -> None:
+    """12c: phase 5's alignment as WIDE_CHARSETS charsets, -te, against
+    the unpartitioned fit of the same model (WIDE_MODEL)."""
+    width = BIG_SITES // WIDE_CHARSETS
+    wnex = OUT / "wide_charsets.nex"
+    wnex.write_text("#nexus\nbegin sets;\n" + "".join(
+        f"  charset w{k + 1} = {k * width + 1}-{(k + 1) * width};\n"
+        for k in range(WIDE_CHARSETS)) + "end;\n")
+    unpart, wide = OUT / "wide_unpartitioned", OUT / "part_wide"
+    wall = run_cli(["-s", big_aln, "-m", WIDE_MODEL, "-te", big_tree,
+                    "-pre", str(unpart)])
+    counted(["-s", big_aln, "-p", str(wnex), "-m", WIDE_MODEL, "-te",
+             big_tree, "-pre", str(wide)], "[phase 12c]", split=True)
+    got, rates = report_logl(wide), partition_rates(wide)
+    ref = report_logl(unpart)
+    print(f"[phase 12c] {WIDE_CHARSETS} x {width} sites -p -m {WIDE_MODEL} "
+          f"-te: logL {got:.4f} (unpartitioned {ref:.4f} in {wall:.1f} s); "
+          f"rates {rates}", flush=True)
+    if not got >= ref - 1.0:
+        raise RuntimeError(f"partitioned logL {got} below the "
+                           f"unpartitioned {ref} - 1")
+    if len(rates) != WIDE_CHARSETS or not max(
+            abs(r - 1.0) for r in rates) <= MAX_RATE_DEV:
+        raise RuntimeError(f"partition rates {rates} not within "
+                           f"{MAX_RATE_DEV} of 1")
+    if all(r == 1.0 for r in rates):
+        raise RuntimeError("no partition rate moved from its start: the "
+                           "rate search did not run")
+
+
+def part_loci(errors: dict) -> None:
+    """12d: a gappy supermatrix of simulated loci, searched, then the
+    kernels at its smallest and largest partitions' shapes."""
+    import numpy as np
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.partition.engine import PartitionEngine
+    from iqtree2_tpu_torch.tree.topology import Tree
+    t0 = time.perf_counter()
+    loci = [("DNA", LOCUS_MODELS[i % len(LOCUS_MODELS)][1], LOCUS_SITES,
+             LOCUS_GAPS, 0.25 * 16.0 ** (i / (LOCI - 1)))
+            for i in range(LOCI)]
+    sa, _, smodels, srates = kernelcheck.simulate_loci(loci, LOCUS_TAXA,
+                                                       seed=1)
+    ldir = OUT / "loci"
+    ldir.mkdir(exist_ok=True)
+    lnex = kernelcheck.write_partitioned(
+        sa, [LOCUS_MODELS[i % len(LOCUS_MODELS)][0] for i in range(LOCI)],
+        ldir)
+    print(f"[phase 12d] simulated {LOCI} loci x {LOCUS_SITES} sites over "
+          f"{LOCUS_TAXA} taxa in {time.perf_counter() - t0:.1f} s; "
+          f"patterns {[p.num_patterns for p in sa.partitions]}", flush=True)
+    sup = OUT / "part_loci"
+    counted(["-p", lnex, "-m", "GTR+G", "-B", str(FLAGSHIP_REPLICATES),
+             "-n", "10"] + LOCUS_START + ["-pre", str(sup)], "[phase 12d]")
+    terrace = Path(f"{sup}.terrace").read_text()
+    n_boot = len(Path(f"{sup}.ufboot").read_text().splitlines())
+    print(f"[phase 12d] logL {report_logl(sup):.4f}; {n_boot} replicate "
+          f"trees; terrace: {terrace.splitlines()[-1]}; wall seconds: "
+          f"{re.search(r'Wall seconds: (.*)', log_lines(sup)).group(1)}",
+          flush=True)
+    if n_boot != FLAGSHIP_REPLICATES or f"partition {LOCI}:" not in terrace:
+        raise RuntimeError(f"12d wrote no {FLAGSHIP_REPLICATES} replicate "
+                           f"trees or no terrace report over {LOCI} loci")
+    tree = Tree.from_newick(Path(f"{sup}.treefile").read_text(), sa.names)
+    peng = PartitionEngine(sa, smodels, srates, dtype=torch.float32,
+                           device="cuda")
+    pats = [p.num_patterns for p in sa.partitions]
+    for k in sorted({int(np.argmin(pats)), int(np.argmax(pats))}):
+        check_kernels(f"[phase 12d] locus {k + 1} ({pats[k]} patterns, "
+                      f"{int((~sa.part_presence[k]).sum())} taxa all-gap)",
+                      peng.engines[k], tree, 3, errors)
+
+
+
+def part_flags() -> None:
+    """12e: the last single-alignment flags on example.phy, each command
+    line counted: -g (every constraint split in .treefile), -b (.boottrees,
+    supports, .contree), --runs (.run1 and .run2, the best printed) and
+    --symtest (.symtest.csv)."""
+    import contextlib
+    import io
+    from iqtree2_tpu_torch.io.alignment_io import read_alignment
+    from iqtree2_tpu_torch.tree.constraint import TopologyConstraint
+    from iqtree2_tpu_torch.tree.topology import Tree
+    phy = str(GOLDEN / "example.phy")
+    names = read_alignment(phy).names
+    base = ["-s", phy, "-m", "GTR+G"]
+
+    def searched(args: list[str], tag: str) -> str:
+        """counted() of a command line that searches (so launches every
+        kernel); returns what it printed."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launches = counted(base + args, f"[phase 12e {tag}]")
+        sys.stdout.write(out.getvalue())
+        if not all(v > 0 for v in launches.values()):
+            raise RuntimeError(f"12e {tag}: a kernel was never launched: "
+                               f"{launches}")
+        return out.getvalue()
+
+    cfile, con = OUT / "constraint.nwk", OUT / "flag_g"
+    cfile.write_text(CONSTRAINT)
+    searched(["-g", str(cfile), "-n", "2", "-pre", str(con)], "-g")
+    constraint = TopologyConstraint(CONSTRAINT, names)
+    tree = Tree.from_newick(Path(f"{con}.treefile").read_text(), names)
+    ref = Tree.from_newick((GOLDEN / "ref_tree.nwk").read_text(), names)
+    print(f"[phase 12e] -g {CONSTRAINT}: {len(constraint.splits)} split(s), "
+          f"in .treefile {constraint.compatible(tree)} (in the reference "
+          f"topology {constraint.compatible(ref)}); logL "
+          f"{report_logl(con):.4f}", flush=True)
+    if not (constraint.splits and constraint.compatible(tree)):
+        raise RuntimeError("-g: .treefile breaks a constraint split")
+
+    boot = OUT / "flag_b"
+    searched(["-b", str(STANDARD_REPLICATES), "-n", "1", "-pre", str(boot)],
+             "-b")
+    trees = Path(f"{boot}.boottrees").read_text().splitlines()
+    labels = re.findall(r"\)(\d+):", Path(f"{boot}.treefile").read_text())
+    print(f"[phase 12e] -b {STANDARD_REPLICATES}: {len(trees)} replicate "
+          f"trees; supports {labels}", flush=True)
+    if len(trees) != STANDARD_REPLICATES or len(labels) != 14 or not all(
+            int(x) <= 100 for x in labels) or not Path(
+                f"{boot}.contree").read_text().strip():
+        raise RuntimeError("-b: no replicate trees, supports or .contree")
+
+    runs = OUT / "flag_runs"
+    printed = searched(["--runs", "2", "-n", "2", "-pre", str(runs)],
+                       "--runs")
+    best = re.search(r"Best of 2 runs: logL (\S+)", printed)
+    logls = [report_logl(Path(f"{runs}.run{r}")) for r in (1, 2)]
+    print(f"[phase 12e] --runs 2: run logLs {logls}, best printed "
+          f"{best and best.group(1)}", flush=True)
+    if not (best and abs(float(best.group(1)) - max(logls)) <= 1e-3):
+        raise RuntimeError("--runs: the best run was not printed")
+
+    sym = OUT / "flag_symtest"
+    searched(["--symtest", "-n", "1", "-pre", str(sym)], "--symtest")
+    rows = Path(f"{sym}.symtest.csv").read_text().splitlines()
+    print(f"[phase 12e] --symtest: {rows}", flush=True)
+    if len(rows) != 2 or not rows[0].startswith("Name,SymSig"):
+        raise RuntimeError("--symtest wrote no .symtest.csv row")
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -548,6 +896,11 @@ def main() -> int:
 
     OUT.mkdir(parents=True, exist_ok=True)
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+
+    def stamp(phase: int) -> None:
+        print(f"[time] phase {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 1. the card
     smi = subprocess.run(
@@ -558,6 +911,7 @@ def main() -> int:
     print(f"[phase 1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s): {kind}", flush=True)
 
+    stamp(2)
     # 2. build
     t0 = time.perf_counter()
     kernels.library()
@@ -574,6 +928,7 @@ def main() -> int:
             return fail(f"a pass instance fits no block on an SM: {occ}")
     torch.cuda.synchronize()
 
+    stamp(3)
     # 3. kernel vs plain on the card
     errors = {k: 0.0 for k in REPLACES}
     for name in CHECK_MODELS:
@@ -589,6 +944,7 @@ def main() -> int:
                   f"{ {k: round(v['bound_ms'], 6) for k, v in c_bound.items()} }",
                   flush=True)
 
+    stamp(4)
     # 4. the golden run: GTR+G fitted on example.phy + ref_tree.nwk
     ref = json.loads((GOLDEN / "golden.json").read_text())["logL"]
     g4 = ref["g4_gtrg_opt"]
@@ -609,6 +965,7 @@ def main() -> int:
     if not (math.isfinite(logl32) and abs(logl32 - g4) <= 10.0):
         return fail(f"float32 golden logL {logl32} not within 10 of {g4}")
 
+    stamp(5)
     # 5. the main path at a realistic size, then the kernels at its shapes
     t0 = time.perf_counter()
     aln, tree, model, rates = kernelcheck.simulate(
@@ -645,6 +1002,7 @@ def main() -> int:
           f"{ {k: round(v['bound_ms'], 6) for k, v in bound.items()} }",
           flush=True)
 
+    stamp(6)
     # 6. the flagship: tree search with ultrafast bootstrap
     flag = OUT / "flagship"
     with PassCount() as passes:
@@ -666,10 +1024,10 @@ def main() -> int:
     if not all(v > 0 for v in launches.values()):
         return fail(f"a kernel of the path was never launched: {launches}")
     passes.check(launches, "[phase 6]")
-    for tag, tree_path in (("reference tree", GOLDEN / "ref_tree.nwk"),
-                           ("search's tree", Path(f"{flag}.treefile"))):
+    for tag, f_path in (("reference tree", GOLDEN / "ref_tree.nwk"),
+                        ("search's tree", Path(f"{flag}.treefile"))):
         f_aln, f_tree, f_model, f_rates = kernelcheck.load_problem(
-            GOLDEN / "example.phy", tree_path, "GTR+G4")
+            GOLDEN / "example.phy", f_path, "GTR+G4")
         f_eng = LikelihoodEngine(f_aln, f_model, f_rates,
                                  dtype=torch.float32, device="cuda")
         check_kernels(f"[phase 6] GTR+G4 {tag}", f_eng, f_tree, 3, errors)
@@ -678,6 +1036,7 @@ def main() -> int:
               f"{ {k: round(v['bound_ms'], 6) for k, v in f_bound.items()} }",
               flush=True)
 
+    stamp(7)
     # 7. the NNI hill-climb at the realistic width
     start, n_moves = kernelcheck.perturbed(tree, seed=2, strength=0.02)
     polished = start.copy()
@@ -705,6 +1064,7 @@ def main() -> int:
     if not peak < MAX_CLIMB_GIB:
         return fail(f"climb peak device memory {peak:.2f} GiB")
 
+    stamp(8)
     # 8. the default command: ModelFinder, then the search under the winner
     dflt = OUT / "default"
     with PassCount() as passes, ModelFinderSpy() as spy:
@@ -745,6 +1105,7 @@ def main() -> int:
                     f"{search_launches}")
     passes.check(main_launches, "[phase 8]")
 
+    stamp(9)
     # 9. model selection at the realistic width
     wide = OUT / "wide"
     torch.cuda.reset_peak_memory_stats()
@@ -771,6 +1132,7 @@ def main() -> int:
         return fail(f"a kernel of the path was never launched: {launches}")
     passes.check(launches, "[phase 9]")
 
+    stamp(10)
     # 10. the branch supports, tree tests and per-site outputs via the CLI
     sup = OUT / "supports"
     torch.cuda.reset_peak_memory_stats()
@@ -795,7 +1157,7 @@ def main() -> int:
     passes.check(slice_launches, "[phase 10]")
     calls.check({**{k: v for k, v in SLICE_WANT.items() if k != "nni scores"},
                  "site logL": (1, 1, 0, 0),
-                 "bnni": lambda g: g[2] == FLAGSHIP_REPLICATES
+                 "bnni": lambda g: g[2] == SUPPORT_REPLICATES
                  and g[3] >= g[2]}, "[phase 10]")
     check_supports(sup, g4 - 0.5)
     ref_aln, ref_tree, _, _ = kernelcheck.load_problem(
@@ -842,6 +1204,7 @@ def main() -> int:
     if not (math.isfinite(asc_logl) and asc_launches["sitelp"] > 0):
         return fail(f"+ASC fit: logL {asc_logl}, launches {asc_launches}")
 
+    stamp(11)
     # 11. the slice at the realistic width, then against the plain versions
     ftree = Tree.from_newick(Path(f"{big}.treefile").read_text(), aln.names)
     wide_out = run_slice(eng, ftree, "[phase 11] 1000 x 16384", report=True)
@@ -853,14 +1216,14 @@ def main() -> int:
     if wide_out["tree tests"][0] != wide_out["tree tests"].max():
         return fail("the fitted tree is not the best of the -z set")
     s_aln, s_tree, s_model, s_rates = kernelcheck.simulate(
-        "GTR+G4", CHECK_TAXA, CHECK_SITES, seed=1)
+        "GTR+G4", CHECK_TAXA, SLICE_SITES, seed=1)
     for dtype in (torch.float32, torch.float64):
         small = [run_slice(LikelihoodEngine(s_aln, s_model, s_rates,
                                             dtype=dtype, device=dev),
-                           s_tree, f"[phase 11] {CHECK_TAXA} x {CHECK_SITES} "
+                           s_tree, f"[phase 11] {CHECK_TAXA} x {SLICE_SITES} "
                            f"{dev}") for dev in ("cuda", "cpu")]
         errs = slice_errors(*small)
-        print(f"[phase 11] {CHECK_TAXA} x {CHECK_SITES} {str(dtype)[6:]} "
+        print(f"[phase 11] {CHECK_TAXA} x {SLICE_SITES} {str(dtype)[6:]} "
               f"card against the plain versions: {errs}", flush=True)
         # SH-aLRT counts and aBayes are steps of the logLs: in float32 a
         # RELL margin or a printed digit within a logL's rounding (a few
@@ -871,10 +1234,21 @@ def main() -> int:
             return fail(f"phase 11 disagrees with the plain versions: "
                         f"{held}")
 
+    stamp(12)
+    # 12. the partitioned path
+    part_launches = part_default()
+    part_linkages()
+    part_wide(aln_path, tree_path)
+    part_loci(errors)
+    part_flags()
+    print(f"[time] phases 1-12 in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": main_launches[k],
          "slice_launches": slice_launches[k],
+         "partition_launches": part_launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],

@@ -23,13 +23,22 @@ of user trees (treetesting.py, with -zb and -au) into .trees, .treelh and
 the report; -o roots the printed trees on the first outgroup taxon (every
 one must exist); -wsl, -wsr, -wspr/-wspm/-wspmr, --mlrate, -asr and
 -mldist write .sitelh, .rate, .siteprob, .mlrate, .state and .mldist.
+
+-g constrains the search to trees that contain the splits of a constraint
+tree (tree/constraint.py: the parsimony start trees, the BIONJ tree, the
+random NNIs and every NNI swap); --symtest writes the matched-pairs
+symmetry tests of the alignment to .symtest.csv (symtest.py);
+run_standard_bootstrap (-b N) repeats the analysis on N resampled
+alignments and writes .boottrees, the supports on .treefile and .contree.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
+import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -37,7 +46,7 @@ import numpy as np
 from iqtree2_tpu_torch import tests_branch
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.io import report as report_io
-from iqtree2_tpu_torch.io.alignment_io import read_alignment
+from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
 from iqtree2_tpu_torch.io.nexus import parse_nexus
 from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.model.factory import build_model
@@ -48,9 +57,11 @@ from iqtree2_tpu_torch.ops.pars import random_stepwise_addition
 from iqtree2_tpu_torch.ops.prec import compute_dtype
 from iqtree2_tpu_torch.params import Params
 from iqtree2_tpu_torch.search.search import SearchParams, TreeSearch
-from iqtree2_tpu_torch.search.ufboot import UFBoot
+from iqtree2_tpu_torch.search.ufboot import UFBoot, greedy_consensus
 from iqtree2_tpu_torch.siterates import site_rates_ml, write_mlrate
+from iqtree2_tpu_torch.symtest import run_symtest, write_symtest_csv
 from iqtree2_tpu_torch.tbe import tbe_supports
+from iqtree2_tpu_torch.tree.constraint import TopologyConstraint
 from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
 from iqtree2_tpu_torch.treetesting import format_treetest_table, run_tree_tests
@@ -238,9 +249,10 @@ def optimize_model_only(eng: LikelihoodEngine, tree: Tree,
 def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
                 log, search_info: dict,
                 mf_seconds: float | None = None) -> tuple[Tree, float]:
-    """Quick model fit, checkpointed stochastic search, thorough refit.
-    Returns (best tree, its logL after the refit). mf_seconds: the wall of
-    the ModelFinder run before it, the first entry of the split."""
+    """Quick model fit, checkpointed stochastic search (under -g held to
+    the constraint tree), thorough refit. Returns (best tree, its logL
+    after the refit). mf_seconds: the wall of the ModelFinder run before
+    it, the first entry of the split."""
     seconds = {} if mf_seconds is None else {"ModelFinder": mf_seconds}
     seconds.update({"quick fit": 0.0, "start trees": 0.0, "iterations": 0.0,
                     "RELL": 0.0})
@@ -278,7 +290,14 @@ def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
             max_iterations=params.max_iterations,
             unsuccess_iteration=params.unsuccess_iteration,
             fixed_iterations=params.n_iterations)
-        search = TreeSearch(eng, aln, sp, ufboot=ufboot, log=log, ckp=ckp)
+        constraint = None
+        if params.constraint_tree:
+            constraint = TopologyConstraint(
+                Path(params.constraint_tree).read_text(), aln.names)
+            log(f"Constraint tree (-g): {len(constraint.splits)} splits "
+                f"over {len(constraint.mask)} taxa will be enforced")
+        search = TreeSearch(eng, aln, sp, ufboot=ufboot, log=log, ckp=ckp,
+                            constraint=constraint)
         res = search.run()
         tree = res.best_tree
         seconds.update({"start trees": search.seconds["start_trees"],
@@ -307,6 +326,59 @@ def _write_ufboot(prefix: str, ufboot: UFBoot) -> None:
         for tid in ufboot.boot_trees:
             if tid is not None:
                 f.write(ufboot.trees_newick[tid] + "\n")
+
+
+def write_symtests(path, results: list, log) -> None:
+    """The symmetry tests to ``path`` (.symtest.csv), one log line each
+    (iqtree2_tpu/analysis.py:172-185)."""
+    write_symtest_csv(path, results)
+    for name, r in results:
+        log(f"SymTest [{name}]: Bowker={r.bowker:.3f} "
+            f"(p={r.p_bowker:.4g}), Stuart p={r.p_stuart:.4g}, "
+            f"internal p={r.p_internal:.4g}")
+    log(f"Symmetry tests written to {path}")
+
+
+def run_standard_bootstrap(params: Params, device="cuda") -> dict:
+    """Classic non-parametric bootstrap (-b N): the analysis on the
+    alignment, then N whole analyses on resampled alignments (seeds
+    seed + 1000 + b, quiet, no checkpoint, in a temporary directory); the
+    replicate trees go to .boottrees, their split frequencies onto the
+    first tree in .treefile and their greedy consensus to .contree
+    (iqtree2_tpu/analysis.py:575-626; reference runStandardBootstrap,
+    main/phyloanalysis.cpp:3425)."""
+    prefix = params.prefix
+    n_boot = params.standard_bootstrap
+    base = dataclasses.replace(params, standard_bootstrap=0)
+    log = Logger(None, params.verbose)
+    tree = run_analysis(base, device)["tree"]
+    aln = read_alignment(params.aln_file, seqtype=params.seqtype)
+    rng = np.random.default_rng(params.seed ^ 0xB00)
+    split_counts: Counter = Counter()
+    boot_trees = []
+    for b in range(n_boot):
+        log(f"===> START BOOTSTRAP REPLICATE {b + 1}/{n_boot}")
+        baln = aln.bootstrap_alignment(rng)
+        with tempfile.TemporaryDirectory() as td:
+            bfile = f"{td}/boot{b}.phy"
+            write_phylip(baln, bfile)
+            bt = run_analysis(dataclasses.replace(
+                base, aln_file=bfile, out_prefix=f"{td}/boot{b}",
+                seed=params.seed + 1000 + b, verbose=0,
+                no_checkpoint=True), device)["tree"]
+        boot_trees.append(bt.to_newick())
+        split_counts.update(bt.splits().keys())
+    with open(f"{prefix}.boottrees", "w") as f:
+        f.write("\n".join(boot_trees) + "\n")
+    support = {Tree._key(a, b): round(100.0 * split_counts.get(s, 0)
+                                      / n_boot)
+               for s, (a, b) in tree.splits().items()}
+    report_io.write_treefile(f"{prefix}.treefile", tree, support=support)
+    report_io.write_treefile(f"{prefix}.contree", greedy_consensus(
+        {s: c / n_boot for s, c in split_counts.items()}, aln.names))
+    log(f"Standard bootstrap done: {n_boot} replicates -> "
+        f"{prefix}.boottrees, supports on {prefix}.treefile")
+    return {"tree": tree, "support": support, "boot_trees": boot_trees}
 
 
 def run_whtest_analysis(params: Params, device="cuda") -> dict:
@@ -376,6 +448,9 @@ def run_analysis(params: Params, device="cuda") -> dict:
         # the branch tests' RELL draws come from this generator, made where
         # the JAX package makes it
         rng = np.random.default_rng(params.seed)
+        if params.symtest:
+            write_symtests(f"{prefix}.symtest.csv",
+                           [("alignment", run_symtest(aln))], log)
 
         search_info: dict = {}
         support = None

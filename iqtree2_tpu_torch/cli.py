@@ -3,12 +3,19 @@
   python -m iqtree2_tpu_torch -s ALN [-m MODEL|MFP|TEST|MF|TESTONLY|AUTO|WHTEST]
                               [-mset M1,M2,..] [-mrate E,I,G,I+G,R]
                               [-cmax K] [-merit AIC|AICc|BIC]
-                              [-te TREE [-blfix]] [-bb N [-bnni] [--tbe]]
+                              [-te TREE [-blfix]] [-g TREE]
+                              [-bb N [-bnni] [--tbe]] [-b N] [--runs N]
                               [-alrt N] [-abayes] [-z TREES [-zb N] [-au]]
                               [-wsl] [-wsr] [-wspr|-wspm|-wspmr] [--mlrate]
-                              [-asr] [-mldist] [-o TAXA] [-n N]
+                              [-asr] [-mldist] [-o TAXA] [--symtest] [-n N]
                               [-nstop N] [-ninit N] [-ntop N] [-nbest N]
                               [-pers X] [--f64] [--device cuda|cpu]
+  python -m iqtree2_tpu_torch [-s ALN] -p|-q|-Q|-S PARTITIONS
+                              [-m MODEL|MFP|MF|TEST|TESTONLY|MF+MERGE|
+                               MFP+MERGE|TESTMERGE] [--merge greedy|kmeans]
+                              [-te TREE] [-bb N [-bsam SITE|GENE|GENESITE]]
+                              [-alrt N] [-abayes] [--symtest]
+                              [--symtest-remove-bad [--symtest-pval P]] ...
 
 The flags are the JAX package's: build_parser and params_from_args are
 copied from iqtree2_tpu/cli.py, the whole parser, so that refuse_unported
@@ -17,17 +24,24 @@ the counterpart of IQTREE2_TPU_PLATFORM: ``cuda`` (the default) runs the
 Hopper kernels and fails where there is no card; ``cpu`` runs their plain
 PyTorch versions. The port runs model selection (ModelFinder, the default
 -m MFP, and the WH test), the fixed-topology model fit (-te, with +ASC)
-and the stochastic tree search with ultrafast bootstrap, then the branch
-supports (-alrt, -abayes, -bnni, --tbe), the user-tree tests (-z, -zb,
--au) and the per-site and per-tree outputs (-wsl, -wsr,
--wspr/-wspm/-wspmr, --mlrate, -asr, -mldist, -o); any flag whose path is
-not yet ported stops the run with a SystemExit that names it, so nothing
-is silently ignored.
+and the stochastic tree search with ultrafast bootstrap (under -g a
+constraint tree), then the branch supports (-alrt, -abayes, -bnni,
+--tbe), the user-tree tests (-z, -zb, -au) and the per-site and per-tree
+outputs (-wsl, -wsr, -wspr/-wspm/-wspmr, --mlrate, -asr, -mldist, -o),
+the standard bootstrap (-b), independent runs (--runs) and the symmetry
+tests (--symtest); and the partitioned analysis (-p edge-proportional, -q
+edge-equal, -Q unlinked branch lengths, -S one tree per locus) with
+per-partition ModelFinder and merging, -bsam and --symtest-remove-bad.
+Any flag whose path is not yet ported stops the run with a SystemExit that
+names it, and so does each flag the JAX package's partition path accepts
+and ignores (-g, -b, --runs, -bnni, --tbe, -z, -wsl, -wsr, -wsp*,
+--mlrate, -asr, -mldist, -o, -blfix), so nothing is silently ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 from iqtree2_tpu_torch.params import Params
@@ -43,7 +57,17 @@ PORTED_DESTS = frozenset({
     "alrt_replicates", "abayes", "bnni", "tbe", "user_trees_file",
     "topo_test_replicates", "do_au_test", "write_site_lh", "write_site_rate",
     "write_site_prob", "write_ml_rate", "do_asr", "write_ml_dist",
-    "outgroup"})
+    "outgroup", "constraint_tree", "standard_bootstrap", "num_runs",
+    "symtest", "symtest_remove_bad", "symtest_pval", "partition_edge_prop",
+    "partition_edge_equal", "partition_unlinked", "partition_topo_unlinked",
+    "merge_algorithm", "boot_spec"})
+# destinations the JAX package's partition path (-p/-q/-Q) accepts and never
+# reads: the port refuses them there
+PARTITION_IGNORED = ("constraint_tree", "standard_bootstrap", "num_runs",
+                     "bnni", "tbe", "user_trees_file", "write_site_lh",
+                     "write_site_rate", "write_site_prob", "write_ml_rate",
+                     "do_asr", "write_ml_dist", "outgroup",
+                     "fix_branch_lengths")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -263,16 +287,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def params_from_args(args) -> Params:
     """Params of the parsed flags (iqtree2_tpu/cli.py's, without the
-    partition and distributed-run branches: refuse_unported stops their
-    flags first)."""
+    distributed-run branch: refuse_unported stops its flags first)."""
     pr = Params()
     for f in vars(pr):
         if hasattr(args, f):
             setattr(pr, f, getattr(args, f))
+    for dest, kind in (("partition_topo_unlinked", "topo-unlinked"),
+                       ("partition_edge_prop", "edge-proportional"),
+                       ("partition_edge_equal", "edge-equal"),
+                       ("partition_unlinked", "unlinked")):
+        if getattr(args, dest):
+            pr.partition_file, pr.partition_type = getattr(args, dest), kind
+            break
     if args.quiet:
         pr.verbose = 0
     if not pr.out_prefix:
-        pr.out_prefix = pr.aln_file
+        pr.out_prefix = pr.aln_file or pr.partition_file
     return pr
 
 
@@ -296,22 +326,92 @@ def refuse_unported(args: argparse.Namespace,
     if args.fix_branch_lengths and not args.user_tree:
         raise SystemExit("-blfix: fixes the branch lengths of a -te tree; "
                          "a search has none to fix")
-    if "MERGE" in args.model.upper():
-        raise SystemExit(f"-m {args.model}: partition merging needs "
-                         f"partitions (-p/-q/-Q), which are not yet ported "
-                         f"to iqtree2_tpu_torch")
+    if args.constraint_tree and args.user_tree:
+        raise SystemExit("-g: constrains the tree search; a -te tree is "
+                         "fixed, drop -te or -g")
+    if args.boot_spec and not args.ufboot_replicates:
+        raise SystemExit("-bsam: chooses what the ultrafast bootstrap "
+                         "resamples; add -bb/-B N")
+    if args.merge_algorithm != parser.get_default("merge_algorithm") \
+            and "MERGE" not in args.model.upper():
+        raise SystemExit("--merge: chooses the partition merging of -m "
+                         "MF+MERGE, MFP+MERGE or TESTMERGE")
+    if args.symtest_pval != parser.get_default("symtest_pval") \
+            and not args.symtest_remove_bad:
+        raise SystemExit("--symtest-pval: is the cutoff of "
+                         "--symtest-remove-bad")
+    if args.num_runs > 1 and args.model.upper() in ("MF", "TESTONLY"):
+        raise SystemExit("--runs: compares the runs' trees; -m "
+                         f"{args.model} builds none")
+    partitioned = (args.partition_edge_prop or args.partition_edge_equal
+                   or args.partition_unlinked)
+    if args.partition_topo_unlinked:
+        _refuse_with(args, parser, "-S", ("boot_spec", "merge_algorithm",
+                                          "symtest_remove_bad",
+                                          "standard_bootstrap", "num_runs"),
+                     "analyses each locus as a single alignment")
+    elif partitioned:
+        _refuse_with(args, parser, "-p/-q/-Q", PARTITION_IGNORED,
+                     "is not run on partitions (the JAX package's partition "
+                     "path ignores it)")
+        if args.model.upper() in ("AUTO", "WHTEST"):
+            raise SystemExit(f"-m {args.model}: not a model selection mode "
+                             f"of a partitioned analysis")
+    else:
+        if "MERGE" in args.model.upper():
+            raise SystemExit(f"-m {args.model}: partition merging needs "
+                             f"partitions (-p/-q/-Q)")
+        if args.boot_spec.upper() in ("GENE", "GENESITE"):
+            raise SystemExit(f"-bsam {args.boot_spec}: resamples partitions "
+                             f"(-p/-q/-Q)")
+        if args.symtest_remove_bad:
+            raise SystemExit("--symtest-remove-bad: drops partitions; needs "
+                             "-p/-q/-Q")
+
+
+def _refuse_with(args, parser, mode: str, dests, why: str) -> None:
+    """SystemExit naming the first flag of ``dests`` given with ``mode``."""
+    for action in parser._actions:
+        if action.dest in dests and getattr(args, action.dest) != \
+                parser.get_default(action.dest):
+            raise SystemExit(f"{'/'.join(action.option_strings)} with "
+                             f"{mode}: {why}")
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not args.aln_file:
-        print("error: -s ALIGNMENT is required", file=sys.stderr)
-        return 2
     refuse_unported(args, parser)
     pr = params_from_args(args)
-    from iqtree2_tpu_torch.analysis import run_analysis
-    run_analysis(pr, device=args.device)
+    if not pr.aln_file and not pr.partition_file:
+        print("error: -s ALIGNMENT is required", file=sys.stderr)
+        return 2
+    if pr.partition_file:
+        from iqtree2_tpu_torch import partition_analysis
+        if pr.partition_type == "topo-unlinked":
+            partition_analysis.run_unlinked_topology_analysis(
+                pr, device=args.device)
+        else:
+            partition_analysis.run_partition_analysis(pr, device=args.device)
+        return 0
+    from iqtree2_tpu_torch import analysis
+    if pr.standard_bootstrap > 0:
+        if pr.num_runs > 1:
+            print("NOTE: -b takes precedence over --runs, which is not run "
+                  "(as in the JAX package)")
+        analysis.run_standard_bootstrap(pr, device=args.device)
+        return 0
+    if pr.num_runs > 1:
+        best = None
+        for r in range(pr.num_runs):
+            res = analysis.run_analysis(dataclasses.replace(
+                pr, seed=pr.seed + r, out_prefix=f"{pr.prefix}.run{r + 1}"),
+                device=args.device)
+            if best is None or res["logL"] > best["logL"]:
+                best = res
+        print(f"Best of {pr.num_runs} runs: logL {best['logL']:.4f}")
+        return 0
+    analysis.run_analysis(pr, device=args.device)
     return 0
 
 

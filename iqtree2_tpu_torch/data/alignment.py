@@ -6,8 +6,9 @@ stored once together with its frequency (number of sites showing it). All
 downstream likelihood math is per *pattern*, weighted by frequency — this is
 also the TPU data-parallel axis.
 
-Copied from iqtree2_tpu/data/alignment.py: the port keeps its own host
-modules and imports nothing of the JAX package.
+Copied from iqtree2_tpu/data/alignment.py, with bootstrap_alignment's
+site-to-pattern map repaired and const_state_mask computed once: the port
+keeps its own host modules and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -189,10 +190,15 @@ class Alignment:
     def const_state_mask(self) -> np.ndarray:
         """float [num_patterns, states]: 1 where the pattern is compatible
         with all taxa being in that state (for +I invariant-site likelihood
-        and ascertainment-bias corrections)."""
-        tbl = self.seqtype.tip_table
-        rows = tbl[self.patterns]
-        return (rows.min(axis=1) > 0).astype(np.float64)
+        and ascertainment-bias corrections). Computed once per alignment
+        (every +I model refresh asks for it) and shared read-only."""
+        mask = self.__dict__.get("_const_state_mask")
+        if mask is None:
+            tbl = self.seqtype.tip_table
+            mask = (tbl[self.patterns].min(axis=1) > 0).astype(np.float64)
+            mask.flags.writeable = False
+            self.__dict__["_const_state_mask"] = mask
+        return mask
 
     def proportion_invariant_upper(self) -> float:
         w = self.pattern_weights
@@ -215,8 +221,11 @@ class Alignment:
     def bootstrap_alignment(self, rng: np.random.Generator) -> "Alignment":
         w = self.bootstrap_pattern_weights(rng)[0]
         keep = w > 0
-        # rebuild site_to_pattern approximately (site order is irrelevant)
-        s2p = np.repeat(np.nonzero(keep)[0], w[keep].astype(np.int64))
+        # rebuild site_to_pattern (site order is irrelevant) over the kept
+        # patterns' new indices: the JAX copy repeats their old indices,
+        # which run past the kept rows, so its -b fails on expanding them
+        s2p = np.repeat(np.arange(int(keep.sum())),
+                        w[keep].astype(np.int64))
         return Alignment(names=self.names, seqtype=self.seqtype,
                          patterns=self.patterns[keep],
                          pattern_weights=w[keep],

@@ -145,11 +145,13 @@ class LikelihoodEngine:
         self._pack: dict | None = None
         self._tipP = None
         self._tip_table = None
+        self._precise: LikelihoodEngine | None = None
         self.refresh_model()
 
     # ----------------------------------------------------------- model mgmt
     def refresh_model(self) -> None:
-        """Rebuild the model pack after model/rate parameter changes."""
+        """Rebuild the model pack after model/rate parameter changes, and
+        that of the float64 view where precise() has made one."""
         pk = build_model_pack(self.aln, self.model, self.rates)
         if pk.Q is not None:
             raise NotImplementedError("nonreversible models are not yet "
@@ -179,11 +181,36 @@ class LikelihoodEngine:
             self._tipP = pruning.tip_partials(self._tip_codes, tip_table)
             self._tip_table = tip_table
         self._pack = pack
+        if self._precise is not None:
+            self.precise().refresh_model()
+
+    def precise(self) -> "LikelihoodEngine":
+        """This engine in float64 (itself when it is float64), sharing its
+        model objects: what the model-parameter objectives evaluate. In
+        float32 their finite differences and Brent steps drown in the
+        logL's rounding (at 1000 taxa x 1024 sites its ulp is 0.03), and
+        the fits stall short of the optimum. A fit sets parameters,
+        refreshes this view alone for each evaluation, and refreshes the
+        engine (and so the view) once it is done. The view follows the
+        engine's model objects, which ModelFinder swaps per candidate."""
+        if self.dtype == torch.float64:
+            return self
+        if self._precise is None:
+            view = LikelihoodEngine(self.aln, self.model, self.rates,
+                                    dtype=torch.float64, device=self.device,
+                                    asc=self.asc)
+            view.pattern_weights = self.pattern_weights
+            view._pw = torch.as_tensor(self.pattern_weights,
+                                       dtype=torch.float64, device=self.device)
+            self._precise = view
+        self._precise.model, self._precise.rates = self.model, self.rates
+        return self._precise
 
     def with_pattern_weights(self, weights: np.ndarray) -> "LikelihoodEngine":
         """Shallow view of this engine with different pattern weights
         (bootstrap-replicate refinement; shares the model tensors)."""
         view = copy.copy(self)
+        view._precise = None
         w = np.zeros(self.Pp)
         w[: len(weights)] = weights
         view.pattern_weights = w

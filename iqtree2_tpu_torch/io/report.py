@@ -4,9 +4,9 @@ Reference analog: reportPhyloAnalysis (main/phyloanalysis.cpp:1082) with
 sections from reportModel (:293), reportRate (:533), reportTree (:594).
 The output surface follows SURVEY A1.
 
-Copied from iqtree2_tpu/io/report.py, without the partitioned report (not
-ported), plus the report of a run that stops after model selection: the
-port keeps its own host modules and imports nothing of the JAX package.
+Copied from iqtree2_tpu/io/report.py, plus the report of a run that stops
+after model selection: the port keeps its own host modules and imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -177,6 +177,79 @@ def write_iqtree_report(path, *, params, aln, model, rates, tree, logL,
     a("")
     Path(path).write_text("\n".join(out))
 
+
+
+def write_partition_report(path, *, params, sa, peng, model_strs, tree,
+                           logL, search_info=None, mf_table=None,
+                           support=None, elapsed=None,
+                           tree_tests=None) -> None:
+    """.iqtree report for partitioned runs (reference analog:
+    reportPhyloAnalysis partition sections, main/phyloanalysis.cpp:1082)."""
+    out = []
+    a = out.append
+    a(f"IQ-TREE-TPU, PyTorch/CUDA port {iqtree2_tpu_torch.__version__} — "
+      "partitioned analysis")
+    a(f"Date: {time.strftime('%c')}")
+    a("")
+    a("INPUT DATA")
+    a("-" * 10)
+    a(f"Partition file: {params.partition_file}")
+    a(f"Number of taxa: {sa.ntaxa}")
+    a(f"Number of sites (supermatrix): {sa.nsites}")
+    a(f"Number of partitions: {sa.n_partitions}")
+    a(f"Edge linkage: {params.partition_type}")
+    a("")
+    a("PARTITION TABLE")
+    a("-" * 15)
+    a(f"{'ID':<4}{'Name':<24}{'Type':<8}{'Sites':>8}{'Patterns':>10}"
+      f"{'Model':<24}{'Rate':>8}")
+    for i, (p, name, m) in enumerate(zip(sa.partitions, sa.part_names,
+                                         model_strs)):
+        r = peng.part_rates[i] if peng is not None else 1.0
+        a(f"{i + 1:<4}{name:<24}{p.seqtype.name:<8}{p.nsites:>8}"
+          f"{p.num_patterns:>10}  {m:<24}{r:>8.4f}")
+    a("")
+    if mf_table:
+        a("MODEL SELECTION (per partition)")
+        a("-" * 31)
+        a(f"{'Partition':<24}{'Best model':<22}{'LogL':>14}{'BIC':>14}")
+        for row in mf_table:
+            a(f"{row.get('partition', '?'):<24}{row['name']:<22}"
+              f"{row['logL']:>14.4f}{row['BIC']:>14.4f}")
+        a("")
+    a("MAXIMUM LIKELIHOOD TREE")
+    a("-" * 23)
+    a(f"Log-likelihood of the tree: {logL:.4f}")
+    nfp = tree.num_edges()
+    for mo, ra in zip(peng.models, peng.rates):
+        nfp += mo.num_free_params() + ra.num_free_params()
+    if peng.partition_type == "edge-proportional":
+        nfp += peng.K - 1
+    n = sa.nsites
+    a(f"Number of free parameters (#branches + #model parameters): {nfp}")
+    a(f"Akaike information criterion (AIC) score: {2 * nfp - 2 * logL:.4f}")
+    a(f"Bayesian information criterion (BIC) score: "
+      f"{np.log(n) * nfp - 2 * logL:.4f}")
+    a(f"Total tree length (sum of branch lengths): "
+      f"{tree.total_length():.4f}")
+    a("")
+    if search_info:
+        for k, v in search_info.items():
+            a(f"{k}: {v}")
+        a("")
+    a("Tree in newick format:")
+    a("")
+    a(tree.to_newick(support=support))
+    a("")
+    if tree_tests:
+        a("USER TREES")
+        a("-" * 10)
+        a(tree_tests)
+        a("")
+    if elapsed is not None:
+        a(f"Total wall-clock time used: {elapsed:.3f} sec")
+    a("")
+    Path(path).write_text("\n".join(out))
 
 def model_string(model, rates) -> str:
     s = model.name

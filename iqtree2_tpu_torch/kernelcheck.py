@@ -2,8 +2,9 @@
 
 Used by chip_smoke.py and tests/test_torch_cuda.py (the parity tests use
 its ``simulate``). A problem is an alignment simulated under one of MODELS on
-a random topology; every kernel then gets exactly the inputs its plain
-version gets:
+a random topology, or a supermatrix of PARTITIONS (simulate_partitioned),
+whose every partition engine is one problem; every kernel then gets exactly
+the inputs its plain version gets:
 
 - down_pass: the plain down pass with its site-logL epilogue
   (down_pass_plain) is the reference; the kernel runs the whole pass and
@@ -35,6 +36,8 @@ import numpy as np
 import torch
 
 from iqtree2_tpu_torch.data.alignment import Alignment
+from iqtree2_tpu_torch.data.superalignment import (SuperAlignment,
+                                                   build_superalignment)
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
 from iqtree2_tpu_torch.model.factory import build_model
@@ -78,6 +81,18 @@ MODELS = {
                  + ",".join(f"{w},{r}" for w, r in zip(_R10_WEIGHTS,
                                                        _R10_RATES)) + "}"),
 }
+# the partitioned path's shapes, one supermatrix each: per partition the
+# MODELS name, its sites and the share of taxa it lacks (all-gap rows on the
+# union taxon set)
+PARTITIONS = {
+    # patterns under 512 and not a multiple of the engine's PATTERN_PAD
+    "short DNA": (("GTR+G4", 300, 0.0),),
+    # one partition lacks a quarter of the taxa
+    "gappy supermatrix": (("GTR+G4", 500, 0.0), ("HKY+I", 400, 0.25)),
+    # a protein partition beside a DNA one, as a NEXUS partition file that
+    # names two alignment files gives (read_partition_spec)
+    "DNA + protein": (("GTR+G4", 400, 0.0), ("LG+G4", 200, 0.0)),
+}
 # float64: 1e-9 relative everywhere; float32: 1e-4 relative on partials and
 # theta, 1e-3 absolute on site log-likelihoods
 TOLERANCE = {torch.float64: {"partials": 1e-9, "lp": 1e-9},
@@ -98,6 +113,76 @@ def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
                                    seqtype=seqtype)
     model, rates, _ = build_model(model_str, aln)
     return aln, Tree.from_newick(tree.to_newick(), aln.names), model, rates
+
+
+def simulate_loci(loci, ntaxa: int, seed: int
+                  ) -> tuple[SuperAlignment, Tree, list, list]:
+    """(SuperAlignment, true Tree, models, rates) of loci simulated on one
+    random topology: per locus (sequence type, model string with every
+    parameter fixed, sites, share of taxa it lacks, rate multiplier of the
+    tree's lengths).
+    The taxa a locus lacks are drawn from the seed and left out of it (so
+    absent from its presence mask and all-unknown on the union taxon
+    set); a taxon every locus would lack stays in the last one."""
+    rng = np.random.default_rng(seed)
+    names = [f"t{i}" for i in range(ntaxa)]
+    tree = Tree.random_topology(names, rng)
+    drawn = []
+    for seqtype, model_str, nsites, gaps, rate in loci:
+        alphabet = {st: al for st, al, _ in MODELS.values()}[seqtype]
+        dummy = Alignment.from_sequences(names, [alphabet] * ntaxa,
+                                         seqtype=seqtype)
+        model, rates, _ = build_model(model_str, dummy)
+        scaled = tree.copy()
+        for key in scaled.blen:
+            scaled.blen[key] *= rate
+        seqs = simulate_alignment(scaled, model, rates, nsites, rng)
+        drop = set(rng.choice(ntaxa, int(gaps * ntaxa), replace=False)
+                   .tolist())
+        drawn.append((seqtype, seqs, drop))
+    nowhere = set.intersection(*(drop for _, _, drop in drawn))
+    drawn[-1] = drawn[-1][:2] + (drawn[-1][2] - nowhere,)
+    parts = []
+    for k, (seqtype, seqs, drop) in enumerate(drawn):
+        keep = [n for i, n in enumerate(names) if i not in drop]
+        part = Alignment.from_sequences(keep, [seqs[n] for n in keep],
+                                        seqtype=seqtype)
+        part.name = f"part{k + 1}"
+        parts.append(part)
+    strs = [model_str for _, model_str, _, _, _ in loci]
+    sa = build_superalignment(parts, strs)
+    built = [build_model(m, p) for m, p in zip(strs, sa.partitions)]
+    return (sa, Tree.from_newick(tree.to_newick(), sa.names),
+            [b[0] for b in built], [b[1] for b in built])
+
+
+def simulate_partitioned(name: str, ntaxa: int, seed: int
+                         ) -> tuple[SuperAlignment, Tree, list, list]:
+    """simulate_loci of PARTITIONS[name], each partition at rate 1."""
+    return simulate_loci([(MODELS[m][0], MODELS[m][2], nsites, gaps, 1.0)
+                          for m, nsites, gaps in PARTITIONS[name]],
+                         ntaxa, seed)
+
+
+def write_partitioned(sa: SuperAlignment, models: list[str],
+                      directory) -> str:
+    """A supermatrix as a NEXUS partition file naming one PHYLIP file per
+    partition (its present taxa only) and the partition's model from
+    ``models`` (strings without commas: a charpartition splits at them);
+    returns the partition file's path."""
+    directory = Path(directory)
+    lines = ["#nexus", "begin sets;"]
+    for p, pres, name in zip(sa.partitions, sa.part_presence,
+                             sa.part_names):
+        write_phylip(p.subset_taxa(list(np.nonzero(pres)[0])),
+                     directory / f"{name}.phy")
+        lines.append(f"  charset {name} = {name}.phy: {p.seqtype.name}, "
+                     f"1-{p.nsites};")
+    lines.append("  charpartition models = " + ", ".join(
+        f"{m}: {n}" for m, n in zip(models, sa.part_names)) + ";")
+    path = directory / "partitions.nex"
+    path.write_text("\n".join(lines + ["end;"]) + "\n")
+    return str(path)
 
 
 def load_problem(aln_path, tree_path, model_name: str):

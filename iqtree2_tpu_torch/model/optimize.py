@@ -7,11 +7,13 @@ that fit does not apply (models it does not cover, +ASC, and problems above
 torchfit.MAX_REVERSE_ELEMENTS, which covers every large alignment). The
 alternation: bounded L-BFGS-B over the substitution and rate parameters,
 each objective evaluation one logL on the fixed topology, then all-branch
-Newton, until a round gains less than epsilon. Its finite differences can
-stall short of the optimum in float32 (by about 5 logL on
-tests/golden/example.phy); the joint fit, in float64 whenever
-epsilon < 0.05, does not. Reference analog: ModelFactory::optimizeParameters
-(model/modelfactory.cpp:1329).
+Newton, until a round gains less than epsilon. Its objectives evaluate the
+engine's float64 view (LikelihoodEngine.precise()), as the partition fits
+do: finite differences of a float32 logL stall short of the optimum (the
+JAX package's float32 alternation stops about 2.6 logL short on a
+24 x 1000 simulation, tests/test_torch_fit.py). The branch-length steps
+run in the engine's own precision. Reference analog:
+ModelFactory::optimizeParameters (model/modelfactory.cpp:1329).
 """
 
 from __future__ import annotations
@@ -64,16 +66,19 @@ def optimize_model_parameters(eng: LikelihoodEngine, tree: Tree,
             lo = np.concatenate([lo_m, lo_r])
             hi = np.concatenate([hi_m, hi_r])
 
+            view = eng.precise()
+
             def obj(x):
                 if nm:
                     model.set_params(x[:nm])
                 if len(x) > nm:
                     rates.set_params(x[nm:])
-                eng.refresh_model()
-                return -eng.loglik_sched(sched)
+                view.refresh_model()
+                return -view.loglik_sched(sched)
 
             x_best, neg = lbfgsb_minimize(obj, np.clip(x0, lo, hi), lo, hi)
             obj(x_best)     # leave the best point applied
+            eng.refresh_model()
             logL = -neg
 
         # ---- branch lengths ---------------------------------------------
@@ -90,11 +95,12 @@ def optimize_rate_scalar(eng: LikelihoodEngine, tree: Tree, getter, setter,
     Reference analog: RateGamma::optimizeParameters via Brent
     (utils/optimization.cpp:322)."""
     sched = build_schedule(tree)
+    view = eng.precise()
 
     def obj(v):
         setter(float(v))
-        eng.refresh_model()
-        return -eng.loglik_sched(sched)
+        view.refresh_model()
+        return -view.loglik_sched(sched)
 
     x, fx = brent_minimize(obj, lo, hi, guess=getter())
     setter(float(x))

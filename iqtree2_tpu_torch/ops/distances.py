@@ -39,7 +39,13 @@ def pair_frequency_tables(aln: Alignment) -> tuple[np.ndarray, np.ndarray]:
 
 
 def hamming_jc_distances(aln: Alignment) -> np.ndarray:
-    """[L, L] JC-corrected observed distances (the Newton's start)."""
+    """[L, L] JC-corrected observed distances (the Newton's start, and the
+    BIONJ distances of a supermatrix: the partitions' averaged by their
+    sites)."""
+    if hasattr(aln, "partitions"):  # SuperAlignment
+        w = np.array([p.nsites for p in aln.partitions], np.float64)
+        Ds = [hamming_jc_distances(p) for p in aln.partitions]
+        return np.tensordot(w / w.sum(), np.stack(Ds), axes=1)
     codes = aln.tip_codes()
     tbl = aln.seqtype.tip_table
     S = aln.num_states

@@ -8,7 +8,7 @@ The pattern axis is vectorized with numpy; edge-candidate scoring during
 stepwise addition is batched as one [n_edges, patterns] operation.
 
 Copied from iqtree2_tpu/ops/pars.py, the host half the search runs (no
-Sankoff scores, no -g constraint): the port keeps its own host modules and
+Sankoff scores): the port keeps its own host modules and
 imports nothing of the JAX package.
 """
 
@@ -91,8 +91,8 @@ def fitch_score(tree: Tree, masks: np.ndarray,
     return float((cost * weights).sum())
 
 
-def random_stepwise_addition(aln: Alignment,
-                             rng: np.random.Generator) -> Tree:
+def random_stepwise_addition(aln: Alignment, rng: np.random.Generator,
+                             constraint=None) -> Tree:
     """Randomized stepwise-addition parsimony tree.
 
     Insert taxa in random order, each at the edge minimizing the Fitch
@@ -102,6 +102,10 @@ def random_stepwise_addition(aln: Alignment,
     that make the numpy loop take minutes at 1000 taxa x 16384 sites),
     else from the numpy loop below. Reference analog:
     pllComputeRandomizedStepwiseAdditionParsimonyTree (tree/iqtree.cpp:746).
+
+    constraint: optional TopologyConstraint (-g) — insertion edges that
+    would break a constraint split are rejected (cheapest compatible edge
+    wins; reference: ConstraintTree gating in stepwise addition).
     """
     from iqtree2_tpu_torch import native
     masks = state_bitmasks(aln)
@@ -130,6 +134,10 @@ def random_stepwise_addition(aln: Alignment,
         # so Tree._default_root() is not usable here.
         root = hub
         post = list(tree.postorder(root))
+        if costs is not None and tree._next_id > costs.down.shape[0]:
+            # rejected insertions under a constraint allocate node ids
+            # past the 2L the scratch was sized for
+            costs = native.stepwise_costs(masks, w, 2 * tree._next_id)
         if costs is not None:
             kids = [[u for u in tree.adj[v] if u != p]
                     if not tree.is_leaf(v) else [] for v, p in post]
@@ -137,7 +145,7 @@ def random_stepwise_addition(aln: Alignment,
             delta = costs(leaf, [v for v, _ in post], [p for _, p in post],
                           np.cumsum([0] + [len(k) for k in kids]),
                           [u for k in kids for u in k])
-            _insert(tree, leaf, *edges[int(np.argmin(delta))])
+            _place(tree, leaf, edges, delta, constraint)
             continue
         sets: dict[int, np.ndarray] = {}
         for v, p in post:
@@ -181,15 +189,38 @@ def random_stepwise_addition(aln: Alignment,
         x = masks[leaf][None, :]                  # [1, P]
         delta = (((C & x) == 0) * w[None, :]).sum(axis=1)
 
-        _insert(tree, leaf, *edges[int(np.argmin(delta))])
+        _place(tree, leaf, edges, delta, constraint)
     return tree
 
 
-def _insert(tree: Tree, leaf: int, a: int, b: int) -> None:
-    """Attach ``leaf`` at the middle of edge (a, b)."""
+def _insert(tree: Tree, leaf: int, a: int, b: int) -> tuple[int, float]:
+    """Attach ``leaf`` at the middle of edge (a, b); returns the new node
+    and the edge's old length."""
     mid = tree.new_node()
     lold = tree.get_blen(a, b)
     tree.remove_edge(a, b)
     tree.add_edge(a, mid, lold * 0.5)
     tree.add_edge(mid, b, lold * 0.5)
     tree.add_edge(mid, leaf, 0.1)
+    return mid, lold
+
+
+def _place(tree: Tree, leaf: int, edges: list, delta: np.ndarray,
+           constraint) -> None:
+    """Insert ``leaf`` on the cheapest edge, under a constraint the
+    cheapest that keeps every constraint split (the JAX package's
+    insert/undo loop)."""
+    if constraint is None or leaf not in constraint.mask:
+        _insert(tree, leaf, *edges[int(np.argmin(delta))])
+        return
+    for ei in np.argsort(delta):
+        a, b = edges[int(ei)]
+        mid, lold = _insert(tree, leaf, a, b)
+        if constraint.compatible(tree):
+            return
+        tree.remove_edge(a, mid)
+        tree.remove_edge(mid, b)
+        tree.remove_edge(mid, leaf)
+        tree.add_edge(a, b, lold)
+    # no compatible edge (should not happen)
+    _insert(tree, leaf, *edges[int(np.argmin(delta))])

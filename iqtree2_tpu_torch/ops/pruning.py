@@ -65,15 +65,19 @@ def transition_tensors(blens, pack):
     cat_mix = pack["cat_mix"]
     lam = pack["eigvals"][cat_mix]                               # [C, S]
     expo = lam[None] * pack["cat_rate"][None, :, None] * blens[:, None, None]
+    # each product as a broadcast and a batched matmul: a three-operand
+    # einsum asks opt_einsum for a contraction path on every call, which
+    # costs more host time than the product at the search's sizes
     if pack.get("W") is not None:
         Wc = pack["W"][cat_mix]                                  # [C, S, S]
         sq = pack["sqrt_freqs"][cat_mix]                         # [C, S]
-        core = torch.einsum("cxk,eck,cyk->ecxy", Wc, torch.expm1(expo), Wc)
+        core = torch.matmul(Wc * torch.expm1(expo)[:, :, None, :],
+                            Wc.transpose(-1, -2))
         eye = torch.eye(lam.shape[-1], dtype=core.dtype, device=core.device)
         P = (eye + core) * (sq[None, :, None, :] / sq[None, :, :, None])
     else:
-        P = torch.einsum("cxk,eck,cky->ecxy", pack["U"][cat_mix],
-                         torch.exp(expo), pack["V"][cat_mix])
+        P = torch.matmul(pack["U"][cat_mix] * torch.exp(expo)[:, :, None, :],
+                         pack["V"][cat_mix])
     return P.clamp(min=0.0).contiguous()   # the kernels take [E, C, S, S]
 
 

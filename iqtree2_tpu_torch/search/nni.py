@@ -1,11 +1,16 @@
 """NNI hill-climbing on the host, scored on the device (counterpart of
 iqtree2_tpu/search/nni.py, whose module imports jax).
 
-Every round is one fused engine call (engine.optimize_and_evaluate_nnis):
-all-branch Newton, both passes, NNI scoring and, with want_lp, the site
-log-likelihoods for UFBoot. The host then applies the best
-non-conflicting improving swaps. Reference analog: IQTree::optimizeNNI
-(tree/iqtree.cpp:2998) / evaluateNNIs (:3426).
+On a LikelihoodEngine every round is one fused engine call
+(engine.optimize_and_evaluate_nnis): all-branch Newton, both passes, NNI
+scoring and, with want_lp, the site log-likelihoods for UFBoot. An engine
+without the fused round (partition/engine.PartitionEngine) takes the JAX
+package's unfused climb step for step: optimize_branches, then
+evaluate_nni_batch, the swaps, optimize_branches again; its unlinked mode
+scores NNI1 only, with a NOTE. The host applies the best non-conflicting
+improving swaps, skipping any that breaks a -g constraint split.
+Reference analog: IQTree::optimizeNNI (tree/iqtree.cpp:2998) /
+evaluateNNIs (:3426).
 """
 
 from __future__ import annotations
@@ -43,11 +48,12 @@ def _cand_array(cand: NNICandidates) -> np.ndarray:
 
 
 def _apply_best_swaps(tree: Tree, sched, cand, logl, t_opt, t5,
-                      loglh_epsilon: float):
+                      loglh_epsilon: float, constraint=None):
     """Apply the best non-conflicting improving NNI swaps to ``tree`` with
     their optimised lengths, the central one alone when t5 is None (NNI1)
     (greedy by gain, one move per node; reference applyNNIs,
-    tree/iqtree.cpp:3426). Returns (applied, undo) where undo = (swap log,
+    tree/iqtree.cpp:3426); a swap that breaks a split of ``constraint``
+    (-g) is undone and skipped. Returns (applied, undo) where undo = (swap log,
     branch lengths before the swaps, blen_h before them)."""
     base = logl[:, 2]
     gains = logl[:, :2] - base[:, None]
@@ -76,6 +82,9 @@ def _apply_best_swaps(tree: Tree, sched, cand, logl, t_opt, t5,
         x = _slot_node(tree, sched, iu, moved_slot)
         c = _slot_node(tree, sched, iv, int(cand.slot_c[ci]))
         tree.swap_subtrees(u, x, v, c)
+        if constraint is not None and not constraint.compatible(tree):
+            tree.swap_subtrees(u, c, v, x)   # undo: violates -g
+            continue
         swap_log.append((u, x, v, c))
         tree.set_blen(u, v, float(t_opt[ci, var]))
         if t5 is None:
@@ -106,20 +115,30 @@ def _revert_swaps(tree: Tree, undo) -> None:
     tree.blen_h = dict(blen_h_snap)
 
 
+def _supports_nni5(eng) -> bool:
+    """Engines whose NNI scoring re-optimises five branches: all but a
+    PartitionEngine with unlinked branch lengths (-Q)."""
+    return getattr(eng, "partition_type", None) != "unlinked"
+
+
 def nni_optimize(eng: LikelihoodEngine, tree: Tree,
                  loglh_epsilon: float = 0.001, max_rounds: int = MAX_ROUNDS,
-                 nni5: bool = True, want_lp: bool = False):
+                 nni5: bool = True, want_lp: bool = False, constraint=None):
     """Hill-climb with NNI moves until no improving move remains, at most
-    max_rounds fused rounds of BLEN_ROUNDS Newton sweeps each.
+    max_rounds rounds of BLEN_ROUNDS Newton sweeps each.
 
     With nni5 (the reference default params.nni5) each candidate is scored
     with all five surrounding branches re-optimised and applied with those
     lengths; without it (NNI1, as -bnni refines replicate trees) with the
-    central branch alone. Mutates ``tree`` in place and returns an
-    NNIResult; with want_lp returns (NNIResult, lp), lp being the final
-    tree's per-pattern log-likelihoods for UFBoot, from the last fused
-    round where the tree did not change after it.
+    central branch alone. Swaps that break a split of ``constraint`` (-g)
+    are skipped. Mutates ``tree`` in place and returns an NNIResult; with
+    want_lp returns (NNIResult, lp), lp being the final tree's per-pattern
+    log-likelihoods for UFBoot, from the last fused round where the tree
+    did not change after it.
     """
+    if not hasattr(eng, "optimize_and_evaluate_nnis"):
+        return _nni_optimize_unfused(eng, tree, loglh_epsilon, max_rounds,
+                                     nni5, want_lp, constraint)
     total_applied = 0
     logL = None
     lp = None
@@ -151,7 +170,7 @@ def nni_optimize(eng: LikelihoodEngine, tree: Tree,
             break
         logL = opt_logL
         applied, undo = _apply_best_swaps(tree, sched, cand, logl, t_opt, t5,
-                                          loglh_epsilon)
+                                          loglh_epsilon, constraint)
         if applied == 0:
             break
         total_applied += applied
@@ -172,4 +191,57 @@ def nni_optimize(eng: LikelihoodEngine, tree: Tree,
         if lp is None:
             _, lp = eng.site_lp(tree)
         return res, lp
+    return res
+
+
+def _nni_optimize_unfused(eng, tree: Tree, loglh_epsilon: float,
+                          max_rounds: int, nni5: bool, want_lp: bool,
+                          constraint):
+    """The JAX package's climb for engines without the fused round
+    (iqtree2_tpu/search/nni.py:240-350): optimize_branches before the
+    first round and after every round's swaps, evaluate_nni_batch in
+    between; a regressing round is reverted and the lengths refitted."""
+    use5 = nni5
+    if use5 and not _supports_nni5(eng):
+        use5 = False
+        if not getattr(eng, "_warned_nni1", False):
+            eng._warned_nni1 = True
+            print(f"NOTE: {type(eng).__name__} scores NNIs on the central "
+                  "branch only (NNI1); five-branch re-optimization is not "
+                  "implemented for this engine")
+    total_applied = 0
+    logL = eng.optimize_branches(tree, n_rounds=BLEN_ROUNDS)
+    rnd = 0
+    for rnd in range(1, max_rounds + 1):
+        sched = build_schedule(tree)
+        cand = build_nni_candidates(tree, sched)
+        if len(cand.nodes_u) == 0:
+            break
+        t5 = None
+        if use5:
+            logl, t_opt, t5 = eng.evaluate_nni_batch(sched, _cand_array(cand),
+                                                     nni5=True)
+        else:
+            logl, t_opt = eng.evaluate_nni_batch(sched, _cand_array(cand))
+        applied, undo = _apply_best_swaps(tree, sched, cand, logl, t_opt, t5,
+                                          loglh_epsilon, constraint)
+        if applied == 0:
+            break
+        total_applied += applied
+        new_logL = eng.optimize_branches(tree, n_rounds=BLEN_ROUNDS)
+        if new_logL < logL - 1e-6:
+            _revert_swaps(tree, undo)
+            logL = eng.optimize_branches(tree, n_rounds=BLEN_ROUNDS)
+            break
+        if new_logL - logL < loglh_epsilon:
+            logL = max(new_logL, logL)
+            break
+        logL = new_logL
+    else:
+        rnd = max_rounds
+    new_logL = eng.optimize_branches(tree, n_rounds=POLISH_ROUNDS)
+    logL = max(new_logL, logL)
+    res = NNIResult(logL=logL, n_rounds=rnd, n_applied_total=total_applied)
+    if want_lp:
+        return res, eng.site_lp(tree)[1]
     return res

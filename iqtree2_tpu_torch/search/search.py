@@ -13,7 +13,10 @@ candidates, as in the JAX package: a block draws all its perturbations
 first, then each tree hill-climbs on its own (search/nni.nni_optimize), so
 both packages draw the same random numbers and visit the same trees. (The
 JAX package climbs a block in lockstep and lets finished trees ride to keep
-its compiled shapes; here a finished tree leaves the climb.)
+its compiled shapes; here a finished tree leaves the climb.) An engine
+without the fused NNI round (a PartitionEngine) runs one candidate per
+block, as the JAX package runs it. A -g constraint filters the parsimony
+start trees, the BIONJ tree, the random NNIs and the climbs' swaps.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ class SearchResult:
 class TreeSearch:
     def __init__(self, eng: LikelihoodEngine, aln: Alignment,
                  params: SearchParams | None = None, ufboot=None, log=None,
-                 ckp=None, batch_iterations: int = DEFAULT_BATCH):
+                 ckp=None, batch_iterations: int = DEFAULT_BATCH,
+                 constraint=None):
         if batch_iterations < 1:
             raise ValueError(f"batch_iterations must be at least 1, not "
                              f"{batch_iterations}")
@@ -76,7 +80,12 @@ class TreeSearch:
         self.ufboot = ufboot  # optional UFBoot collector
         self.log = log or (lambda s: None)
         self.ckp = ckp        # optional Checkpoint (mid-search resume)
-        self.batch_iterations = batch_iterations
+        # the JAX package climbs K candidates at once only on a plain
+        # engine; a partitioned one runs serially (its search.py:71-77)
+        self.batch_iterations = (batch_iterations
+                                 if hasattr(eng, "optimize_and_evaluate_nnis")
+                                 else 1)
+        self.constraint = constraint   # optional TopologyConstraint (-g)
         self._resume_iter = 0
         # host wall seconds: start trees (init_candidates), iterations
         # (the perturb + NNI blocks), and the UFBoot RELL scoring inside
@@ -131,29 +140,37 @@ class TreeSearch:
         scored: list[tuple[float, Tree]] = []
         seen: set[str] = set()
         for _ in range(p.n_init_trees):
-            t = random_stepwise_addition(self.aln, self.rng)
+            t = random_stepwise_addition(self.aln, self.rng,
+                                         constraint=self.constraint)
             tid = t.topology_id()
             if tid in seen:
                 continue
             seen.add(tid)
             scored.append((fitch_score(t, masks, w), t))
         # BIONJ tree from ML distances, or JC distances where the model has
-        # no single reversible rate matrix
+        # no single reversible rate matrix or the data are a supermatrix
+        # (whose partitions' distances are averaged by their sites)
         try:
+            if hasattr(self.aln, "partitions"):
+                raise NotImplementedError("a supermatrix has no one model")
             D = ml_distances(self.aln, self.eng.model, dtype=self.eng.dtype,
                              device=self.eng.device)
         except NotImplementedError:
             D = hamming_jc_distances(self.aln)
         tb = bionj_tree(D, self.aln.names)
         tb.clamp_blens(1e-6, 10.0)
-        scored.append((fitch_score(tb, masks, w), tb))
+        if self.constraint is None or self.constraint.compatible(tb):
+            scored.append((fitch_score(tb, masks, w), tb))
         scored.sort(key=lambda x: x[0])
 
         # quick branch optimisation of the best parsimony trees
         top = [t for _, t in scored[: max(p.n_nni_trees, 1)]]
         self.log(f"Optimizing {len(top)} best start trees...")
-        for t, logL in zip(top, self.eng.optimize_branches_batch(
-                top, n_rounds=4)):
+        if self.batch_iterations > 1:
+            logLs = self.eng.optimize_branches_batch(top, n_rounds=4)
+        else:
+            logLs = [self.eng.optimize_branches(t, n_rounds=4) for t in top]
+        for t, logL in zip(top, logLs):
             self._save_tree(t, logL)
             self.cands.update(t, logL)
         # NNI polish of the best few into local optima
@@ -193,7 +210,8 @@ class TreeSearch:
             trees = []
             for _ in range(kk):
                 t = self.cands.random_top(self.rng).tree.copy()
-                random_nnis(t, self.rng, p.pertub_strength)
+                random_nnis(t, self.rng, p.pertub_strength,
+                            constraint=self.constraint)
                 trees.append(t)
             for t in trees:
                 res, lp = self._nni_opt(t)
@@ -226,10 +244,11 @@ class TreeSearch:
         final tree's site log-likelihoods come from the same fused round."""
         if self.ufboot is None:
             return nni_optimize(self.eng, t,
-                                loglh_epsilon=self.params.loglh_epsilon), None
+                                loglh_epsilon=self.params.loglh_epsilon,
+                                constraint=self.constraint), None
         return nni_optimize(self.eng, t,
                             loglh_epsilon=self.params.loglh_epsilon,
-                            want_lp=True)
+                            want_lp=True, constraint=self.constraint)
 
     def _save_tree(self, tree: Tree, logL: float, lp=None) -> None:
         """RELL-score every optimised tree for UFBoot (reference analog:

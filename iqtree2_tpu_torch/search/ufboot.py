@@ -10,8 +10,8 @@ correlation between the two replicate halves (computeBootstrapCorrelation
 :4175); supports mapped onto the ML tree (summarizeBootstrap :3816).
 
 Copied from iqtree2_tpu/search/ufboot.py, with the RELL matvec on the host
-only (no device RELL, no replicate slices of a distributed run, no -bsam
-resampling units: none is ported) and a -inf champion
+only (no device RELL, no replicate slices of a distributed run: neither is
+ported; -bsam GENE/GENESITE resample a SuperAlignment's partitions) and a -inf champion
 masked before it is subtracted (the JAX package's line 127 may make a NaN
 there): the port keeps its own host modules and imports nothing of the JAX
 package.
@@ -33,7 +33,7 @@ class UFBoot:
     def __init__(self, aln: Alignment, n_replicates: int = 1000,
                  seed: int = 1, epsilon: float = 0.5,
                  min_correlation: float = 0.99,
-                 step_iterations: int = 100):
+                 step_iterations: int = 100, spec: str = ""):
         self.aln = aln
         self.n_replicates = n_replicates
         self.epsilon = epsilon
@@ -42,8 +42,14 @@ class UFBoot:
         # dedicated RNG stream so checkpoints never store the samples
         # (regenerated deterministically on resume — reference A2)
         rng = np.random.default_rng(seed ^ 0x5F5E100)
-        self.samples = aln.bootstrap_pattern_weights(
-            rng, nrep=n_replicates).astype(np.float32)  # [R, P]
+        if spec and spec.upper() not in ("", "SITE"):
+            # GENE / GENESITE resampling needs partition structure
+            # (reference: -bsam, alignment/alignment.cpp:3709)
+            self.samples = aln.bootstrap_pattern_weights(
+                rng, nrep=n_replicates, spec=spec).astype(np.float32)
+        else:
+            self.samples = aln.bootstrap_pattern_weights(
+                rng, nrep=n_replicates).astype(np.float32)  # [R, P]
         self.tie_rng = np.random.default_rng(seed ^ 0x2FE)
         self.boot_logl = np.full(n_replicates, -np.inf, dtype=np.float64)
         self.boot_trees: list[str | None] = [None] * n_replicates

@@ -30,6 +30,16 @@ ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
 ALN = str(GOLDEN / "example.phy")
 TREE = str(GOLDEN / "ref_tree.nwk")
+NEX = str(GOLDEN / "example.nex")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread per worker: tier-1 runs six workers on the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _logl(prefix: Path) -> float:
@@ -95,10 +105,10 @@ def test_search_with_ufboot_through_the_module(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["-lbp", "1000"], "-lbp: not yet ported"),
-    (["-b", "10"], "-b: not yet ported"),
-    (["-p", ALN], "-p/-spp: not yet ported"),
+    (["--root-test"], "--root-test: not yet ported"),
+    (["-lmap", "100"], "-lmap: not yet ported"),
     (["--pmsf"], "--pmsf: not yet ported"),
-    (["--symtest"], "--symtest: not yet ported"),
+    (["--date", "TAXNAME"], "--date: not yet ported"),
 ])
 def test_unported_flag_is_refused(tmp_path, extra, message):
     argv = ["-s", ALN, "-m", "GTR+G", "-te", TREE, "--device", "cpu",
@@ -109,10 +119,11 @@ def test_unported_flag_is_refused(tmp_path, extra, message):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["-m", "GTR+G", "-g", TREE], "-g: not yet ported"),
+    (["-m", "GTR+G", "--dist-nranks", "2"], "--dist-nranks: not yet ported"),
     (["-m", "GTR+G", "-te", TREE, "-bb", "100"], "-bb/-B: the ultrafast"),
     (["-m", "GTR+G", "-blfix"], "-blfix: fixes the branch lengths"),
-    (["-te", TREE, "-m", "MF+MERGE"], r"-m MF\+MERGE: partition merging"),
+    (["-te", TREE, "-m", "GTR+G", "--alisim", "x"],
+     "--alisim: not yet ported"),
     (["-m", "GTR+G", "-t", TREE], "-t: not yet ported"),
     (["-te", TREE, "-m", "GTR+G", "-blmin", "1e-5"],
      "-blmin: not yet ported"),
@@ -128,6 +139,34 @@ def test_unported_path_is_refused(tmp_path, argv, message):
     with pytest.raises(SystemExit, match=message):
         cli.main(["-s", ALN, "--device", "cpu", "-pre", str(tmp_path / "x"),
                   "--quiet"] + argv)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["-p", NEX, "-asr"], "-asr with -p/-q/-Q"),
+    (["-q", NEX, "-z", TREE], "-z with -p/-q/-Q"),
+    (["-p", NEX, "-b", "10"], "-b with -p/-q/-Q"),
+    (["-Q", NEX, "-g", TREE], "-g with -p/-q/-Q"),
+    (["-p", NEX, "--runs", "2"], "--runs with -p/-q/-Q"),
+    (["-p", NEX, "-wsl"], "-wsl with -p/-q/-Q"),
+    (["-p", NEX, "-o", "Frog"], "-o with -p/-q/-Q"),
+    (["-S", NEX, "-B", "100", "-bsam", "GENE"], "-bsam/--sampling with -S"),
+    (["-p", NEX, "-m", "WHTEST"], "-m WHTEST: not a model selection mode"),
+    (["-te", TREE, "-g", TREE], "-g: constrains the tree search"),
+    (["-te", TREE, "-m", "MF+MERGE"], r"-m MF\+MERGE: partition merging"),
+    (["-B", "100", "-bsam", "GENE"], "-bsam GENE: resamples partitions"),
+    (["-p", NEX, "--merge", "kmeans"], "--merge: chooses the partition"),
+    (["-p", NEX, "--symtest-pval", "0.1"], "--symtest-pval: is the cutoff"),
+])
+def test_flag_the_path_would_ignore_is_refused(tmp_path, argv, message):
+    """With partitions (-p/-q/-Q), each flag the JAX package's partition
+    path accepts and never reads (ROADMAP C8) stops the run, and so do the
+    other flags that would be ignored: -bsam with -S (the JAX package's
+    own refusal), -g with a fixed -te tree, a merge or a partition
+    resampling unit without partitions."""
+    with pytest.raises(SystemExit, match=message):
+        cli.main(["-s", ALN, "--device", "cpu", "-pre", str(tmp_path / "x"),
+                  "--quiet"] + argv)
+    assert not (tmp_path / "x.iqtree").exists()
 
 
 def _report(prefix) -> str:

@@ -1,6 +1,7 @@
 """The Hopper kernels (H1-H3) against their plain PyTorch versions on a card,
-and the search path on the card (fused NNI round, NNI hill-climb, joint
-fit) against the CPU engine.
+also at the partitioned path's shapes, and the search path on the card
+(fused NNI round, NNI hill-climb, joint fit) and the partition engine
+against the CPU's plain versions.
 
 This file imports nothing of JAX and nothing of the JAX package, so it runs
 on the machine with the card, which has no jax; the repository's
@@ -325,3 +326,121 @@ def test_supports_and_site_outputs_on_cuda_match_cpu(cuda, model_name):
     for k, (sh, ab) in gpu["branches"].items():
         assert sh == cpu["branches"][k][0]
         assert ab == pytest.approx(cpu["branches"][k][1], abs=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(kernelcheck.PARTITIONS))
+def test_kernels_match_plain_on_partitions(cuda, name, dtype):
+    """The partitioned path's shapes (kernelcheck.PARTITIONS: a partition
+    under 512 patterns, one lacking a quarter of the taxa, protein beside
+    DNA): every partition engine's kernels against their plain versions."""
+    from iqtree2_tpu_torch.partition.engine import PartitionEngine
+    sa, tree, models, rates = kernelcheck.simulate_partitioned(name, 24,
+                                                               seed=2)
+    peng = PartitionEngine(sa, models, rates, dtype=dtype, device=cuda)
+    for eng in peng.engines:
+        before = dict(kernels.LAUNCHES)
+        for r in kernelcheck.check(eng, tree):
+            assert r["ok"], (name, r)
+        assert all(kernels.LAUNCHES[k] > before[k] for k in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nni5", [False, True])
+def test_partition_engine_on_cuda_matches_cpu(cuda, nni5):
+    """A PartitionEngine over DNA and protein partitions, one lacking taxa
+    (edge-proportional, float64): the joint branch-length Newton, the
+    partition rates and the NNI scores on the card against the CPU's plain
+    versions, one down_pass and one theta_pass launch per partition per
+    Newton round."""
+    from iqtree2_tpu_torch.partition.engine import PartitionEngine
+    M = kernelcheck.MODELS
+    sa, tree, models, rates = kernelcheck.simulate_loci(
+        [("DNA", M["GTR+G4"][2], 300, 0.0, 1.0),
+         ("AA", M["LG+G4"][2], 150, 0.2, 1.0)], 20, seed=4)
+    out = []
+    for dev in ("cpu", cuda):
+        peng = PartitionEngine(sa, models, rates, dtype=torch.float64,
+                               device=dev)
+        peng.part_rates[:] = (0.7, 1.6)
+        t = tree.copy()
+        before = dict(kernels.LAUNCHES)
+        logl = peng.optimize_branches(t, n_rounds=3)
+        if dev != "cpu":
+            used = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            assert used["theta_pass"] == 3 * 2 and used["up_pass"] == 0
+        logl_r = peng.optimize_part_rates(t)
+        sched = build_schedule(t)
+        c = build_nni_candidates(t, sched)
+        ca = np.stack([c.iu, c.iv, c.slot_c, c.edge_id])
+        scores = peng.evaluate_nni_batch(
+            sched, ca, **(dict(nni5=True) if nni5
+                          else dict(return_site_lp=True)))
+        out.append((logl, logl_r, peng.part_rates.copy(), scores))
+    (cl, cr, crates, cs), (gl, gr, grates, gs) = out
+    assert gl == pytest.approx(cl, rel=1e-10)
+    assert gr == pytest.approx(cr, rel=1e-10)
+    np.testing.assert_allclose(grates, crates, rtol=1e-8)
+    for g, c in zip(gs, cs):
+        np.testing.assert_allclose(g, c, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_partitioned_fit_through_the_cli_on_cuda(cuda, tmp_path):
+    """-p example.nex -m GTR+G -te ref_tree.nwk --f64 on the card: the JAX
+    package's logL on the CPU within 0.01, with every partition's passes
+    on the kernels."""
+    from pathlib import Path
+    from iqtree2_tpu_torch import cli
+    golden = Path(__file__).parent / "golden"
+    kernels.reset_launch_counts()
+    assert cli.main(["-s", str(golden / "example.phy"), "-p",
+                     str(golden / "example.nex"), "-m", "GTR+G", "-te",
+                     str(golden / "ref_tree.nwk"), "--f64", "--device",
+                     "cuda", "-pre", str(tmp_path / "p"), "--quiet"]) == 0
+    text = (tmp_path / "p.iqtree").read_text()
+    logl = float(text.split("Log-likelihood of the tree:")[1].split()[0])
+    assert logl == pytest.approx(-21784.3628, abs=0.01)
+    assert kernels.LAUNCHES["sitelp"] > 0 and \
+        kernels.LAUNCHES["theta_pass"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags,outputs", [
+    (["-g", "constraint.nwk"], [".treefile"]),
+    (["-b", "2"], [".boottrees", ".treefile", ".contree"]),
+    (["--runs", "2"], [".run1.treefile", ".run2.treefile"]),
+    (["--symtest"], [".symtest.csv", ".treefile"])])
+def test_single_alignment_flags_on_cuda_match_cpu(cuda, tmp_path, flags,
+                                                  outputs):
+    """-g, -b, --runs and --symtest through the CLI in float64 on the card
+    and on the CPU at small search settings: the same trees (topologies
+    and support labels, line by line) and the same symmetry tests."""
+    import re
+    from pathlib import Path
+    from iqtree2_tpu_torch import cli
+    from iqtree2_tpu_torch.io.alignment_io import read_alignment
+    golden = Path(__file__).parent / "golden"
+    (tmp_path / "constraint.nwk").write_text("((Frog,Human),(Turtle,Mouse));")
+    flags = [str(tmp_path / f) if f.endswith(".nwk") else f for f in flags]
+    names = read_alignment(str(golden / "example.phy")).names
+
+    def lines(path):
+        text = path.read_text()
+        if path.suffix == ".csv":
+            return text.splitlines()
+        return [(Tree.from_newick(ln, names).topology_id(),
+                 re.findall(r"\)([^:,();]+)", ln))
+                for ln in text.splitlines()]
+
+    out = []
+    for dev in ("cpu", "cuda"):
+        assert cli.main(["-s", str(golden / "example.phy"), "-m", "GTR+G",
+                         "--f64", "-n", "1", "-ninit", "5", "-ntop", "2",
+                         "-nbest", "2"] + flags + [
+                             "--device", dev, "-pre", str(tmp_path / dev),
+                             "--quiet"]) == 0
+        out.append([lines(Path(f"{tmp_path / dev}{ext}"))
+                    for ext in outputs])
+    assert out[1] == out[0]

@@ -174,3 +174,26 @@ def test_model_fit_on_golden_matches_jax_host_loop(monkeypatch):
                                                                 jaln.names))
     assert lt == pytest.approx(golden["g4_gtrg_opt"], abs=0.5)
     assert lt == pytest.approx(lj, abs=0.05)
+
+
+@pytest.mark.parametrize("change", ["parameters", "model objects"])
+def test_float64_view_follows_the_engine(change):
+    """LikelihoodEngine.precise(), the float64 view that the fits'
+    objectives evaluate, gives the float32 engine's logL (to float32
+    rounding) after a parameter change and after the engine is handed
+    other model objects, as ModelFinder does when it reuses one engine for
+    every candidate."""
+    aln, tree, _, _, _ = _problem(seed=4, ntaxa=12, nsites=300)
+    model, rates, _ = build_model("GTR+G", aln)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
+                           device="cpu")
+    view = eng.precise()
+    assert view.dtype == torch.float64 and eng.precise() is view
+    if change == "parameters":
+        rates.alpha = 0.3
+    else:
+        eng.model, eng.rates, _ = build_model("HKY+R3", aln)
+    eng.refresh_model()
+    sched = build_schedule(tree)
+    assert eng.precise().loglik_sched(sched) == pytest.approx(
+        eng.loglik_sched(sched), rel=1e-6)

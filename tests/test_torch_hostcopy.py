@@ -2,12 +2,14 @@
 originals, on the same inputs (files of tests/golden, numpy seeds).
 
 iqtree2_tpu_torch keeps copies of the alignment, model, tree-schedule,
-parsimony, BIONJ, UFBoot, simulation, optimizer, WH-test, transfer-support
-and tree-test modules so that
+parsimony, BIONJ, UFBoot, simulation, optimizer, WH-test, transfer-support,
+tree-test, constraint-tree, supermatrix, terrace and symmetry-test modules
+and of the partition analysis' host helpers so that
 it imports nothing of iqtree2_tpu; each case builds its inputs twice, once
 per package, and the outputs must be equal, bit for bit.
 """
 
+import dataclasses
 import types
 
 from pathlib import Path
@@ -23,16 +25,21 @@ from iqtree2_tpu.ops import pars as jpars
 from iqtree2_tpu.search.bionj import bionj_tree as jbionj_tree
 from iqtree2_tpu.search.ufboot import UFBoot as JUFBoot
 from iqtree2_tpu.simulator import simulate_alignment as jsimulate_alignment
+from iqtree2_tpu import partition_analysis as jpartition_analysis
 from iqtree2_tpu import symtest as jsymtest
 from iqtree2_tpu import tbe as jtbe
+from iqtree2_tpu import terrace as jterrace
+from iqtree2_tpu.data import superalignment as jsuperalignment
+from iqtree2_tpu.tree import constraint as jconstraint
 from iqtree2_tpu import treetesting as jtreetesting
 from iqtree2_tpu import whtest as jwhtest
 from iqtree2_tpu.tree.schedule import build_schedule as jbuild_schedule
 from iqtree2_tpu.tree.topology import Tree as JTree
 from iqtree2_tpu.utils.optimize import brent_minimize as jbrent
 from iqtree2_tpu.utils.optimize import lbfgsb_minimize as jlbfgsb
-from iqtree2_tpu_torch import (kernelcheck, native, symtest, tbe,
-                               treetesting, whtest)
+from iqtree2_tpu_torch import (kernelcheck, native, partition_analysis,
+                               symtest, tbe, terrace, treetesting, whtest)
+from iqtree2_tpu_torch.data import superalignment
 from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.io.alignment_io import (read_alignment, write_fasta,
                                                write_phylip)
@@ -42,6 +49,7 @@ from iqtree2_tpu_torch.ops import pars
 from iqtree2_tpu_torch.search.bionj import bionj_tree
 from iqtree2_tpu_torch.search.ufboot import UFBoot
 from iqtree2_tpu_torch.simulator import simulate_alignment
+from iqtree2_tpu_torch.tree import constraint
 from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
 from iqtree2_tpu_torch.utils.optimize import brent_minimize, lbfgsb_minimize
@@ -281,3 +289,160 @@ def test_evaluate_trees_matches_jax(do_au):
         assert res.p_au is None and jres.p_au is None
     assert treetesting.format_treetest_table(res, alpha=0.05) == \
         jtreetesting.format_treetest_table(jres, alpha=0.05)
+
+
+CONSTRAINT = "((Frog,Turtle),(Human,Seal),Cow);"
+
+
+def test_constraint_matches_jax():
+    """TopologyConstraint's mask and splits, and its verdict on random
+    trees, partial ones (taxa still to be added) included."""
+    names = read_alignment(str(GOLDEN / "example.phy")).names
+    c = constraint.TopologyConstraint(CONSTRAINT, names)
+    jc = jconstraint.TopologyConstraint(CONSTRAINT, names)
+    assert c.mask == jc.mask and c.splits == jc.splits and len(c.splits) == 2
+    verdicts = []
+    for seed in range(30):
+        tree = Tree.random_topology(names, np.random.default_rng(seed))
+        tree, jtree = both_trees(tree, names)
+        verdicts.append(c.compatible(tree))
+        assert verdicts[-1] == jc.compatible(jtree)
+    assert any(verdicts) and not all(verdicts)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_constrained_stepwise_addition_matches_jax(seed):
+    """random_stepwise_addition under -g (the native edge costs, rejected
+    edges' node ids past the 2L its scratch was sized for): the JAX
+    package's tree, holding the constraint."""
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    jaln = jread_alignment(str(GOLDEN / "example.phy"))
+    c = constraint.TopologyConstraint(CONSTRAINT, aln.names)
+    t = pars.random_stepwise_addition(aln, np.random.default_rng(seed),
+                                      constraint=c)
+    jt = jpars.random_stepwise_addition(
+        jaln, np.random.default_rng(seed),
+        constraint=jconstraint.TopologyConstraint(CONSTRAINT, aln.names))
+    assert t.to_newick(digits=17) == jt.to_newick(digits=17)
+    assert c.compatible(t)
+
+
+def test_superalignment_matches_jax():
+    """read_partition_spec of example.nex, the bootstrap weights of every
+    -bsam unit from one generator, expand_to_taxa and a merged
+    partition."""
+    nex, phy = str(GOLDEN / "example.nex"), str(GOLDEN / "example.phy")
+    sa = superalignment.read_partition_spec(nex, phy)
+    jsa = jsuperalignment.read_partition_spec(nex, phy)
+    assert (sa.names, sa.part_names, sa.part_models) == \
+        (jsa.names, jsa.part_names, jsa.part_models)
+    assert sa.part_models == ["HKY", "GTR+G", "GTR+G"]
+    for p, jp in zip(sa.partitions, jsa.partitions):
+        for f in ("patterns", "pattern_weights", "site_to_pattern"):
+            np.testing.assert_array_equal(getattr(p, f), getattr(jp, f))
+    np.testing.assert_array_equal(sa.site_to_pattern, jsa.site_to_pattern)
+    np.testing.assert_array_equal(sa.pattern_offsets(),
+                                  jsa.pattern_offsets())
+    for spec in ("", "GENE", "GENESITE"):
+        np.testing.assert_array_equal(
+            sa.bootstrap_pattern_weights(np.random.default_rng(4), 5,
+                                         spec=spec),
+            jsa.bootstrap_pattern_weights(np.random.default_rng(4), 5,
+                                          spec=spec))
+    sub = sa.partitions[0].subset_taxa([3, 0, 7])
+    jsub = jsa.partitions[0].subset_taxa([3, 0, 7])
+    (e, pres), (je, jpres) = (superalignment.expand_to_taxa(sub, sa.names),
+                              jsuperalignment.expand_to_taxa(jsub, sa.names))
+    np.testing.assert_array_equal(e.patterns, je.patterns)
+    np.testing.assert_array_equal(pres, jpres)
+    assert pres.sum() == 3
+    m = sa.merged_partition([0, 2], "part1+part3")
+    jm = jsa.merged_partition([0, 2], "part1+part3")
+    np.testing.assert_array_equal(m.patterns, jm.patterns)
+    np.testing.assert_array_equal(m.pattern_weights, jm.pattern_weights)
+
+
+def test_bootstrap_alignment_site_map_repaired():
+    """Alignment.bootstrap_alignment draws the JAX package's patterns and
+    weights; its site map indexes the kept patterns, where the JAX copy's
+    runs past them (ROADMAP C9)."""
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    jaln = jread_alignment(str(GOLDEN / "example.phy"))
+    b = aln.bootstrap_alignment(np.random.default_rng(5))
+    jb = jaln.bootstrap_alignment(np.random.default_rng(5))
+    np.testing.assert_array_equal(b.patterns, jb.patterns)
+    np.testing.assert_array_equal(b.pattern_weights, jb.pattern_weights)
+    assert b.expand_to_sites().shape == (aln.nsites, aln.ntaxa)
+    np.testing.assert_array_equal(np.bincount(b.site_to_pattern),
+                                  b.pattern_weights)
+    with pytest.raises(IndexError):
+        jb.expand_to_sites()
+
+
+def test_terrace_matches_jax():
+    """Induced fingerprints, the NNI terrace check, the capped enumeration
+    and the exact count over partitions that lack taxa."""
+    names = [f"t{i}" for i in range(10)]
+    sets = [set(range(10)), {0, 1, 2, 3, 4, 5}, {0, 4, 5, 6, 7, 8, 9}]
+    for seed in range(4):
+        tree, jtree = both_trees(
+            Tree.random_topology(names, np.random.default_rng(seed)), names)
+        assert terrace.induced_fingerprint(tree, sets[1:]) == \
+            jterrace.induced_fingerprint(jtree, sets[1:])
+        assert terrace.check_terrace(tree, sets[1:]) == \
+            jterrace.check_terrace(jtree, sets[1:])
+        assert terrace.enumerate_terrace(tree, sets[1:], cap=50) == \
+            jterrace.enumerate_terrace(jtree, sets[1:], cap=50)
+        count = terrace.count_terrace_exact(tree, sets[1:])
+        assert count == jterrace.count_terrace_exact(jtree, sets[1:])
+        assert count > 1
+        assert terrace.count_terrace_exact(tree, sets) == 1
+    sa = superalignment.build_superalignment(
+        [read_alignment(str(GOLDEN / "example.phy")).subset_taxa(ix)
+         for ix in ([0, 1, 2, 3, 4], [0, 5, 6, 7, 8])])
+    assert terrace.coverage_taxa_sets(sa) == [{0, 1, 2, 3, 4},
+                                              {0, 5, 6, 7, 8}]
+
+
+@pytest.mark.parametrize("name", ["example.phy", "protein"])
+def test_symtest_matches_jax(name, tmp_path):
+    """pair_symtest on every pair, run_symtest's maximum-divergence pair and
+    the .symtest.csv they write."""
+    aln, jaln = _both_alignments(name, tmp_path)
+    for i, j in ((0, 1), (2, 5), (3, 4)):
+        N = symtest.divergence_matrix(aln, i, j)
+        np.testing.assert_equal(
+            dataclasses.astuple(symtest.pair_symtest(N, (i, j))),
+            dataclasses.astuple(jsymtest.pair_symtest(N, (i, j))))
+    res, jres = symtest.run_symtest(aln), jsymtest.run_symtest(jaln)
+    np.testing.assert_equal(dataclasses.astuple(res),
+                            dataclasses.astuple(jres))
+    symtest.write_symtest_csv(str(tmp_path / "a.csv"), [("aln", res)])
+    jsymtest.write_symtest_csv(str(tmp_path / "b.csv"), [("aln", jres)])
+    assert (tmp_path / "a.csv").read_text() == \
+        (tmp_path / "b.csv").read_text()
+
+
+def test_partition_analysis_helpers_match_jax(tmp_path):
+    """The merges' one-dimensional k-means and pooled scores, and
+    .best_scheme.nex."""
+    rng = np.random.default_rng(8)
+    x, w = rng.uniform(0.1, 3.0, 9), rng.integers(100, 900, 9).astype(float)
+    for k in (1, 2, 3, 5, 9):
+        assert partition_analysis._kmeans_1d(x, w, k) == \
+            jpartition_analysis._kmeans_1d(x, w, k)
+    rows = [{"logL": -rng.uniform(1e3, 5e3), "df": int(rng.integers(1, 40))}
+            for _ in range(4)]
+    for crit in ("AIC", "AICc", "BIC"):
+        assert partition_analysis._pooled_score(rows, 2000, crit) == \
+            jpartition_analysis._pooled_score(rows, 2000, crit)
+    nex, phy = str(GOLDEN / "example.nex"), str(GOLDEN / "example.phy")
+    models = ["TIM2+G", "HKY+I", "GTR+F+R2"]
+    partition_analysis.write_best_scheme(
+        tmp_path / "a.nex", superalignment.read_partition_spec(nex, phy),
+        models)
+    jpartition_analysis.write_best_scheme(
+        tmp_path / "b.nex", jsuperalignment.read_partition_spec(nex, phy),
+        models)
+    assert (tmp_path / "a.nex").read_text() == \
+        (tmp_path / "b.nex").read_text()

@@ -11,6 +11,7 @@ uses to set up its problems are tested here as well.
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -165,3 +166,23 @@ def test_perturbed_copies_and_moves():
     assert tree.topology_id() == before
     assert n_a == n_b > 0
     assert a.topology_id() == b.topology_id() != before
+
+
+@pytest.mark.parametrize("n_loci", [2, 10])
+def test_simulated_loci_lack_taxa_but_cover_all(n_loci, tmp_path):
+    """simulate_loci (phase 12d's supermatrix): every locus lacks its share
+    of the taxa, yet every taxon has data somewhere, and the partition
+    file written for it reads back with the same presence."""
+    from iqtree2_tpu_torch.data.superalignment import read_partition_spec
+    model = kernelcheck.MODELS["GTR+G4"][2]
+    sa, tree, _, _ = kernelcheck.simulate_loci(
+        [("DNA", model, 60, 0.5, 1.0)] * n_loci, 30, seed=4)
+    assert sorted(sa.names) == sorted(f"t{i}" for i in range(30))
+    assert tree.taxon_names == sa.names
+    present = np.array(sa.part_presence)
+    assert present.any(axis=0).all()
+    assert (present[:-1].sum(axis=1) == 15).all()
+    back = read_partition_spec(kernelcheck.write_partitioned(
+        sa, ["GTR+G"] * n_loci, tmp_path))
+    assert back.names == sa.names
+    np.testing.assert_array_equal(np.array(back.part_presence), present)

@@ -6,8 +6,9 @@ A subprocess blocks jax, optax and iqtree2_tpu (sys.modules[...] = None
 makes any import of them fail), imports every module of iqtree2_tpu_torch,
 and runs through the CLI on the CPU a golden fixed-tree evaluation, a
 two-iteration tree search with UFBoot, a small ModelFinder run
-(-m TESTONLY) and the command line of chip_smoke.py's phase 10 at -B 100
-(every support, the site outputs, -asr, -mldist, -o). A source scan fails on any import of
+(-m TESTONLY), the command line of chip_smoke.py's phase 10 at -B 100
+(every support, the site outputs, -asr, -mldist, -o) and a partitioned fit
+(-p example.nex -te). A source scan fails on any import of
 iqtree2_tpu itself in the port, in chip_smoke.py and in the card-only
 tests/test_torch_cuda.py.
 """
@@ -55,6 +56,11 @@ with tempfile.TemporaryDirectory() as d:
     for ext in (".treefile", ".sitelh", ".rate", ".siteprob", ".state",
                 ".mlrate", ".mldist", ".ufboot", ".contree"):
         assert open(d + "/f" + ext).read(), ext
+    assert cli.main(["-s", sys.argv[1], "-p", sys.argv[3], "-m", "GTR+G",
+                     "-te", sys.argv[2], "--device", "cpu", "-pre",
+                     d + "/p", "--quiet"]) == 0
+    assert "charpartition" in open(d + "/p.best_scheme.nex").read()
+    assert "PARTITION TABLE" in open(d + "/p.iqtree").read()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu")
             and sys.modules[m] is not None]
@@ -68,7 +74,8 @@ def test_port_runs_with_jax_blocked():
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT,
          str(ROOT / "tests" / "golden" / "example.phy"),
-         str(ROOT / "tests" / "golden" / "ref_tree.nwk")],
+         str(ROOT / "tests" / "golden" / "ref_tree.nwk"),
+         str(ROOT / "tests" / "golden" / "example.nex")],
         capture_output=True, text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     n_mod, logl = res.stdout.split()[0], res.stdout.split()[-1]

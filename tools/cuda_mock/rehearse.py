@@ -15,7 +15,9 @@ whose tip rows are NaN (no kernel may read them); DNA (the register
 column, and C = 8 through the two-sweep column), protein and a 61-state
 GTR, float32 and float64, on trees deep enough to rescale; and the shapes
 ModelFinder brings (one category, FreeRate weights with +I, ten
-categories, at 4 and 20 states). It checks
+categories, at 4 and 20 states), and every partition engine of the
+supermatrices of kernelcheck.PARTITIONS (a short partition, one lacking
+taxa, protein beside DNA). It checks
 indexing, the barriers and the rescale; it says nothing of speed or of
 what nvcc accepts.
 """
@@ -43,6 +45,7 @@ from iqtree2_tpu_torch.engine import LikelihoodEngine  # noqa: E402
 from iqtree2_tpu_torch.model.rates import RateGamma  # noqa: E402
 from iqtree2_tpu_torch.model.subst import GTRModel  # noqa: E402
 from iqtree2_tpu_torch.ops import kernels  # noqa: E402
+from iqtree2_tpu_torch.partition.engine import PartitionEngine  # noqa: E402
 from iqtree2_tpu_torch.tree.topology import Tree  # noqa: E402
 
 
@@ -114,6 +117,14 @@ def main() -> int:
             for dtype in (torch.float32, torch.float64):
                 check(lib, LikelihoodEngine(aln, model, rates, dtype=dtype,
                                             device="cpu"), tree, name)
+        for name in kernelcheck.PARTITIONS:
+            sa, tree, models, rates = kernelcheck.simulate_partitioned(
+                name, 30, seed=3)
+            for dtype in (torch.float32, torch.float64):
+                peng = PartitionEngine(sa, models, rates, dtype=dtype,
+                                       device="cpu")
+                for k, eng in enumerate(peng.engines):
+                    check(lib, eng, tree, f"{name} partition {k + 1}")
         rng = np.random.default_rng(3)
         names = [f"t{i}" for i in range(7)]
         codons = [a + b + c for a in "ACGT" for b in "ACGT" for c in "ACGT"
