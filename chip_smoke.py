@@ -21,7 +21,7 @@ ending in torch.cuda.synchronize():
    LG+F+R10 (C * S = 200), in float32 and float64 (tolerances in
    iqtree2_tpu_torch/kernelcheck.py; down_pass with its site-logL
    epilogue, up_pass, theta_pass), timed through the wrappers and back to
-   back, with each problem's bounds;
+   back (3 repetitions, cut from 10 for time), with each problem's bounds;
 4. the golden run through the CLI, -s tests/golden/example.phy -m GTR+G
    -te tests/golden/ref_tree.nwk, in float64 (logL within 0.5 of the
    reference IQ-TREE's) and float32 (finite, within 10); the launch counts
@@ -121,24 +121,46 @@ ending in torch.cuda.synchronize():
    (d) a supermatrix of 20 loci x 1000 sites over 100 taxa, each locus
    simulated under GTR+G4, HKY+G4, TN+I+G4 or K2P+R3 at a rate in 0.25-4
    without a tenth of the taxa, one PHYLIP file per locus, searched with
-   -p -m GTR+G -B 1000 -n 10 -ninit 20 -nbest 2 (start trees cut for
-   time) under the charpartition's models: a .terrace
+   -p -m GTR+G -B 1000 -n 5 -ninit 10 -nbest 1 (iterations and start
+   trees cut for time) under the charpartition's models: a .terrace
    report, 1000 replicate trees; then each kernel against its plain
    version at the shapes of its smallest partition and of its largest
    (each lacks a tenth of the taxa); (e) the last single-alignment flags
    on example.phy under -m GTR+G, each command line counted and every
    kernel launched: -g with a 4-taxon constraint that the reference
-   topology breaks (its split in .treefile), -b 5 (5 trees in .boottrees,
+   topology breaks (its split in .treefile), -b 3 (3 trees in .boottrees,
    14 supports, a .contree), --runs 2 (.run1 and .run2, the best printed)
-   and --symtest (a .symtest.csv row).
+   and --symtest (a .symtest.csv row);
+13. the mixture models and PMSF, float32 unless stated, each command line
+   under the launch and pass counters (one launch per pass): (a) each
+   kernel against its plain version (the plain references window by
+   window of patterns, kernelcheck.plain_window) at LG+C20+G4 (C = 80,
+   one eigensystem per class) and LG4X (four eigensystems on four
+   categories) at 64 x 4096, LG+C60+G4 (C = 240) at 64 x 5400 (4163
+   patterns: the unified buffer holds 2.55 x 10^9 values, past 2^31), and
+   LG+C20+G4 at 64 x 1024 in float64, with times (2 repetitions),
+   bounds, shares, occupancy, launches and peak memory; (b) -m LG+C60+G --pmsf -te on 100 taxa x 2000 sites
+   simulated class by class (kernelcheck.simulate_mixture): the guide
+   fit runs the kernels at C = 240, .sitefreq rows sum to 1 within 1e-4,
+   the PMSF logL is at least the guide mixture's - 1, peak device memory
+   under 70 GiB; (c) -m LG+C20+G -B 1000 -wspm -n 5 -ninit 20 -nbest 2
+   (the search's depth cut for time) on 24 x 1000: 1000 replicate trees,
+   .siteprob with 20 class columns summing to 1, every kernel launched;
+   (d) -m LG+C20+G --pmsf -B 1000 at (c)'s depth on (c)'s alignment:
+   the search on the site-specific-frequency engine with NNI1, .sitefreq,
+   1000 replicate trees; (e) MIX{LG,WAG}+G fitted (class weights, Gamma
+   shape, branch lengths) at 64 x 1024 in float64 on the card, its logL
+   within 1e-3 of the same fit on the CPU (the plain versions), which
+   runs beside phases 2-13 in a process of its own.
 
-A "[time]" line gives the start of each phase and the end of phase 12.
+A "[time]" line gives the start of each phase and the end of phase 13.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
 phase-8 default command, the program's main path, slice_launches
-from phase 10's first command line, the supports' path, and
-partition_launches from phase 12's partitioned default command; times,
+from phase 10's first command line, the supports' path,
+partition_launches from phase 12's partitioned default command and
+mixture_launches from phase 13c's mixture search; times,
 back-to-back times
 and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
 single PyTorch call computes a pruning pass, so library_ms is null); the
@@ -172,6 +194,7 @@ REPLACES = {
 # the kernels of the standalone launches the passes absorbed
 GONE = ("root_sitelp", "edge_theta")
 CHECK_TAXA, CHECK_SITES = 64, 4096
+CHECK_REPS = 3     # phase 3's timing repetitions (10 until PR 8)
 # phase 3's problems: the search's models, then ModelFinder's shapes
 CHECK_MODELS = ("GTR+G4", "GTR+G8", "LG+G4", "JC", "GTR+I+R3", "GTR+R10",
                 "LG+I", "LG+F+R10")
@@ -212,9 +235,10 @@ MAX_RATE_DEV = 0.05         # 12c: every locus has the same rate
 # 12d: the loci's simulating models (every parameter fixed) and the model
 # the charpartition names for each
 LOCI, LOCUS_SITES, LOCUS_TAXA, LOCUS_GAPS = 20, 1000, 100, 0.1
-# 12d's start trees, cut from the defaults (-ninit 100, -nbest 5) for the
-# script's time: each NNI polish of a start tree takes about 13 s there
-LOCUS_START = ["-ninit", "20", "-nbest", "2"]
+# 12d's search depth, cut from the defaults (-ninit 100, -nbest 5) for the
+# script's time: each NNI polish of a start tree takes about 13 s there;
+# -n 10 and -ninit 20 -nbest 2 until PR 8 made room for phase 13
+LOCUS_DEPTH = ["-n", "5", "-ninit", "10", "-nbest", "1"]
 LOCUS_MODELS = (
     ("GTR+G", "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}"),
     ("HKY+G", "HKY{3.0}+F{0.25,0.25,0.2,0.3}+G{0.8}"),
@@ -223,7 +247,25 @@ LOCUS_MODELS = (
 # 12e: a 4-taxon constraint that the reference topology breaks (there
 # Frog,Turtle | Human,Mouse), and the standard bootstrap's replicates
 CONSTRAINT = "((Frog,Human),(Turtle,Mouse));"
-STANDARD_REPLICATES = 5
+STANDARD_REPLICATES = 3     # 12e's -b (5 until PR 8)
+# phase 13: the mixture problems of the kernel checks (kernelcheck.MODELS
+# name, sites, dtype) at CHECK_TAXA taxa; LG+C60+G4's 5400 sites give 4163
+# patterns, so its unified buffer holds 126 x 4800 x 4224 values, past 2^31
+MIX_CHECKS = (("LG+C20+G4", CHECK_SITES, "float32"),
+              ("LG+C60+G4", 5400, "float32"),
+              ("LG+C20+G4", SLICE_SITES, "float64"),
+              ("LG4X", CHECK_SITES, "float32"))
+MIX_TIME_REPS = 2      # 13a: a pass takes up to 250 ms there
+PMSF_TAXA, PMSF_SITES = 100, 2000      # 13b: the guide fit at C = 240
+MAX_PMSF_GIB = 70.0
+MIX_TAXA, MIX_SITES = 24, 1000         # 13c and 13d
+MIX_REPLICATES = 1000
+# 13c's and 13d's search depth, cut for the script's time from the
+# defaults (about 100 iterations, -ninit 100 -nbest 5): an iteration took
+# 1.2-1.3 s there
+MIX_DEPTH = ["-n", "5", "-ninit", "20", "-nbest", "2"]
+WEIGHT_TAXA, WEIGHT_SITES = 64, 1024   # 13e: MIX{LG,WAG}+G's weights
+WEIGHT_TOL = 1e-3                      # 13e: card against the CPU, float64
 
 
 def fail(msg: str) -> int:
@@ -619,11 +661,11 @@ def partition_rates(prefix: Path) -> list[float]:
 
 
 def counted(args: list[str], tag: str, split: bool = False) -> dict:
-    """Phase 12's run of one command line: the launch counts reset just
-    before and read just after, held to one launch per pass; prints the
-    wall, the launches, the passes per partition (per tip-partial tensor,
-    one per partition engine), the peak device memory and with split the
-    partition fit's wall split. Returns the launches."""
+    """Phase 12's and 13's run of one command line: the launch counts reset
+    just before and read just after, held to one launch per pass; prints
+    the wall, the launches, the passes per partition (per tip-partial
+    tensor, one per partition engine), the peak device memory and with
+    split the partition fit's wall split. Returns the launches."""
     import torch
     from iqtree2_tpu_torch.ops import kernels
     torch.cuda.reset_peak_memory_stats()
@@ -749,8 +791,8 @@ def part_loci(errors: dict) -> None:
           f"{LOCUS_TAXA} taxa in {time.perf_counter() - t0:.1f} s; "
           f"patterns {[p.num_patterns for p in sa.partitions]}", flush=True)
     sup = OUT / "part_loci"
-    counted(["-p", lnex, "-m", "GTR+G", "-B", str(FLAGSHIP_REPLICATES),
-             "-n", "10"] + LOCUS_START + ["-pre", str(sup)], "[phase 12d]")
+    counted(["-p", lnex, "-m", "GTR+G", "-B", str(FLAGSHIP_REPLICATES)]
+            + LOCUS_DEPTH + ["-pre", str(sup)], "[phase 12d]")
     terrace = Path(f"{sup}.terrace").read_text()
     n_boot = len(Path(f"{sup}.ufboot").read_text().splitlines())
     print(f"[phase 12d] logL {report_logl(sup):.4f}; {n_boot} replicate "
@@ -839,6 +881,273 @@ def part_flags() -> None:
     if len(rows) != 2 or not rows[0].startswith("Name,SymSig"):
         raise RuntimeError("--symtest wrote no .symtest.csv row")
 
+def mix_kernels(errors: dict) -> None:
+    """13a: the kernels against their plain versions at the mixtures'
+    shapes (MIX_CHECKS; the plain references window by window), each pass
+    one launch, with times, bounds, shares, occupancy and peak memory."""
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.ops import kernels
+    from iqtree2_tpu_torch.tree.schedule import build_schedule
+    largest = 0
+    for name, sites, dt in MIX_CHECKS:
+        dtype = getattr(torch, dt)
+        aln, tree, model, rates = kernelcheck.simulate(name, CHECK_TAXA,
+                                                       sites, seed=1)
+        eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device="cuda")
+        C, S = int(eng._pack["cat_rate"].shape[0]), aln.num_states
+        torch.cuda.reset_peak_memory_stats()
+        window = kernelcheck.plain_window(eng)
+        tag = f"[phase 13a] {name} {CHECK_TAXA} x {sites}"
+        res = check_kernels(tag, eng, tree, MIX_TIME_REPS, errors,
+                            window=window, b2b_reps=MIX_TIME_REPS)
+        bnd = kernelcheck.bounds(eng, tree)
+        share = {r["name"]: (round(bnd[r["name"]]["bound_ms"], 6),
+                             round(bnd[r["name"]]["bound_ms"] / r["b2b_ms"],
+                                   4)) for r in res}
+        share["down_pass + epilogue"] = (
+            round(bnd["down_pass_sitelp"]["bound_ms"], 6),
+            round(bnd["down_pass_sitelp"]["bound_ms"]
+                  / res[0]["sitelp_b2b_ms"], 4))
+        occ = {k: kernels.pass_occupancy(k, dtype, C, S, eng.Pp)
+               for k in kernels.PASS_KINDS}
+        rows = (aln.ntaxa + build_schedule(tree).n_int) * C * S * eng.Pp
+        largest = max(largest, rows)
+        print(f"{tag} {dt} C={C} M={len(model.components)}: unified buffer "
+              f"{rows} values ({rows / 2**31:.2f} x 2^31); plain window "
+              f"{window}; launches per pass "
+              f"{ {r['name']: r['launches'] for r in res} } (sitelp "
+              f"{res[0]['sitelp_launches']}); (bound ms, share of back to "
+              f"back) {share}; (blocks per SM, shared bytes) {occ}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB", flush=True)
+        if any(r["launches"] != 1 for r in res) or \
+                res[0]["sitelp_launches"] != 1:
+            raise RuntimeError(f"{tag}: not one launch per pass: {res}")
+        del eng, res
+        torch.cuda.empty_cache()
+    if largest <= 2 ** 31:
+        raise RuntimeError(f"no unified buffer past 2^31 values: {largest}")
+
+
+def log_value(prefix: Path, label: str) -> float:
+    """The number after ``label`` in a run's .log."""
+    return float(re.search(re.escape(label) + r" (-?[\d.]+)",
+                           log_lines(prefix)).group(1))
+
+
+def check_rows(path: Path, skip: int, ncol: int, nrows: int) -> None:
+    """A per-site table (.sitefreq, .siteprob) holds nrows rows of ncol
+    probabilities after the site number, each row summing to 1 within
+    1e-4."""
+    import numpy as np
+    rows = [ln.split() for ln in path.read_text().splitlines()[skip:]]
+    t = np.array([r[1:] for r in rows], float)
+    if t.shape != (nrows, ncol):
+        raise RuntimeError(f"{path.name} holds {t.shape}, not "
+                           f"{(nrows, ncol)}")
+    err = float(np.abs(t.sum(1) - 1.0).max())
+    if not err <= 1e-4:
+        raise RuntimeError(f"{path.name} rows sum to 1 only within {err}")
+
+
+def mix_pmsf_guide() -> None:
+    """13b: -m LG+C60+G --pmsf -te on PMSF_TAXA x PMSF_SITES simulated
+    class by class: the guide fit runs the kernels at C = 240; .sitefreq
+    rows sum to 1, the PMSF logL is at least the guide's - 1, peak memory
+    under MAX_PMSF_GIB."""
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    aln, tree, _, _ = kernelcheck.simulate("LG+C60+G4", PMSF_TAXA,
+                                           PMSF_SITES, seed=1)
+    pre = OUT / "pmsf_guide"
+    phy, nwk = kernelcheck.write_problem(aln, tree, pre)
+    tag = "[phase 13b]"
+    launches = counted(["-s", phy, "-m", "LG+C60+G", "--pmsf", "-te", nwk,
+                        "-pre", str(pre)], tag)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    guide, final = log_value(pre, "PMSF guide fit logL:"), \
+        log_value(pre, "PMSF final logL:")
+    print(f"{tag} on {aln.ntaxa} x {aln.nsites} ({aln.num_patterns} "
+          f"patterns) f32: guide mixture logL {guide:.4f}, PMSF logL "
+          f"{final:.4f}, report {report_logl(pre):.4f}", flush=True)
+    check_rows(Path(f"{pre}.sitefreq"), 0, 20, aln.nsites)
+    if not final >= guide - 1.0:
+        raise RuntimeError(f"PMSF logL {final} below the guide's {guide} - 1")
+    if not peak < MAX_PMSF_GIB:
+        raise RuntimeError(f"peak device memory {peak:.2f} GiB")
+    if not all(launches[k] > 0 for k in ("down_pass", "sitelp",
+                                         "theta_pass")):
+        raise RuntimeError(f"a kernel of the guide fit was never launched: "
+                           f"{launches}")
+    ssf_times(aln, tree, Path(f"{pre}.sitefreq"))
+
+
+def ssf_times(aln, tree, sitefreq: Path) -> None:
+    """13b's site-specific-frequency functions (plain PyTorch on the card)
+    timed per call with CUDA events at 13b's shapes, on the written
+    profile under LG+G4: a log-likelihood, the down pass, the up pass, the
+    edge thetas, NNI1 scoring of every candidate (with its passes) and a
+    branch-length round."""
+    import numpy as np
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.model import pmsf
+    from iqtree2_tpu_torch.model.factory import build_model
+    from iqtree2_tpu_torch.ops import sitespecific as ssf
+    from iqtree2_tpu_torch.ops.nni import build_nni_candidates
+    from iqtree2_tpu_torch.tree.schedule import build_schedule
+    site = np.loadtxt(sitefreq)[:, 1:]
+    prof = np.zeros((aln.num_patterns, site.shape[1]))
+    prof[aln.site_to_pattern] = site
+    lg, rates, _ = build_model("LG+G4", aln)
+    eng = pmsf.SSFEngine(aln, pmsf._exch_full(lg.exch_rates, 20), prof,
+                         rates, dtype=torch.float32, device="cuda")
+    sched = build_schedule(tree)
+    sa, b = eng.schedule_arrays(sched), eng._blens(sched)
+    c = build_nni_candidates(tree, sched)
+    cand = np.stack([c.iu, c.iv, c.slot_c, c.edge_id])
+    dp = ssf.down_pass(b, eng._tipP, sa, eng.pack)
+    up = ssf.up_pass(b, dp, eng._tipP, sa, eng.pack)
+    calls = {
+        "loglik": lambda: ssf.tree_loglik(b, eng._tipP, sa, eng.pack,
+                                          eng._pw),
+        "down_pass": lambda: ssf.down_pass(b, eng._tipP, sa, eng.pack),
+        "up_pass": lambda: ssf.up_pass(b, dp, eng._tipP, sa, eng.pack),
+        "edge_thetas": lambda: ssf.edge_thetas(up, dp, sa["edge_src"],
+                                               eng.pack),
+        "nni1 scoring": lambda: eng.evaluate_nni_batch(sched, cand),
+        "branch round": lambda: eng.optimize_branches(tree.copy(),
+                                                      n_rounds=1)}
+    ms = {k: round(kernelcheck.timed_ms(fn, 3), 3) for k, fn in calls.items()}
+    print(f"[phase 13b] SSF engine per call (ms, {aln.ntaxa} taxa, "
+          f"{eng.Pp} patterns, C = 4, f32, CUDA events): {ms}", flush=True)
+
+
+def mix_search() -> tuple[str, dict]:
+    """13c: -m LG+C20+G -B 1000 -wspm on MIX_TAXA x MIX_SITES: 1000
+    replicate trees, .siteprob with the 20 classes' posteriors (rows
+    summing to 1), every kernel launched. Returns the alignment's path and
+    the launches."""
+    from iqtree2_tpu_torch import kernelcheck
+    aln, tree, _, _ = kernelcheck.simulate("LG+C20+G4", MIX_TAXA, MIX_SITES,
+                                           seed=2)
+    pre = OUT / "mix_search"
+    phy, _ = kernelcheck.write_problem(aln, tree, pre)
+    tag = "[phase 13c]"
+    launches = counted(["-s", phy, "-m", "LG+C20+G", "-B",
+                        str(MIX_REPLICATES), "-wspm"] + MIX_DEPTH
+                       + ["-pre", str(pre)], tag)
+    n_boot = len(Path(f"{pre}.ufboot").read_text().splitlines())
+    print(f"{tag} on {aln.ntaxa} x {aln.nsites} ({aln.num_patterns} "
+          f"patterns) f32: logL {report_logl(pre):.4f}, {n_boot} replicate "
+          f"trees; wall seconds: "
+          f"{re.search(r'Wall seconds: (.*)', log_lines(pre)).group(1)}",
+          flush=True)
+    if n_boot != MIX_REPLICATES:
+        raise RuntimeError(f".ufboot holds {n_boot} trees")
+    check_rows(Path(f"{pre}.siteprob"), 1, 20, aln.nsites)
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"a kernel of the path was never launched: "
+                           f"{launches}")
+    return phy, launches
+
+
+def mix_pmsf_search(phy: str) -> None:
+    """13d: -m LG+C20+G --pmsf -B 1000 on 13c's alignment: the guide fit on
+    a stepwise-addition tree, .sitefreq, then the search on the
+    site-specific-frequency engine (NNI1) with 1000 replicate trees."""
+    import contextlib
+    import io
+    pre = OUT / "mix_pmsf_search"
+    tag = "[phase 13d]"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        counted(["-s", phy, "-m", "LG+C20+G", "--pmsf", "-B",
+                 str(MIX_REPLICATES)] + MIX_DEPTH + ["-pre", str(pre)], tag)
+    n_boot = len(Path(f"{pre}.ufboot").read_text().splitlines())
+    print(f"{out.getvalue().strip()}\n{tag} guide logL "
+          f"{log_value(pre, 'PMSF guide fit logL:'):.4f}, logL "
+          f"{report_logl(pre):.4f}, {n_boot} replicate trees; wall seconds: "
+          f"{re.search(r'Wall seconds: (.*)', log_lines(pre)).group(1)}",
+          flush=True)
+    if "(NNI1)" not in out.getvalue():
+        raise RuntimeError("the PMSF search did not climb with NNI1")
+    if n_boot != MIX_REPLICATES:
+        raise RuntimeError(f".ufboot holds {n_boot} trees")
+    check_rows(Path(f"{pre}.sitefreq"), 0, 20, MIX_SITES)
+
+
+def weights_fit(device: str) -> dict:
+    """13e's fit: MIX{LG,WAG}+G on WEIGHT_TAXA x WEIGHT_SITES (simulated
+    class by class) in float64 on ``device``, the class weights and the
+    Gamma shape fitted with the branch lengths on the simulating tree
+    (the host alternation; the joint fit declines mixtures)."""
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.model.factory import build_model
+    from iqtree2_tpu_torch.model.optimize import optimize_model_parameters
+    aln, tree, _, _ = kernelcheck.simulate("MIX{LG,WAG}+G4", WEIGHT_TAXA,
+                                           WEIGHT_SITES, seed=3)
+    model, rates, _ = build_model("MIX{LG,WAG}+G", aln)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                           device=device)
+    t0 = time.perf_counter()
+    logl = optimize_model_parameters(eng, tree)
+    return {"logL": logl, "weights": model.weights.tolist(),
+            "alpha": rates.alpha, "seconds": time.perf_counter() - t0}
+
+
+def start_cpu_weights_fit() -> subprocess.Popen:
+    """13e's CPU side in a process of its own, on three CPU threads (the
+    plain versions' fit takes minutes)."""
+    import os
+    env = dict(os.environ, OMP_NUM_THREADS="3")
+    return subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke, torch; "
+         "torch.set_num_threads(3); "
+         "print(json.dumps(chip_smoke.weights_fit('cpu')))"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def mix_weights(cpu: subprocess.Popen) -> None:
+    """13e: the fitted MIX{LG,WAG}+G weights on the card, against the
+    port's own CPU fit in float64 (logL within WEIGHT_TOL)."""
+    import torch
+    from iqtree2_tpu_torch.ops import kernels
+    tag = "[phase 13e]"
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        card = weights_fit("cuda")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    passes.check(launches, tag)
+    t0 = time.perf_counter()
+    stdout, stderr = cpu.communicate(timeout=900)
+    print(f"{tag} waited {time.perf_counter() - t0:.1f} s for the CPU fit",
+          flush=True)
+    if cpu.returncode != 0:
+        raise RuntimeError(f"{tag} the CPU fit failed: {stderr[-2000:]}")
+    host = json.loads(stdout.strip().splitlines()[-1])
+    print(f"{tag} MIX{{LG,WAG}}+G -te {WEIGHT_TAXA} x {WEIGHT_SITES} f64: "
+          f"card logL {card['logL']:.6f}, weights {card['weights']}, alpha "
+          f"{card['alpha']:.6f} in {card['seconds']:.1f} s; CPU logL "
+          f"{host['logL']:.6f}, weights {host['weights']}, alpha "
+          f"{host['alpha']:.6f} in {host['seconds']:.1f} s; launches "
+          f"{launches}", flush=True)
+    if abs(card["weights"][0] - 0.5) < 1e-3:
+        raise RuntimeError(f"{tag} the class weights were not fitted")
+    if not abs(card["logL"] - host["logL"]) <= WEIGHT_TOL:
+        raise RuntimeError(f"{tag} card logL {card['logL']} against the "
+                           f"CPU's {host['logL']}")
+    if not all(launches[k] > 0 for k in ("down_pass", "sitelp",
+                                         "theta_pass")):
+        raise RuntimeError(f"{tag} a kernel was never launched: {launches}")
+
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -851,13 +1160,14 @@ def run_cli(args: list[str]) -> float:
     return time.perf_counter() - t0
 
 
-def check_kernels(tag: str, eng, tree, time_reps: int, errors: dict) -> list:
-    """kernelcheck.check on one problem; prints one line per kernel, keeps
-    the largest absolute error per kernel in ``errors``, raises on a
-    disagreement."""
+def check_kernels(tag: str, eng, tree, time_reps: int, errors: dict,
+                  **check_kw) -> list:
+    """kernelcheck.check on one problem (check_kw: its window and
+    b2b_reps); prints one line per kernel, keeps the largest absolute
+    error per kernel in ``errors``, raises on a disagreement."""
     import torch
     from iqtree2_tpu_torch import kernelcheck
-    res = kernelcheck.check(eng, tree, time_reps=time_reps)
+    res = kernelcheck.check(eng, tree, time_reps=time_reps, **check_kw)
     torch.cuda.synchronize()
     for r in res:
         extra = ""
@@ -880,6 +1190,17 @@ def check_kernels(tag: str, eng, tree, time_reps: int, errors: dict) -> list:
 
 
 def main() -> int:
+    started: list = []
+    try:
+        return run(started)
+    finally:
+        for proc in started:
+            proc.kill()
+            proc.wait()
+
+
+def run(started: list) -> int:
+    """Phases 1-13; each process it starts goes into ``started``."""
     if not (ROOT / "iqtree2_tpu_torch").is_dir() or not GOLDEN.is_dir():
         return fail("run from the root of a checkout of the repository "
                     "(iqtree2_tpu_torch/ and tests/golden/ are missing)")
@@ -910,6 +1231,10 @@ def main() -> int:
     print(smi)
     print(f"[phase 1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s): {kind}", flush=True)
+    # phase 13e's CPU side: the plain versions' fit takes minutes, so it
+    # runs beside phases 2-13 in a process of its own
+    cpu_fit = start_cpu_weights_fit()
+    started.append(cpu_fit)
 
     stamp(2)
     # 2. build
@@ -937,7 +1262,8 @@ def main() -> int:
         for dtype in (torch.float32, torch.float64):
             eng = LikelihoodEngine(aln, model, rates, dtype=dtype,
                                    device="cuda")
-            check_kernels(f"[phase 3] {name}", eng, tree, 10, errors)
+            check_kernels(f"[phase 3] {name}", eng, tree, CHECK_REPS,
+                          errors)
             c_bound = kernelcheck.bounds(eng, tree)
             print(f"[phase 3] {name} {str(dtype)[6:]} C="
                   f"{eng._pack['cat_rate'].shape[0]} bounds (ms): "
@@ -1241,7 +1567,15 @@ def main() -> int:
     part_wide(aln_path, tree_path)
     part_loci(errors)
     part_flags()
-    print(f"[time] phases 1-12 in {time.perf_counter() - t_start:.1f} s",
+
+    stamp(13)
+    # 13. mixtures and PMSF
+    mix_kernels(errors)
+    mix_pmsf_guide()
+    mix_phy, mix_launches = mix_search()
+    mix_pmsf_search(mix_phy)
+    mix_weights(cpu_fit)
+    print(f"[time] phases 1-13 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": [
@@ -1249,6 +1583,7 @@ def main() -> int:
          "replaces": REPLACES[k], "launches": main_launches[k],
          "slice_launches": slice_launches[k],
          "partition_launches": part_launches[k],
+         "mixture_launches": mix_launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],

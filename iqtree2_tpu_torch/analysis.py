@@ -24,6 +24,15 @@ the report; -o roots the printed trees on the first outgroup taxon (every
 one must exist); -wsl, -wsr, -wspr/-wspm/-wspmr, --mlrate, -asr and
 -mldist write .sitelh, .rate, .siteprob, .mlrate, .state and .mldist.
 
+Mixture models (model/mixture.py) run on the same engine, their classes
+fused with the rate categories on one category axis; -wspm writes their
+class posteriors. --pmsf (iqtree2_tpu/analysis.py:187-215) fits the
+profile mixture on a guide tree (-te or -t, else a stepwise-addition
+tree), writes the posterior mean site frequencies to .sitefreq and runs
+the rest of the analysis on the site-specific-frequency engine
+(model/pmsf.SSFEngine): its fixed-topology fit refits the branch lengths
+and the Gamma shape, its search climbs with NNI1.
+
 -g constrains the search to trees that contain the splits of a constraint
 tree (tree/constraint.py: the parsimony start trees, the BIONJ tree, the
 random NNIs and every NNI swap); --symtest writes the matched-pairs
@@ -50,7 +59,9 @@ from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
 from iqtree2_tpu_torch.io.nexus import parse_nexus
 from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.model.factory import build_model
+from iqtree2_tpu_torch.model.mixture import MixtureModel
 from iqtree2_tpu_torch.model.optimize import optimize_model_parameters
+from iqtree2_tpu_torch.model.pmsf import SSFEngine, run_pmsf
 from iqtree2_tpu_torch.modelfinder import MODES, run_modelfinder
 from iqtree2_tpu_torch.ops.distances import ml_distances
 from iqtree2_tpu_torch.ops.pars import random_stepwise_addition
@@ -182,19 +193,22 @@ def _write_site_outputs(params: Params, eng: LikelihoodEngine, tree: Tree,
                 f.write(f"{s + 1}\t{mean_rate[p]:.5f}\t"
                         f"{cat_best[p] + 1}\n")
     if params.write_site_prob:
-        # per-site posterior of each rate category (reference
-        # printSiteProbCategory, main/phyloanalysis.cpp:2225-2226); with no
-        # mixture model ported there is one mixture class, so -wspm and
-        # -wspmr fall back to the rate categories, as in the JAX package
-        _, post = eng.site_rate_posterior(tree)
-        C = post.shape[0]
+        # -wspr/-wspm/-wspmr: per-site posterior probability of each
+        # rate/mixture category (reference printSiteProbCategory,
+        # main/phyloanalysis.cpp:2225-2226)
+        _, cat_post = eng.site_rate_posterior(tree)
+        post = cat_post
+        if params.write_site_prob == "mixture":
+            # sum the rate categories within each mixture class (one class:
+            # the rate categories, as in the JAX package)
+            post = class_posteriors(cat_post, eng.pack_np.cat_mix)
         with open(f"{prefix}.siteprob", "w") as f:
-            f.write("Site\t" + "\t".join(f"p{c + 1}" for c in range(C))
-                    + "\n")
+            f.write("Site\t" + "\t".join(f"p{c + 1}"
+                                          for c in range(len(post))) + "\n")
             for s in range(aln.nsites):
                 p = aln.site_to_pattern[s]
                 f.write(f"{s + 1}\t" + "\t".join(
-                    f"{post[c, p]:.5f}" for c in range(C)) + "\n")
+                    f"{post[c, p]:.5f}" for c in range(len(post))) + "\n")
         log(f"Site category posteriors written to {prefix}.siteprob")
     if params.write_ml_rate:
         mlr, _ = site_rates_ml(eng, tree)
@@ -211,6 +225,61 @@ def _write_site_outputs(params: Params, eng: LikelihoodEngine, tree: Tree,
                 f.write(f"{n:<12}" +
                         " ".join(f"{D[i, j]:.6f}"
                                  for j in range(aln.ntaxa)) + "\n")
+
+
+def class_posteriors(cat_post: np.ndarray, cat_mix) -> np.ndarray:
+    """Mixture-class posteriors [M, P] from the category posteriors
+    [C, P]: each class sums its rate categories
+    (iqtree2_tpu/analysis.py:454-460); one class keeps the categories."""
+    mix = np.asarray(cat_mix)
+    n_mix = int(mix.max()) + 1
+    if n_mix == 1:
+        return cat_post
+    agg = np.zeros((n_mix, cat_post.shape[1]))
+    for c in range(len(mix)):
+        agg[mix[c]] += cat_post[c]
+    return agg
+
+
+def fit_model(eng, tree: Tree, epsilon: float) -> float:
+    """The model and branch-length refit of a fixed topology, on a
+    LikelihoodEngine or on the PMSF SSFEngine, whose free parameters are
+    the branch lengths and the Gamma shape
+    (iqtree2_tpu.analysis._fit_model). Returns the logL."""
+    if isinstance(eng, SSFEngine):
+        eng.optimize_branches(tree)
+        eng.optimize_alpha(tree)
+        return eng.optimize_branches(tree, n_rounds=4)
+    return optimize_model_parameters(eng, tree, epsilon=epsilon)
+
+
+def pmsf_engine(params: Params, eng: LikelihoodEngine, aln, rng,
+                log) -> SSFEngine:
+    """--pmsf's two passes (iqtree2_tpu/analysis.py:187-215): the profile
+    mixture fitted on the guide tree (-te or -t, else a stepwise-addition
+    tree drawn from ``rng``), its posterior mean site frequencies written
+    to .sitefreq; returns the site-specific-frequency engine the rest of
+    the analysis runs on."""
+    if not isinstance(eng.model, MixtureModel):
+        raise SystemExit("--pmsf requires a profile mixture model "
+                         "(e.g. -m LG+C20+G)")
+    gt_file = params.user_tree or params.start_tree
+    if gt_file:
+        guide = Tree.from_newick(Path(gt_file).read_text(), aln.names)
+    else:
+        guide = random_stepwise_addition(aln, rng)
+    log("PMSF guide fit (full mixture)...")
+    l_guide = optimize_model_parameters(
+        eng, guide, epsilon=max(params.model_eps, QUICK_FIT_EPS))
+    log(f"PMSF guide fit logL: {l_guide:.4f}")
+    ssf_eng, _, _, prof = run_pmsf(aln, eng, guide, log=log)
+    with open(f"{params.prefix}.sitefreq", "w") as f:
+        for s in range(aln.nsites):
+            p = aln.site_to_pattern[s]
+            f.write(f"{s + 1} " + " ".join(f"{x:.6f}" for x in prof[p])
+                    + "\n")
+    log(f"PMSF site frequencies written to {params.prefix}.sitefreq")
+    return ssf_eng
 
 
 def optimize_model_only(eng: LikelihoodEngine, tree: Tree,
@@ -265,18 +334,18 @@ def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
         if ufboot is not None and ckp.get("search.ufboot") is not None:
             ufboot.load_state_dict(ckp.get("search.ufboot"))
         # the model parameters moved during the search; refit them
-        optimize_model_parameters(eng, tree,
-                                  epsilon=max(params.model_eps,
-                                              QUICK_FIT_EPS))
+        fit_model(eng, tree, max(params.model_eps, QUICK_FIT_EPS))
     else:
-        log("Performing quick initial model optimization...")
-        t0 = time.perf_counter()
-        start = random_stepwise_addition(aln,
-                                         np.random.default_rng(params.seed))
-        optimize_model_parameters(eng, start,
-                                  epsilon=max(params.model_eps,
-                                              QUICK_FIT_EPS))
-        seconds["quick fit"] = time.perf_counter() - t0
+        if not params.pmsf:
+            # (under --pmsf the guide fit has fitted the model)
+            log("Performing quick initial model optimization...")
+            t0 = time.perf_counter()
+            start = random_stepwise_addition(
+                aln, np.random.default_rng(params.seed))
+            optimize_model_parameters(eng, start,
+                                      epsilon=max(params.model_eps,
+                                                  QUICK_FIT_EPS))
+            seconds["quick fit"] = time.perf_counter() - t0
         sp = SearchParams(
             n_init_trees=params.n_init_trees,
             n_nni_trees=params.n_nni_trees,
@@ -311,7 +380,7 @@ def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
                  "iterations": res.n_iterations})
         ckp.dump(force=True)
     t0 = time.perf_counter()
-    logL = optimize_model_parameters(eng, tree, epsilon=params.model_eps)
+    logL = fit_model(eng, tree, params.model_eps)
     seconds["final fit"] = time.perf_counter() - t0
     log("Wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in seconds.items())
@@ -440,6 +509,12 @@ def run_analysis(params: Params, device="cuda") -> dict:
                 return {"model_selection": model_selection}
         model, rates, extras = build_model(model_str, aln)
         check_model_ported(model_str, extras)
+        if params.write_ml_dist and isinstance(model, MixtureModel):
+            # the JAX package measures them under class 0 alone (ROADMAP
+            # C13)
+            raise SystemExit(f"-mldist with -m {model_str}: ML distances "
+                             f"under a mixture model are not yet ported to "
+                             f"iqtree2_tpu_torch")
         out_root = outgroup_root(params.outgroup, aln.names)
         eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=device,
                                asc=extras.get("asc", False))
@@ -451,6 +526,8 @@ def run_analysis(params: Params, device="cuda") -> dict:
         if params.symtest:
             write_symtests(f"{prefix}.symtest.csv",
                            [("alignment", run_symtest(aln))], log)
+        if params.pmsf:
+            eng = pmsf_engine(params, eng, aln, rng, log)
 
         search_info: dict = {}
         support = None
@@ -466,8 +543,7 @@ def run_analysis(params: Params, device="cuda") -> dict:
                 optimize_model_only(eng, tree, params.model_eps)
                 logL = eng.loglik_tree(tree)
             else:
-                logL = optimize_model_parameters(eng, tree,
-                                                 epsilon=params.model_eps)
+                logL = fit_model(eng, tree, params.model_eps)
         else:
             tree, logL = _run_search(params, eng, aln, ckp, ufboot, log,
                                      search_info, mf_seconds)

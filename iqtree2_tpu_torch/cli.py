@@ -7,7 +7,8 @@
                               [-bb N [-bnni] [--tbe]] [-b N] [--runs N]
                               [-alrt N] [-abayes] [-z TREES [-zb N] [-au]]
                               [-wsl] [-wsr] [-wspr|-wspm|-wspmr] [--mlrate]
-                              [-asr] [-mldist] [-o TAXA] [--symtest] [-n N]
+                              [-asr] [-mldist] [-o TAXA] [--symtest]
+                              [--pmsf [-t TREE]] [-n N]
                               [-nstop N] [-ninit N] [-ntop N] [-nbest N]
                               [-pers X] [--f64] [--device cuda|cpu]
   python -m iqtree2_tpu_torch [-s ALN] -p|-q|-Q|-S PARTITIONS
@@ -29,13 +30,17 @@ constraint tree), then the branch supports (-alrt, -abayes, -bnni,
 --tbe), the user-tree tests (-z, -zb, -au) and the per-site and per-tree
 outputs (-wsl, -wsr, -wspr/-wspm/-wspmr, --mlrate, -asr, -mldist, -o),
 the standard bootstrap (-b), independent runs (--runs) and the symmetry
-tests (--symtest); and the partitioned analysis (-p edge-proportional, -q
-edge-equal, -Q unlinked branch lengths, -S one tree per locus) with
-per-partition ModelFinder and merging, -bsam and --symtest-remove-bad.
+tests (--symtest), under any model of the factory (mixtures included,
+with -wspm) and under PMSF (--pmsf, -t naming its guide tree); and the
+partitioned analysis (-p edge-proportional, -q edge-equal, -Q unlinked
+branch lengths, -S one tree per locus) with per-partition ModelFinder and
+merging, -bsam and --symtest-remove-bad.
 Any flag whose path is not yet ported stops the run with a SystemExit that
 names it, and so does each flag the JAX package's partition path accepts
 and ignores (-g, -b, --runs, -bnni, --tbe, -z, -wsl, -wsr, -wsp*,
---mlrate, -asr, -mldist, -o, -blfix), so nothing is silently ignored.
+--mlrate, -asr, -mldist, -o, -blfix, --pmsf), and with --pmsf each output
+the JAX package's site-specific-frequency engine cannot give (PMSF_REFUSED),
+so nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -60,14 +65,20 @@ PORTED_DESTS = frozenset({
     "outgroup", "constraint_tree", "standard_bootstrap", "num_runs",
     "symtest", "symtest_remove_bad", "symtest_pval", "partition_edge_prop",
     "partition_edge_equal", "partition_unlinked", "partition_topo_unlinked",
-    "merge_algorithm", "boot_spec"})
+    "merge_algorithm", "boot_spec", "pmsf", "start_tree"})
 # destinations the JAX package's partition path (-p/-q/-Q) accepts and never
 # reads: the port refuses them there
 PARTITION_IGNORED = ("constraint_tree", "standard_bootstrap", "num_runs",
                      "bnni", "tbe", "user_trees_file", "write_site_lh",
                      "write_site_rate", "write_site_prob", "write_ml_rate",
                      "do_asr", "write_ml_dist", "outgroup",
-                     "fix_branch_lengths")
+                     "fix_branch_lengths", "pmsf")
+# destinations whose path needs what the PMSF site-specific-frequency engine
+# lacks (rate posteriors, ASR, a model, NNI site log-likelihoods, reweighted
+# views): each raises AttributeError in the JAX package (ROADMAP C12)
+PMSF_REFUSED = ("write_site_rate", "write_site_prob", "do_asr",
+                "write_ml_dist", "write_ml_rate", "alrt_replicates", "abayes",
+                "bnni", "fix_branch_lengths")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -323,6 +334,15 @@ def refuse_unported(args: argparse.Namespace,
         if getattr(args, dest) and not args.ufboot_replicates:
             raise SystemExit(f"{flag}: works on the ultrafast bootstrap's "
                              f"replicate trees; add -bb/-B N")
+    if args.start_tree and not args.pmsf:
+        raise SystemExit("-t: not yet ported to iqtree2_tpu_torch except as "
+                         "the --pmsf guide tree (the JAX package reads it "
+                         "nowhere else)")
+    if args.pmsf:
+        _refuse_with(args, parser, "--pmsf", PMSF_REFUSED,
+                     "needs the mixture engine's posteriors, model or "
+                     "reweighted views, which the site-specific-frequency "
+                     "engine lacks (the JAX package raises AttributeError)")
     if args.fix_branch_lengths and not args.user_tree:
         raise SystemExit("-blfix: fixes the branch lengths of a -te tree; "
                          "a search has none to fix")
@@ -370,10 +390,12 @@ def refuse_unported(args: argparse.Namespace,
 
 
 def _refuse_with(args, parser, mode: str, dests, why: str) -> None:
-    """SystemExit naming the first flag of ``dests`` given with ``mode``."""
+    """SystemExit naming the first flag of ``dests`` given with ``mode``
+    (of flags sharing a destination, the one whose constant it holds)."""
     for action in parser._actions:
-        if action.dest in dests and getattr(args, action.dest) != \
-                parser.get_default(action.dest):
+        value = getattr(args, action.dest, None)
+        if action.dest in dests and value != parser.get_default(
+                action.dest) and action.const in (None, value):
             raise SystemExit(f"{'/'.join(action.option_strings)} with "
                              f"{mode}: {why}")
 

@@ -2,7 +2,8 @@
 
 Used by chip_smoke.py and tests/test_torch_cuda.py (the parity tests use
 its ``simulate``). A problem is an alignment simulated under one of MODELS on
-a random topology, or a supermatrix of PARTITIONS (simulate_partitioned),
+a random topology (a mixture class by class, simulate), or a supermatrix
+of PARTITIONS (simulate_partitioned),
 whose every partition engine is one problem; every kernel then gets exactly
 the inputs its plain version gets:
 
@@ -29,6 +30,7 @@ float32 and relative to max(|lp|, 1) in float64. Scale counts must be equal.
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import NamedTuple
 
@@ -41,7 +43,10 @@ from iqtree2_tpu_torch.data.superalignment import (SuperAlignment,
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
 from iqtree2_tpu_torch.model.factory import build_model
+from iqtree2_tpu_torch.model.mixture import MixtureModel
+from iqtree2_tpu_torch.model.rates import RateModel
 from iqtree2_tpu_torch.ops import kernels, pruning
+from iqtree2_tpu_torch.ops.pruning import DownPass
 from iqtree2_tpu_torch.search.perturb import random_nnis
 from iqtree2_tpu_torch.simulator import simulate_alignment
 from iqtree2_tpu_torch.tree.schedule import build_schedule
@@ -80,6 +85,15 @@ MODELS = {
                  "LG+F{" + ",".join(str(f) for f in _AA_FREQS) + "}+R10{"
                  + ",".join(f"{w},{r}" for w, r in zip(_R10_WEIGHTS,
                                                        _R10_RATES)) + "}"),
+    # mixtures: a profile mixture's classes times the Gamma categories,
+    # each category with its class's eigensystem (C = 80 and 240), and
+    # LG4X's four classes each fused with one FreeRate category (C = 4,
+    # four eigensystems); MIX of two matrices (C = 8)
+    "LG+C20+G4": ("AA", "ARNDCQEGHILKMFPSTWYV", "LG+C20+G{0.6}"),
+    "LG+C60+G4": ("AA", "ARNDCQEGHILKMFPSTWYV", "LG+C60+G{0.6}"),
+    "LG4X": ("AA", "ARNDCQEGHILKMFPSTWYV",
+             "LG4X+R4{0.2,0.2,0.3,0.7,0.3,1.2,0.2,2.0}"),
+    "MIX{LG,WAG}+G4": ("AA", "ARNDCQEGHILKMFPSTWYV", "MIX{LG,WAG}+G{0.6}"),
 }
 # the partitioned path's shapes, one supermatrix each: per partition the
 # MODELS name, its sites and the share of taxa it lacks (all-gap rows on the
@@ -93,14 +107,48 @@ PARTITIONS = {
     # names two alignment files gives (read_partition_spec)
     "DNA + protein": (("GTR+G4", 400, 0.0), ("LG+G4", 200, 0.0)),
 }
+# bytes of the plain references' largest temporary before check() runs them
+# window by window (plain_window)
+PLAIN_BYTES = 2 ** 33
 # float64: 1e-9 relative everywhere; float32: 1e-4 relative on partials and
 # theta, 1e-3 absolute on site log-likelihoods
 TOLERANCE = {torch.float64: {"partials": 1e-9, "lp": 1e-9},
              torch.float32: {"partials": 1e-4, "lp": 1e-3}}
 
 
+def class_sites(weights, nsites: int) -> np.ndarray:
+    """Sites per mixture class, in proportion to the class weights and
+    summing to nsites (largest remainders)."""
+    share = np.asarray(weights, np.float64) * nsites
+    n = np.floor(share).astype(np.int64)
+    n[np.argsort(n - share)[: nsites - n.sum()]] += 1
+    return n
+
+
+def simulate_mixture(tree: Tree, model: MixtureModel, rates, nsites: int,
+                     rng) -> dict[str, str]:
+    """{taxon: sequence} under a mixture, one class at a time: a block of
+    sites per class (class_sites) simulated under that class alone, its
+    exchangeabilities and profile and the rate model (a fused class with
+    its own rate category alone), the blocks concatenated. The simulator
+    itself draws every site from class 0 (ROADMAP C11)."""
+    blocks = []
+    r_fused = rates.category_rates()
+    for m, (comp, n) in enumerate(zip(model.components,
+                                      class_sites(model.weights, nsites))):
+        exch, freqs, mult = comp
+        cls_rates = rates
+        if model.fused_rates:
+            mult, cls_rates = mult * r_fused[m], RateModel()
+        one = MixtureModel([(exch, freqs, mult)], [1.0], name=model.name,
+                           num_states=model.num_states)
+        blocks.append(simulate_alignment(tree, one, cls_rates, int(n), rng))
+    return {k: "".join(b[k] for b in blocks) for k in blocks[0]}
+
+
 def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
-    """(Alignment, true Tree, model, rates) simulated under MODELS[name]."""
+    """(Alignment, true Tree, model, rates) simulated under MODELS[name]
+    (a mixture class by class, simulate_mixture)."""
     seqtype, alphabet, model_str = MODELS[model_name]
     rng = np.random.default_rng(seed)
     names = [f"t{i}" for i in range(ntaxa)]
@@ -108,7 +156,10 @@ def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
     dummy = Alignment.from_sequences(names, [alphabet] * ntaxa,
                                      seqtype=seqtype)
     model, rates, _ = build_model(model_str, dummy)
-    seqs = simulate_alignment(tree, model, rates, nsites, rng)
+    if isinstance(model, MixtureModel):
+        seqs = simulate_mixture(tree, model, rates, nsites, rng)
+    else:
+        seqs = simulate_alignment(tree, model, rates, nsites, rng)
     aln = Alignment.from_sequences(list(seqs), list(seqs.values()),
                                    seqtype=seqtype)
     model, rates, _ = build_model(model_str, aln)
@@ -257,13 +308,13 @@ def back_to_back_ms(fn, reps: int = B2B_REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def _pair(fk, fp, reps: int) -> tuple[float, float]:
+def _pair(fk, fp, reps: int, plain_reps: int) -> tuple[float, float]:
     """(kernel ms, plain ms), each the mean of two runs taken in the order
     plain, kernel, kernel, plain, so drift in clocks hits both alike."""
-    p1 = timed_ms(fp, reps)
+    p1 = timed_ms(fp, plain_reps)
     k1 = timed_ms(fk, reps)
     k2 = timed_ms(fk, reps)
-    p2 = timed_ms(fp, reps)
+    p2 = timed_ms(fp, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -289,6 +340,15 @@ class Problem:
         cat_mix = self.pack["cat_mix"]
         self.U = self.pack["U"][cat_mix].contiguous()
         self.V = self.pack["V"][cat_mix].contiguous()
+
+    def window(self, a: int, b: int) -> "Problem":
+        """This problem on patterns [a, b) alone (tips and invariant-site
+        terms cut; the patterns are independent)."""
+        sub = copy.copy(self)
+        sub.tipP = self.tipP[..., a:b].contiguous()
+        sub.pack = {**self.pack,
+                    "log_ptn_invar": self.pack["log_ptn_invar"][a:b]}
+        return sub
 
     def down_buffers(self):
         """Down-pass buffers without tips, their tip rows NaN: no pass may
@@ -352,48 +412,73 @@ def lp_error(lp, ref, dtype) -> float:
     return float(err.max())
 
 
-def check(eng: LikelihoodEngine, tree: Tree, time_reps: int = 0) -> list:
+def windows(Pp: int, window: int | None) -> list[tuple[int, int]]:
+    """Pattern windows [a, b) of at most ``window`` patterns covering Pp
+    (one window when window is None)."""
+    w = Pp if window is None else max(1, min(window, Pp))
+    return [(a, min(a + w, Pp)) for a in range(0, Pp, w)]
+
+
+def plain_window(eng: LikelihoodEngine,
+                 budget: float = PLAIN_BYTES) -> int | None:
+    """Patterns per window of the plain references, so that their largest
+    temporary (edge_theta_plain's [n_edges, C, S, S, patterns] product)
+    stays within ``budget`` bytes; None where the whole problem does."""
+    n_edges = 2 * len(eng.aln.names) - 3
+    C, S = int(eng._pack["cat_rate"].shape[0]), eng._tipP.shape[1]
+    per = n_edges * C * S * S * torch.finfo(eng.dtype).bits // 8
+    w = int(budget // per)
+    return None if w >= eng.Pp else max(w, 1)
+
+
+def check(eng: LikelihoodEngine, tree: Tree, time_reps: int = 0,
+          window: int | None = None, b2b_reps: int = B2B_REPS) -> list:
     """Compare the three kernels with their plain versions on one problem.
 
     Returns one dict per kernel, down_pass (with its site-logL epilogue),
     up_pass, theta_pass: name, max_abs_err, max_rel_err, scales_equal, tol,
     ok (down_pass also lp_err against lp_tol; theta_pass compares theta and
-    UP). With time_reps > 0 also ms and plain_ms, the mean time of one pass
-    alone, its buffers built outside the timed region (time_buffers times
-    those), and b2b_ms, the kernel's launches back to back
+    UP), launches (the kernel's launches for its one pass; down_pass also
+    sitelp_launches). The kernels run on the whole problem; the plain
+    versions, whose temporaries are S times a pass's buffers, run window
+    by window of ``window`` patterns (windows; the patterns are
+    independent, so this is exact), the reference down pass assembled
+    whole as the up and theta kernels' input. With time_reps > 0 also ms
+    and plain_ms, the mean time of one pass alone, the kernel's buffers
+    built outside the timed region (time_buffers times those; the plain
+    version's inside it, one run over all windows where there are
+    several), and b2b_ms, b2b_reps of the kernel's launches back to back
     (back_to_back_ms); down_pass's are without the epilogue, its
     sitelp_ms, sitelp_plain_ms and sitelp_b2b_ms with it."""
     pb = Problem(eng, tree)
     L = pb.L
     tol = TOLERANCE[eng.dtype]
+    wins = windows(pb.tipP.shape[-1], window)
 
-    # the references: the plain passes, on down-pass buffers whose tip rows
-    # are NaN
-    lp_ref = pb.lp_buffer()
-    dp = pb.down(kernels.down_pass_plain, pb.down_buffers(), pb.sitelp(lp_ref))
-    up_ref = pb.up(kernels.up_pass_plain, dp, pb.up_buffers(dp))
-    th_ref = pb.theta(kernels.theta_pass_plain, dp, pb.theta_buffers())
-    out = []
+    # the reference down pass: the plain pass window by window, into whole
+    # buffers whose tip rows are NaN
+    dp, lp_ref = pb.down_buffers(), pb.lp_buffer()
+    for a, b in wins:
+        sub = pb.window(a, b)
+        lp_w = sub.lp_buffer()
+        d_w = sub.down(kernels.down_pass_plain, sub.down_buffers(),
+                       sub.sitelp(lp_w))
+        dp.all[..., a:b] = d_w.all
+        dp.scale[:, a:b] = d_w.scale
+        lp_ref[a:b] = lp_w
+        del d_w
 
-    # H1 down_pass: every internal row and lp are written by the pass
+    # the kernels, every row they write a sentinel first: H1 down_pass
+    # writes every internal row and lp; H2 up_pass E of every child edge
+    # and UP of every internal child (E of edge 0 and UP of the root come
+    # from up_buffers); H3 theta_pass theta of every edge and UP of every
+    # internal node
+    before = dict(kernels.LAUNCHES)
     got = pb.down_buffers()
     got.all[L:] = float("nan")
     got.scale[L:] = -1
     lp = pb.lp_buffer()
     pb.down(kernels.down_pass, got, pb.sitelp(lp))
-    # np.max, not max(): a NaN in either operand must carry through
-    out.append(dict(
-        name="down_pass",
-        max_abs_err=float(np.max([float((got.all[L:] - dp.all[L:]).abs()
-                                        .max()),
-                                  float((lp - lp_ref).abs().max())])),
-        max_rel_err=col_rel(got.all[L:], dp.all[L:]),
-        scales_equal=bool(torch.equal(got.scale, dp.scale)),
-        tol=tol["partials"], lp_err=lp_error(lp, lp_ref, eng.dtype),
-        lp_tol=tol["lp"]))
-
-    # H2 up_pass: E of every child edge and UP of every internal child;
-    # E of edge 0 and UP of the root come from up_buffers
     u = pb.up_buffers(dp)
     eid = pb.ce.flatten().long()
     kid = pb.cs.flatten().long()
@@ -403,60 +488,93 @@ def check(eng: LikelihoodEngine, tree: Tree, time_reps: int = 0) -> list:
     u.up_in[kid] = float("nan")
     u.up_scale[kid] = -1
     pb.up(kernels.up_pass, dp, u)
-    out.append(dict(
-        name="up_pass",
-        max_abs_err=float(np.max([
-            float((u.edge_E - up_ref.edge_E).abs().max()),
-            float((u.up_in - up_ref.up_in).abs().max())])),
-        max_rel_err=float(np.max([col_rel(u.edge_E, up_ref.edge_E),
-                                  col_rel(u.up_in, up_ref.up_in)])),
-        scales_equal=bool(torch.equal(u.edge_E_scale, up_ref.edge_E_scale)
-                          and torch.equal(u.up_scale, up_ref.up_scale)),
-        tol=tol["partials"]))
-
-    # H3 theta_pass: theta of every edge and UP of every internal node
     t = pb.theta(kernels.theta_pass, dp, pb.theta_buffers())
-    out.append(dict(
-        name="theta_pass",
-        max_abs_err=float(np.max([
-            float((t.theta - th_ref.theta).abs().max()),
-            float((t.up - th_ref.up).abs().max())])),
-        max_rel_err=float(np.max([col_rel(t.theta, th_ref.theta),
-                                  col_rel(t.up, th_ref.up)])),
-        scales_equal=bool(torch.equal(t.scale, th_ref.scale)
-                          and torch.equal(t.up_scale, th_ref.up_scale)),
-        tol=tol["partials"]))
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    # the plain up and theta passes window by window over the reference,
+    # each window's outputs held against the kernels'
+    errs = {k: ([], [], []) for k in ("down_pass", "up_pass", "theta_pass")}
+    lp_errs = []
+
+    def held(name, pairs):
+        ab, rel, sc = errs[name]
+        for g, r in pairs:
+            if r.dtype == torch.int32:
+                sc.append(bool(torch.equal(g, r)))
+            else:
+                ab.append(float((g - r).abs().max()))
+                rel.append(col_rel(g, r))
+
+    for a, b in wins:
+        sub = pb.window(a, b)
+        d_w = DownPass(dp.all[..., a:b].contiguous(),
+                       dp.scale[:, a:b].contiguous())
+        held("down_pass", ((got.all[L:, ..., a:b], d_w.all[L:]),
+                           (got.scale[:, a:b], d_w.scale)))
+        ab = errs["down_pass"][0]
+        ab.append(float((lp[a:b] - lp_ref[a:b]).abs().max()))
+        lp_errs.append(lp_error(lp[a:b], lp_ref[a:b], eng.dtype))
+        up_w = sub.up(kernels.up_pass_plain, d_w, sub.up_buffers(d_w))
+        held("up_pass", [(x[..., a:b], y) for x, y in zip(u, up_w)])
+        del up_w
+        th_w = sub.theta(kernels.theta_pass_plain, d_w, sub.theta_buffers())
+        held("theta_pass", [(x[..., a:b], y) for x, y in zip(t, th_w)])
+        del th_w, d_w
     if pb.tipP.is_cuda:
         torch.cuda.synchronize()
 
+    # np.max, not max(): a NaN in either operand must carry through
+    out = [dict(name=name, max_abs_err=float(np.max(ab)),
+                max_rel_err=float(np.max(rel)), scales_equal=all(sc),
+                tol=tol["partials"], launches=launched[name])
+           for name, (ab, rel, sc) in errs.items()]
+    out[0].update(lp_err=float(np.max(lp_errs)), lp_tol=tol["lp"],
+                  sitelp_launches=launched["sitelp"])
     for r in out:
         r["ok"] = bool(r["max_rel_err"] <= r["tol"] and r["scales_equal"]
                        and r.get("lp_err", 0.0) <= r.get("lp_tol", 1.0))
 
     if time_reps:
-        # the kernels rewrite their checked outputs, the plain versions the
-        # references: a pass rewrites every row it owns, so repeating it on
-        # the same buffers is the same work
-        lp_k, lp_p = pb.sitelp(lp), pb.sitelp(lp_ref)
-        timings = {
-            "down_pass": (lambda: pb.down(kernels.down_pass, got),
-                          lambda: pb.down(kernels.down_pass_plain, dp)),
-            "sitelp": (lambda: pb.down(kernels.down_pass, got, lp_k),
-                       lambda: pb.down(kernels.down_pass_plain, dp, lp_p)),
-            "up_pass": (lambda: pb.up(kernels.up_pass, dp, u),
-                        lambda: pb.up(kernels.up_pass_plain, dp, up_ref)),
-            "theta_pass": (lambda: pb.theta(kernels.theta_pass, dp, t),
-                           lambda: pb.theta(kernels.theta_pass_plain, dp,
-                                            th_ref)),
-        }
-        ms = {}
-        for key, (fk, fp) in timings.items():
-            ms[key] = (*_pair(fk, fp, time_reps), back_to_back_ms(fk))
-        for r in out:
-            r["ms"], r["plain_ms"], r["b2b_ms"] = ms[r["name"]]
-        out[0]["sitelp_ms"], out[0]["sitelp_plain_ms"], \
-            out[0]["sitelp_b2b_ms"] = ms["sitelp"]
+        _time(pb, wins, got, lp, u, t, dp, time_reps, b2b_reps, out)
     return out
+
+
+def _time(pb, wins, got, lp, u, t, dp, reps: int, b2b_reps: int,
+          out) -> None:
+    """check()'s times: the kernels rewrite their checked outputs (a pass
+    rewrites every row it owns, so repeating it on the same buffers is the
+    same work); the plain versions run window by window on buffers they
+    build (over more than one window, once per timing)."""
+    def over_windows(run):
+        def fn():
+            for a, b in wins:
+                run(pb.window(a, b), DownPass(dp.all[..., a:b].contiguous(),
+                                              dp.scale[:, a:b].contiguous()))
+        return fn
+
+    plain = {
+        "down_pass": over_windows(lambda w, d: w.down(
+            kernels.down_pass_plain, w.down_buffers())),
+        "sitelp": over_windows(lambda w, d: w.down(
+            kernels.down_pass_plain, w.down_buffers(),
+            w.sitelp(w.lp_buffer()))),
+        "up_pass": over_windows(lambda w, d: w.up(
+            kernels.up_pass_plain, d, w.up_buffers(d))),
+        "theta_pass": over_windows(lambda w, d: w.theta(
+            kernels.theta_pass_plain, d, w.theta_buffers()))}
+    lp_k = pb.sitelp(lp)
+    kernel = {
+        "down_pass": lambda: pb.down(kernels.down_pass, got),
+        "sitelp": lambda: pb.down(kernels.down_pass, got, lp_k),
+        "up_pass": lambda: pb.up(kernels.up_pass, dp, u),
+        "theta_pass": lambda: pb.theta(kernels.theta_pass, dp, t)}
+    plain_reps = reps if len(wins) == 1 else 1
+    ms = {key: (*_pair(kernel[key], plain[key], reps, plain_reps),
+                back_to_back_ms(kernel[key], b2b_reps)) for key in kernel}
+    for r in out:
+        r["ms"], r["plain_ms"], r["b2b_ms"] = ms[r["name"]]
+    out[0]["sitelp_ms"], out[0]["sitelp_plain_ms"], \
+        out[0]["sitelp_b2b_ms"] = ms["sitelp"]
 
 
 def time_buffers(eng: LikelihoodEngine, tree: Tree, reps: int) -> dict:

@@ -5,15 +5,17 @@ model specification into substitution-model + rate-heterogeneity objects.
 Grammar the port runs:
 
   NAME[{p1,p2,...}] [+F|+FO|+FQ|+FC|+FU{...}|+FEQ] [+I[{p}]] [+G[n][{a}]]
-       [+R[n][{r1,w1,...}]] [+ASC]
+       [+R[n][{r1,w1,...}]] [+ASC]  and MIX{m1,...}, named mixtures (C10-C60,
+       CF4, LG4M, LG4X, EX2, ...) and base+profile (LG+C20, WAG+C60, ...)
 
 Copied from iqtree2_tpu/model/factory.py with the branches the port runs:
-named DNA and protein models (and the MK/ORDERED forms of GTR), under
-uniform, +I, +G, +I+G, +R and +I+R rates. The JAX package's other model
-families (mixtures, codon, nonreversible, Lie-Markov, PoMo, +E sequencing
-error, +H heterotachy, YAML models) stop with a SystemExit that names the
-model as not yet ported. The port keeps its own host modules and imports
-nothing of the JAX package.
+named DNA and protein models (and the MK/ORDERED forms of GTR) and the
+mixture models of model/mixture.py, under uniform, +I, +G, +I+G, +R and
++I+R rates. The JAX package's other model families (codon,
+nonreversible, Lie-Markov, PoMo, +E sequencing error, +H heterotachy, YAML
+models) stop with a SystemExit that names the model as not yet ported.
+The port keeps its own host modules and imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 
 from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.model import dna, protein
+from iqtree2_tpu_torch.model.mixture import make_generic_mix, make_mixture
 from iqtree2_tpu_torch.model.rates import (RateFree, RateFreeInvar, RateGamma,
                                            RateGammaInvar, RateInvar,
                                            RateModel)
@@ -124,16 +127,30 @@ def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
     """Instantiate model + rates for an alignment. Returns (model, rates,
     extras) where extras carries the +ASC and +T flags."""
     s = spec_str.strip()
+    # generic mixture MIX{m1,m2,...}[+rate terms]
     if s.upper().startswith("MIX{"):
-        raise not_ported(spec_str, "mixture models")
+        depth = 0
+        for i, ch in enumerate(s):
+            depth += ch == "{"
+            depth -= ch == "}"
+            if depth == 0 and ch == "}":
+                break
+        comps = _split_top_level(s[4:i])
+        model = make_generic_mix(comps, aln)
+        extras = {}
+        rates = _build_rates(parse_model_string("JC" + s[i + 1:]), extras,
+                             spec_str)
+        return model, rates, extras
 
     spec = parse_model_string(spec_str)
     st = aln.seqtype.name
     extras: dict = {}
 
+    # named protein mixtures (C10..C60, LG4M, LG4X, EX2, ...) and
+    # base+profile combinations like LG+C20[+G...]
     base_up = spec.base.upper()
     if base_up in MIXTURE_NAMES or spec.other_terms:
-        raise not_ported(spec_str, "mixture models")
+        return _build_mixture_model(spec, aln, extras, spec_str)
     if st.startswith("CODON") or base_up in CODON_NAMES:
         raise not_ported(spec_str, "codon models")
     if base_up in ("UNREST", "NONREV"):
@@ -250,3 +267,55 @@ def _build_rates(spec: ModelSpec, extras: dict, spec_str: str) -> RateModel:
     if "I" in kinds:
         return RateInvar(p_inv, fix_pinv=fix_pinv)
     return RateModel()
+
+
+def _split_top_level(s: str) -> list[str]:
+    """Split on commas not nested inside braces."""
+    out, cur, depth = [], [], 0
+    for ch in s:
+        if ch == "{":
+            depth += 1
+        elif ch == "}":
+            depth -= 1
+        if ch == "," and depth == 0:
+            out.append("".join(cur).strip())
+            cur = []
+        else:
+            cur.append(ch)
+    if cur:
+        out.append("".join(cur).strip())
+    return out
+
+
+def _build_mixture_model(spec: ModelSpec, aln: Alignment, extras: dict,
+                         spec_str: str):
+    """Named mixture models: bare (C20, EX2, LG4X, ...) or base+profile
+    (LG+C20, WAG+C60, ...). Reference analog: ModelMixture built-ins
+    (model/modelmixture.cpp)."""
+    base_up = spec.base.upper()
+    if base_up in MIXTURE_NAMES:
+        model = make_mixture(base_up, aln=aln)
+    else:
+        # base matrix + profile mixture, e.g. LG+C20
+        prof = spec.other_terms[0]
+        base_model = protein.make_protein_model(spec.base)
+        model = make_mixture(prof, aln=aln,
+                             base_exch=base_model.exch_rates)
+        model.name = f"{base_model.name}+{prof}"
+    rates = _build_rates(spec, extras, spec_str)
+    # the published C10..C60/CF4 definitions are POISSON+G+FMIX{...}: bare
+    # profile-mixture names imply discrete-gamma rates
+    prof_name = (base_up if base_up in MIXTURE_NAMES
+                 else spec.other_terms[0].upper())
+    if not spec.rate_terms and prof_name.startswith(("C1", "C2", "C3",
+                                                     "C4", "C5", "C6",
+                                                     "CF")):
+        rates = RateGamma(4, alpha=1.0)
+    if model.fused_rates:
+        # LG4M/*G4 or LG4X/*R4: force a matching 4-category rate model
+        M = len(model.components)
+        has_rate = len(rates.category_rates()) == M
+        if not has_rate:
+            rates = (RateFree(M) if model.name.upper().startswith("LG4X")
+                     else RateGamma(M, alpha=1.0))
+    return model, rates, extras

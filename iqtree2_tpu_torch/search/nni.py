@@ -7,7 +7,7 @@ scoring and, with want_lp, the site log-likelihoods for UFBoot. An engine
 without the fused round (partition/engine.PartitionEngine) takes the JAX
 package's unfused climb step for step: optimize_branches, then
 evaluate_nni_batch, the swaps, optimize_branches again; its unlinked mode
-scores NNI1 only, with a NOTE. The host applies the best non-conflicting
+and the PMSF SSFEngine (model/pmsf.py) score NNI1 only, with a NOTE. The host applies the best non-conflicting
 improving swaps, skipping any that breaks a -g constraint split.
 Reference analog: IQTree::optimizeNNI (tree/iqtree.cpp:2998) /
 evaluateNNIs (:3426).
@@ -117,8 +117,10 @@ def _revert_swaps(tree: Tree, undo) -> None:
 
 def _supports_nni5(eng) -> bool:
     """Engines whose NNI scoring re-optimises five branches: all but a
-    PartitionEngine with unlinked branch lengths (-Q)."""
-    return getattr(eng, "partition_type", None) != "unlinked"
+    PartitionEngine with unlinked branch lengths (-Q) and the PMSF
+    SSFEngine (NNI5 False), as in the JAX package."""
+    return (getattr(eng, "NNI5", True)
+            and getattr(eng, "partition_type", None) != "unlinked")
 
 
 def nni_optimize(eng: LikelihoodEngine, tree: Tree,

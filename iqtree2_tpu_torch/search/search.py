@@ -14,8 +14,8 @@ first, then each tree hill-climbs on its own (search/nni.nni_optimize), so
 both packages draw the same random numbers and visit the same trees. (The
 JAX package climbs a block in lockstep and lets finished trees ride to keep
 its compiled shapes; here a finished tree leaves the climb.) An engine
-without the fused NNI round (a PartitionEngine) runs one candidate per
-block, as the JAX package runs it. A -g constraint filters the parsimony
+without the fused NNI round (a PartitionEngine, the PMSF SSFEngine) runs
+one candidate per block, as the JAX package runs it. A -g constraint filters the parsimony
 start trees, the BIONJ tree, the random NNIs and the climbs' swaps.
 """
 
@@ -148,11 +148,14 @@ class TreeSearch:
             seen.add(tid)
             scored.append((fitch_score(t, masks, w), t))
         # BIONJ tree from ML distances, or JC distances where the model has
-        # no single reversible rate matrix or the data are a supermatrix
+        # no single reversible rate matrix (a mixture: ROADMAP C13; the
+        # PMSF engine has no model at all) or the data are a supermatrix
         # (whose partitions' distances are averaged by their sites)
         try:
             if hasattr(self.aln, "partitions"):
                 raise NotImplementedError("a supermatrix has no one model")
+            if not hasattr(self.eng, "model"):
+                raise NotImplementedError("the engine has no one model")
             D = ml_distances(self.aln, self.eng.model, dtype=self.eng.dtype,
                              device=self.eng.device)
         except NotImplementedError:

@@ -9,6 +9,8 @@ of falling back to the CPU.
 
 import json
 import re
+
+import numpy as np
 import types
 import os
 import subprocess
@@ -107,7 +109,7 @@ def test_search_with_ufboot_through_the_module(tmp_path):
     (["-lbp", "1000"], "-lbp: not yet ported"),
     (["--root-test"], "--root-test: not yet ported"),
     (["-lmap", "100"], "-lmap: not yet ported"),
-    (["--pmsf"], "--pmsf: not yet ported"),
+    (["--gcf", TREE], "--gcf: not yet ported"),
     (["--date", "TAXNAME"], "--date: not yet ported"),
 ])
 def test_unported_flag_is_refused(tmp_path, extra, message):
@@ -131,7 +133,7 @@ def test_unported_flag_is_refused(tmp_path, extra, message):
     (["-te", TREE, "-m", "GTR+G", "--tbe"],
      "--tbe: works on the ultrafast bootstrap"),
     (["-te", TREE, "-m", "UNREST"], "nonreversible"),
-    (["-te", TREE, "-m", "MIX{JC,HKY}"], "mixture"),
+    (["-te", TREE, "-m", "HKY+E"], "sequencing-error"),
 ])
 def test_unported_path_is_refused(tmp_path, argv, message):
     """Paths the port does not run, and flags that need another (-bnni and
@@ -231,4 +233,96 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         pytest.skip("a CUDA device is present: the refusal cannot be shown")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         cli.main(["-s", ALN, "-m", "JC", "-te", TREE, "-blfix",
+                  "-pre", str(tmp_path / "x"), "--quiet"])
+
+
+@pytest.fixture(scope="module")
+def protein(tmp_path_factory):
+    """A 6-taxon x 80-site protein problem simulated under LG+C20+G4
+    (class by class): (PHYLIP path, Newick path)."""
+    from iqtree2_tpu_torch import kernelcheck
+    aln, tree, _, _ = kernelcheck.simulate("LG+C20+G4", 6, 80, seed=2)
+    return kernelcheck.write_problem(
+        aln, tree, tmp_path_factory.mktemp("protein") / "p")
+
+
+def _sitefreq(prefix, nsites):
+    rows = [ln.split() for ln in
+            Path(f"{prefix}.sitefreq").read_text().splitlines()]
+    assert [int(r[0]) for r in rows] == list(range(1, nsites + 1))
+    freqs = np.array([r[1:] for r in rows], float)
+    assert freqs.shape == (nsites, 20)
+    np.testing.assert_allclose(freqs.sum(1), 1.0, atol=1e-4)
+
+
+def test_mixture_te_through_the_cli(protein, tmp_path):
+    """-m LG+C10+G -te: the profile mixture (C = 40) fitted on the tree
+    through the host alternation (the joint fit declines mixtures), the
+    report naming it."""
+    phy, nwk = protein
+    prefix = tmp_path / "mix"
+    assert cli.main(["-s", phy, "-m", "LG+C10+G", "-te", nwk, "--device",
+                     "cpu", "-pre", str(prefix), "--quiet"]) == 0
+    assert np.isfinite(_logl(prefix))
+    assert "Model of substitution: LG+C10" in _report(prefix)
+
+
+def test_pmsf_with_te_and_with_t(protein, tmp_path):
+    """--pmsf -te (the guide fit on the -te tree, then the SSF fit on it)
+    and --pmsf -t (the guide tree of a search that climbs with NNI1):
+    .sitefreq holds every site's frequencies, summing to 1."""
+    phy, nwk = protein
+    te, t = tmp_path / "te", tmp_path / "t"
+    assert cli.main(["-s", phy, "-m", "LG+C10+G", "--pmsf", "-te", nwk,
+                     "--device", "cpu", "-pre", str(te), "--quiet"]) == 0
+    _sitefreq(te, 80)
+    assert "PMSF final logL" in Path(f"{te}.log").read_text()
+    assert cli.main(["-s", phy, "-m", "LG+C10+G", "--pmsf", "-t", nwk,
+                     "-n", "1", "-ninit", "3", "-ntop", "2", "-nbest", "1",
+                     "--device", "cpu", "-pre", str(t), "--quiet"]) == 0
+    _sitefreq(t, 80)
+    assert "Search done: 1 iterations" in Path(f"{t}.log").read_text()
+    # the same guide tree and guide fit: the same site frequencies
+    assert Path(f"{t}.sitefreq").read_text() == \
+        Path(f"{te}.sitefreq").read_text()
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--pmsf", "-wsr"], "-wsr with --pmsf"),
+    (["--pmsf", "-wspm"], "-wspm with --pmsf"),
+    (["--pmsf", "-asr"], "-asr with --pmsf"),
+    (["--pmsf", "-mldist"], "-mldist with --pmsf"),
+    (["--pmsf", "--mlrate"], "--mlrate with --pmsf"),
+    (["--pmsf", "-alrt", "1000"], "-alrt with --pmsf"),
+    (["--pmsf", "-blfix"], "-blfix with --pmsf"),
+    (["-mldist"], "-mldist with -m LG"),
+])
+def test_mixture_and_pmsf_refusals(protein, tmp_path, argv, message):
+    """Under --pmsf every output the JAX package's SSFEngine cannot give
+    (ROADMAP C12) stops the run; -mldist under a mixture too (C13)."""
+    phy, nwk = protein
+    with pytest.raises(SystemExit, match=message):
+        cli.main(["-s", phy, "-m", "LG+C10+G", "-te", nwk, "--device", "cpu",
+                  "-pre", str(tmp_path / "x"), "--quiet"] + argv)
+    assert not (tmp_path / "x.iqtree").exists()
+
+
+def test_pmsf_needs_a_mixture_and_no_partitions(protein, tmp_path):
+    """--pmsf under a model without classes stops, as in the JAX package;
+    with -p/-q/-Q (whose JAX path ignores --pmsf) it is refused, and a
+    mixture model in a partition stops the partitioned run."""
+    from iqtree2_tpu_torch import kernelcheck
+    phy, nwk = protein
+    with pytest.raises(SystemExit, match="--pmsf requires a profile"):
+        cli.main(["-s", phy, "-m", "LG+G", "--pmsf", "-te", nwk, "--device",
+                  "cpu", "-pre", str(tmp_path / "x"), "--quiet"])
+    with pytest.raises(SystemExit, match="--pmsf with -p/-q/-Q"):
+        cli.main(["-s", ALN, "-p", NEX, "--pmsf", "-te", TREE, "--device",
+                  "cpu", "-pre", str(tmp_path / "x"), "--quiet"])
+    sa, _, _, _ = kernelcheck.simulate_loci(
+        [("AA", "LG+G{0.6}", 60, 0.0, 1.0), ("AA", "WAG+G{0.6}", 60, 0.0,
+                                               1.0)], 6, seed=1)
+    nex = kernelcheck.write_partitioned(sa, ["LG+C10+G", "WAG+G"], tmp_path)
+    with pytest.raises(SystemExit, match="mixture models with -p/-q/-Q"):
+        cli.main(["-p", nex, "-m", "LG+G", "-te", nwk, "--device", "cpu",
                   "-pre", str(tmp_path / "x"), "--quiet"])

@@ -1,7 +1,8 @@
 """The Hopper kernels (H1-H3) against their plain PyTorch versions on a card,
-also at the partitioned path's shapes, and the search path on the card
-(fused NNI round, NNI hill-climb, joint fit) and the partition engine
-against the CPU's plain versions.
+also at the partitioned path's and the mixtures' shapes (C = 80, 240 and
+LG4X's four eigensystems), and the search path on the card (fused NNI
+round, NNI hill-climb, joint fit), the partition engine, a mixture's
+search and the PMSF engine against the CPU's plain versions.
 
 This file imports nothing of JAX and nothing of the JAX package, so it runs
 on the machine with the card, which has no jax; the repository's
@@ -43,7 +44,9 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("model_name", ["GTR+G4", "LG+G4", "HKY+I",
                                         "GTR+G8", "JC", "GTR+I+R3",
-                                        "GTR+R10", "LG+I", "LG+F+R10"])
+                                        "GTR+R10", "LG+I", "LG+F+R10",
+                                        "LG+C20+G4", "LG4X",
+                                        "MIX{LG,WAG}+G4"])
 def test_kernels_match_plain(cuda, model_name, dtype):
     aln, tree, model, rates = kernelcheck.simulate(model_name, 24, 700,
                                                    seed=2)
@@ -444,3 +447,69 @@ def test_single_alignment_flags_on_cuda_match_cpu(cuda, tmp_path, flags,
         out.append([lines(Path(f"{tmp_path / dev}{ext}"))
                     for ext in outputs])
     assert out[1] == out[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_match_plain_at_240_categories(cuda, dtype):
+    """LG+C60+G4 (C = 240, one eigensystem per class), the plain
+    references window by window."""
+    aln, tree, model, rates = kernelcheck.simulate("LG+C60+G4", 16, 600,
+                                                   seed=3)
+    eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=cuda)
+    for r in kernelcheck.check(eng, tree, window=128):
+        assert r["ok"], r
+
+
+@pytest.mark.cuda
+def test_mixture_search_on_cuda_matches_cpu(cuda, tmp_path):
+    """-m LG+C10+G with a short search and -wspm in float64 on the card
+    and on the CPU: the same tree, logL (1e-6) and class posteriors."""
+    from pathlib import Path
+    from iqtree2_tpu_torch import cli
+    aln, tree, _, _ = kernelcheck.simulate("LG+C20+G4", 8, 200, seed=4)
+    phy, _ = kernelcheck.write_problem(aln, tree, tmp_path / "p")
+    out = []
+    for dev in ("cpu", "cuda"):
+        pre = tmp_path / dev
+        assert cli.main(["-s", phy, "-m", "LG+C10+G", "-wspm", "--f64",
+                         "-n", "1", "-ninit", "5", "-ntop", "2", "-nbest",
+                         "1", "--device", dev, "-pre", str(pre),
+                         "--quiet"]) == 0
+        text = Path(f"{pre}.iqtree").read_text()
+        out.append((float(text.split("Log-likelihood of the tree:")[1]
+                          .split()[0]),
+                    Tree.from_newick(Path(f"{pre}.treefile").read_text(),
+                                     aln.names).topology_id(),
+                    np.loadtxt(f"{pre}.siteprob", skiprows=1)))
+    assert out[1][0] == pytest.approx(out[0][0], abs=1e-6)
+    assert out[1][1] == out[0][1]
+    np.testing.assert_allclose(out[1][2], out[0][2], atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_ssf_engine_on_cuda_matches_cpu(cuda):
+    """The PMSF site-specific-frequency engine (plain PyTorch) on the card
+    against the CPU in float64: logL, NNI1 scores, the branch lengths'
+    fit, and run_pmsf from the same mixture fit."""
+    from iqtree2_tpu_torch.model import pmsf
+    aln, tree, _, _ = kernelcheck.simulate("LG+C20+G4", 10, 300, seed=5)
+    model, rates, _ = build_model("LG+C10+G4", aln)
+    sched = build_schedule(tree)
+    c = build_nni_candidates(tree, sched)
+    ca = np.stack([c.iu, c.iv, c.slot_c, c.edge_id])
+    out = []
+    for dev in ("cpu", cuda):
+        eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                               device=dev)
+        t = Tree.from_newick(tree.to_newick(), aln.names)
+        ssf_eng, t2, logl, prof = pmsf.run_pmsf(aln, eng, t,
+                                                log=lambda m: None)
+        out.append((logl, prof, ssf_eng.loglik_tree(t),
+                    ssf_eng.evaluate_nni_batch(sched, ca)))
+    (l0, p0, s0, n0), (l1, p1, s1, n1) = out
+    np.testing.assert_allclose(p1, p0, rtol=0, atol=1e-12)
+    assert s1 == pytest.approx(s0, rel=1e-12)
+    assert l1 == pytest.approx(l0, rel=1e-10)
+    for a, b in zip(n1, n0):
+        np.testing.assert_allclose(a, b, rtol=1e-9)

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's host modules against the
 originals, on the same inputs (files of tests/golden, numpy seeds).
 
-iqtree2_tpu_torch keeps copies of the alignment, model, tree-schedule,
+iqtree2_tpu_torch keeps copies of the alignment, model (mixtures and their
+data files included), tree-schedule,
 parsimony, BIONJ, UFBoot, simulation, optimizer, WH-test, transfer-support,
 tree-test, constraint-tree, supermatrix, terrace and symmetry-test modules
 and of the partition analysis' host helpers so that
@@ -19,6 +20,7 @@ import pytest
 
 from iqtree2_tpu.data.alignment import Alignment as JAlignment
 from iqtree2_tpu.io.alignment_io import read_alignment as jread_alignment
+from iqtree2_tpu.model import mixture as jmixture
 from iqtree2_tpu.model.factory import build_model as jbuild_model
 from iqtree2_tpu.model.pack import build_model_pack as jbuild_model_pack
 from iqtree2_tpu.ops import pars as jpars
@@ -43,6 +45,7 @@ from iqtree2_tpu_torch.data import superalignment
 from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.io.alignment_io import (read_alignment, write_fasta,
                                                write_phylip)
+from iqtree2_tpu_torch.model import mixture
 from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.model.pack import build_model_pack
 from iqtree2_tpu_torch.ops import pars
@@ -446,3 +449,42 @@ def test_partition_analysis_helpers_match_jax(tmp_path):
         models)
     assert (tmp_path / "a.nex").read_text() == \
         (tmp_path / "b.nex").read_text()
+
+
+def test_mixture_data_files_are_copies():
+    """model/data's mixture definitions, byte for byte."""
+    for name in ("mixture_models.npz", "mixture_defs.json"):
+        port = Path(mixture.__file__).parent / "data" / name
+        ref = Path(jmixture.__file__).parent / "data" / name
+        assert port.read_bytes() == ref.read_bytes(), name
+
+
+@pytest.mark.parametrize("name", ["C60", "LG4X", "EX_EHO", "CF4", "UL2"])
+def test_make_mixture_matches_jax(name, tmp_path):
+    """model/mixture.py's constructors: the same components, weights and
+    flags (CF4's empirical class from the alignment)."""
+    aln, jaln = _both_alignments("protein", tmp_path)
+    m, jm = mixture.make_mixture(name, aln), jmixture.make_mixture(name, jaln)
+    assert (m.name, m.optimize_weights, m.fused_rates) == \
+        (jm.name, jm.optimize_weights, jm.fused_rates)
+    np.testing.assert_array_equal(m.weights, jm.weights)
+    assert len(m.components) == len(jm.components)
+    for a, b in zip(m.components, jm.components):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(m.get_params(), jm.get_params())
+
+
+def test_opt_profile_names_repaired():
+    """C10OPT and C20OPT: the JAX package looks up name.upper() in a file
+    that spells C10Opt and refuses them (ROADMAP C14); the port finds them,
+    with free weights and the C10/C20 profiles."""
+    with pytest.raises(ValueError, match="unknown mixture"):
+        jmixture.make_mixture("C10OPT")
+    for name, fixed in (("C10OPT", "C10"), ("C20OPT", "C20")):
+        m = mixture.make_mixture(name)
+        assert m.optimize_weights and len(m.get_params()) == \
+            len(m.components) - 1
+        ref = mixture.make_mixture(fixed)
+        for a, b in zip(m.components, ref.components):
+            np.testing.assert_array_equal(a[1], b[1])

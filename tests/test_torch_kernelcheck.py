@@ -123,6 +123,41 @@ def test_check_fails_unwritten_rows(problem, monkeypatch, name, fake):
     assert ok == {k: k != name for k in ok}
 
 
+MUTANTS = [
+    ("down_pass", _skip_first_slot(kernels.down_step_plain)),
+    ("down_pass", _down_without_epilogue),
+    ("up_pass", _skip_step(kernels.up_step_plain)),
+    ("theta_pass", _theta_skipping(-1)),
+    ("theta_pass", _theta_reading_tip_rows)]
+
+
+@pytest.mark.parametrize("name,fake", MUTANTS, ids=[
+    "down_skip_slot", "down_skip_lp", "up_skip_step", "theta_skip_edge",
+    "theta_reads_tip_rows"])
+def test_windowed_check_fails_unwritten_rows(problem, monkeypatch, name,
+                                             fake):
+    """With the plain references run window by window (the large mixture
+    problems' check), the plain versions pass with the whole problem's
+    errors and a mutant fails its kernel alone."""
+    eng, tree = problem
+    assert kernelcheck.windows(eng.Pp, 50)[-1] == (100, 128)   # ragged
+    whole = kernelcheck.check(eng, tree)
+    res = kernelcheck.check(eng, tree, window=50)
+    assert all(r["ok"] for r in res) and [r["max_rel_err"] for r in res] \
+        == [r["max_rel_err"] for r in whole]
+    monkeypatch.setattr(kernels, name, fake)
+    ok = {r["name"]: r["ok"] for r in kernelcheck.check(eng, tree,
+                                                         window=50)}
+    assert ok == {k: k != name for k in ok}
+
+
+def test_plain_window_keeps_the_temporaries_in_budget(problem):
+    eng, _ = problem
+    assert kernelcheck.plain_window(eng) is None
+    per = (2 * 12 - 3) * 4 * 4 * 4 * 8      # n_edges * C * S * S * 8 bytes
+    assert kernelcheck.plain_window(eng, budget=per * 50) == 50
+
+
 def test_theta_bound_counts_its_result_only(problem):
     """theta_pass's bytes: each input read once (P, tips, the schedule, the
     down pass's internal rows and scales, U, V, pi) and theta with its scale
@@ -186,3 +221,25 @@ def test_simulated_loci_lack_taxa_but_cover_all(n_loci, tmp_path):
         sa, ["GTR+G"] * n_loci, tmp_path))
     assert back.names == sa.names
     np.testing.assert_array_equal(np.array(back.part_presence), present)
+
+
+@pytest.mark.parametrize("window", [None, 50])
+def test_check_times_every_pass(problem, monkeypatch, window):
+    """check(time_reps=...)'s timing closures, run on the CPU with the
+    card's clocks replaced by a call count: each kernel and each plain
+    version (window by window) runs, every time key is filled."""
+    calls = []
+
+    def clock(fn, reps=1):
+        fn()
+        calls.append(reps)
+        return 1.0
+
+    monkeypatch.setattr(kernelcheck, "timed_ms", clock)
+    monkeypatch.setattr(kernelcheck, "back_to_back_ms", clock)
+    res = kernelcheck.check(*problem, time_reps=3, window=window,
+                            b2b_reps=2)
+    assert all(r["ms"] == r["plain_ms"] == r["b2b_ms"] == 1.0 for r in res)
+    assert res[0]["sitelp_ms"] == res[0]["sitelp_b2b_ms"] == 1.0
+    plain_reps = 3 if window is None else 1
+    assert sorted(calls) == sorted([plain_reps, 3, 3, plain_reps, 2] * 4)

@@ -7,8 +7,9 @@ makes any import of them fail), imports every module of iqtree2_tpu_torch,
 and runs through the CLI on the CPU a golden fixed-tree evaluation, a
 two-iteration tree search with UFBoot, a small ModelFinder run
 (-m TESTONLY), the command line of chip_smoke.py's phase 10 at -B 100
-(every support, the site outputs, -asr, -mldist, -o) and a partitioned fit
-(-p example.nex -te). A source scan fails on any import of
+(every support, the site outputs, -asr, -mldist, -o), a partitioned fit
+(-p example.nex -te) and, on a small simulated protein alignment, a
+profile mixture's -te fit with -wspm and a --pmsf -te run. A source scan fails on any import of
 iqtree2_tpu itself in the port, in chip_smoke.py and in the card-only
 tests/test_torch_cuda.py.
 """
@@ -61,6 +62,15 @@ with tempfile.TemporaryDirectory() as d:
                      d + "/p", "--quiet"]) == 0
     assert "charpartition" in open(d + "/p.best_scheme.nex").read()
     assert "PARTITION TABLE" in open(d + "/p.iqtree").read()
+    from iqtree2_tpu_torch import kernelcheck
+    aln, tree, _, _ = kernelcheck.simulate("LG+C20+G4", 5, 40, seed=1)
+    phy, nwk = kernelcheck.write_problem(aln, tree, d + "/aa")
+    assert cli.main(["-s", phy, "-m", "LG+C10+G", "-te", nwk, "-wspm",
+                     "--device", "cpu", "-pre", d + "/x", "--quiet"]) == 0
+    assert open(d + "/x.siteprob").readline().count("\tp") == 10
+    assert cli.main(["-s", phy, "-m", "LG+C10+G", "--pmsf", "-te", nwk,
+                     "--device", "cpu", "-pre", d + "/y", "--quiet"]) == 0
+    assert len(open(d + "/y.sitefreq").read().splitlines()) == 40
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu")
             and sys.modules[m] is not None]
