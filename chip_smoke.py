@@ -21,7 +21,7 @@ ending in torch.cuda.synchronize():
    LG+F+R10 (C * S = 200), in float32 and float64 (tolerances in
    iqtree2_tpu_torch/kernelcheck.py; down_pass with its site-logL
    epilogue, up_pass, theta_pass), timed through the wrappers and back to
-   back (3 repetitions, cut from 10 for time), with each problem's bounds;
+   back (2 repetitions, cut from 10 for time), with each problem's bounds;
 4. the golden run through the CLI, -s tests/golden/example.phy -m GTR+G
    -te tests/golden/ref_tree.nwk, in float64 (logL within 0.5 of the
    reference IQ-TREE's) and float32 (finite, within 10); the launch counts
@@ -121,14 +121,14 @@ ending in torch.cuda.synchronize():
    (d) a supermatrix of 20 loci x 1000 sites over 100 taxa, each locus
    simulated under GTR+G4, HKY+G4, TN+I+G4 or K2P+R3 at a rate in 0.25-4
    without a tenth of the taxa, one PHYLIP file per locus, searched with
-   -p -m GTR+G -B 1000 -n 5 -ninit 10 -nbest 1 (iterations and start
+   -p -m GTR+G -B 1000 -n 3 -ninit 10 -nbest 1 (iterations and start
    trees cut for time) under the charpartition's models: a .terrace
    report, 1000 replicate trees; then each kernel against its plain
    version at the shapes of its smallest partition and of its largest
    (each lacks a tenth of the taxa); (e) the last single-alignment flags
    on example.phy under -m GTR+G, each command line counted and every
    kernel launched: -g with a 4-taxon constraint that the reference
-   topology breaks (its split in .treefile), -b 3 (3 trees in .boottrees,
+   topology breaks (its split in .treefile), -b 2 (2 trees in .boottrees,
    14 supports, a .contree), --runs 2 (.run1 and .run2, the best printed)
    and --symtest (a .symtest.csv row);
 13. the mixture models and PMSF, float32 unless stated, each command line
@@ -138,12 +138,12 @@ ending in torch.cuda.synchronize():
    one eigensystem per class) and LG4X (four eigensystems on four
    categories) at 64 x 4096, LG+C60+G4 (C = 240) at 64 x 5400 (4163
    patterns: the unified buffer holds 2.55 x 10^9 values, past 2^31), and
-   LG+C20+G4 at 64 x 1024 in float64, with times (2 repetitions),
+   LG+C20+G4 at 64 x 1024 in float64, with times (1 repetition),
    bounds, shares, occupancy, launches and peak memory; (b) -m LG+C60+G --pmsf -te on 100 taxa x 2000 sites
    simulated class by class (kernelcheck.simulate_mixture): the guide
    fit runs the kernels at C = 240, .sitefreq rows sum to 1 within 1e-4,
    the PMSF logL is at least the guide mixture's - 1, peak device memory
-   under 70 GiB; (c) -m LG+C20+G -B 1000 -wspm -n 5 -ninit 20 -nbest 2
+   under 70 GiB; (c) -m LG+C20+G -B 1000 -wspm -n 3 -ninit 10 -nbest 2
    (the search's depth cut for time) on 24 x 1000: 1000 replicate trees,
    .siteprob with 20 class columns summing to 1, every kernel launched;
    (d) -m LG+C20+G --pmsf -B 1000 at (c)'s depth on (c)'s alignment:
@@ -151,16 +151,42 @@ ending in torch.cuda.synchronize():
    1000 replicate trees; (e) MIX{LG,WAG}+G fitted (class weights, Gamma
    shape, branch lengths) at 64 x 1024 in float64 on the card, its logL
    within 1e-3 of the same fit on the CPU (the plain versions), which
-   runs beside phases 2-13 in a process of its own.
+   runs beside phases 2-13 in a process of its own;
+14. the model families of codon data, +E sequencing error, --mdef YAML
+   definitions and partitioned mixtures, each command line under the
+   launch and pass counters (one launch per pass): (a) each kernel against
+   its plain version at 64 x 4096 under GY+F3X4+G4 (61 states: 4096
+   codons, float32 and float64), KOSI07+G4, HKY+E+G4 (tip rows that are
+   not indicators), JC2+G4 on binary data (2 states) and MK+G4 on a
+   7-state --mdef datatype, with times loaded and back to back, bounds,
+   shares and occupancy; (b) 100 x 2000 codons simulated under
+   GY{2.0,0.3}+F3X4+G{0.8}, -st CODON -m GY+F3X4+G -B 1000 (CODON_DEPTH,
+   cut for time): logL at least the -te fit on the simulating tree - 0.5
+   (CODON_TE_LOGL, that fit's logL),
+   kappa and omega within 15% of 2.0 and 0.3, phase 6's files, every
+   kernel launched; (c) -m KOSI07+F+G and MG+F3X4 -te on (b)'s data:
+   finite logLs, tree lengths within 2x of (b)'s; (d) phase 5's
+   alignment with 1% of its tip states replaced by another base:
+   -m GTR+E+G -te fits epsilon in [0.003, 0.03] and a logL above GTR+G's,
+   then -m HKY+E+G -B 1000 (ERROR_DEPTH) on example.phy under phase 6's
+   checks; (e) --mdef: MYRY+G2 -B 1000 (FAMILY_DEPTH) on 100 x 4096 sites
+   of a 2-state RY datatype (phase 6's files),
+   and MYGTR+G{0.6} -te on phase 5's alignment in float64 equal to the
+   same GTR given in the -m string within 1e-6 relative; (f) a -q
+   supermatrix of 100 taxa, an LG+C20+G protein locus (1000 sites, C = 80)
+   beside a GTR+G DNA locus (2000 sites): -te in float64 on the card, its
+   fitted state evaluated on the CPU within 1e-3, then -B 1000
+   (FAMILY_DEPTH).
 
-A "[time]" line gives the start of each phase and the end of phase 13.
+A "[time]" line gives the start of each phase and the end of phase 14.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
 phase-8 default command, the program's main path, slice_launches
 from phase 10's first command line, the supports' path,
 partition_launches from phase 12's partitioned default command and
-mixture_launches from phase 13c's mixture search; times,
+mixture_launches from phase 13c's mixture search,
+model_family_launches from phase 14b-f's command lines; times,
 back-to-back times
 and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
 single PyTorch call computes a pruning pass, so library_ms is null); the
@@ -194,7 +220,8 @@ REPLACES = {
 # the kernels of the standalone launches the passes absorbed
 GONE = ("root_sitelp", "edge_theta")
 CHECK_TAXA, CHECK_SITES = 64, 4096
-CHECK_REPS = 3     # phase 3's timing repetitions (10 until PR 8)
+# phase 3's timing repetitions, cut from 10, then 3, for the script's time
+CHECK_REPS = 2
 # phase 3's problems: the search's models, then ModelFinder's shapes
 CHECK_MODELS = ("GTR+G4", "GTR+G8", "LG+G4", "JC", "GTR+I+R3", "GTR+R10",
                 "LG+I", "LG+F+R10")
@@ -237,8 +264,9 @@ MAX_RATE_DEV = 0.05         # 12c: every locus has the same rate
 LOCI, LOCUS_SITES, LOCUS_TAXA, LOCUS_GAPS = 20, 1000, 100, 0.1
 # 12d's search depth, cut from the defaults (-ninit 100, -nbest 5) for the
 # script's time: each NNI polish of a start tree takes about 13 s there;
-# -n 10 and -ninit 20 -nbest 2 until PR 8 made room for phase 13
-LOCUS_DEPTH = ["-n", "5", "-ninit", "10", "-nbest", "1"]
+# cut from -n 10 -ninit 20 -nbest 2 for phase 13, then from -n 5 and -ntop
+# 20 (10 start trees polished, 29 s) for phase 14
+LOCUS_DEPTH = ["-n", "3", "-ninit", "10", "-ntop", "2", "-nbest", "1"]
 LOCUS_MODELS = (
     ("GTR+G", "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}"),
     ("HKY+G", "HKY{3.0}+F{0.25,0.25,0.2,0.3}+G{0.8}"),
@@ -247,7 +275,7 @@ LOCUS_MODELS = (
 # 12e: a 4-taxon constraint that the reference topology breaks (there
 # Frog,Turtle | Human,Mouse), and the standard bootstrap's replicates
 CONSTRAINT = "((Frog,Human),(Turtle,Mouse));"
-STANDARD_REPLICATES = 3     # 12e's -b (5 until PR 8)
+STANDARD_REPLICATES = 2     # 12e's -b, cut from 5, then 3
 # phase 13: the mixture problems of the kernel checks (kernelcheck.MODELS
 # name, sites, dtype) at CHECK_TAXA taxa; LG+C60+G4's 5400 sites give 4163
 # patterns, so its unified buffer holds 126 x 4800 x 4224 values, past 2^31
@@ -255,17 +283,69 @@ MIX_CHECKS = (("LG+C20+G4", CHECK_SITES, "float32"),
               ("LG+C60+G4", 5400, "float32"),
               ("LG+C20+G4", SLICE_SITES, "float64"),
               ("LG4X", CHECK_SITES, "float32"))
-MIX_TIME_REPS = 2      # 13a: a pass takes up to 250 ms there
+# 13a's timing repetitions, cut from 2: a pass takes up to 250 ms there
+MIX_TIME_REPS = 1
 PMSF_TAXA, PMSF_SITES = 100, 2000      # 13b: the guide fit at C = 240
 MAX_PMSF_GIB = 70.0
 MIX_TAXA, MIX_SITES = 24, 1000         # 13c and 13d
 MIX_REPLICATES = 1000
 # 13c's and 13d's search depth, cut for the script's time from the
 # defaults (about 100 iterations, -ninit 100 -nbest 5): an iteration took
-# 1.2-1.3 s there
-MIX_DEPTH = ["-n", "5", "-ninit", "20", "-nbest", "2"]
+# 1.2-1.3 s there; cut from -n 5 -ninit 20 -ntop 20 for phase 14
+MIX_DEPTH = ["-n", "3", "-ninit", "10", "-ntop", "3", "-nbest", "2"]
 WEIGHT_TAXA, WEIGHT_SITES = 64, 1024   # 13e: MIX{LG,WAG}+G's weights
 WEIGHT_TOL = 1e-3                      # 13e: card against the CPU, float64
+# phase 14: the kernel checks of the model families (kernelcheck.MODELS
+# name, dtype) at CHECK_TAXA x CHECK_SITES, codons in both precisions
+FAMILY_CHECKS = (("GY+F3X4+G4", "float32"), ("GY+F3X4+G4", "float64"),
+                 ("KOSI07+G4", "float32"), ("HKY+E+G4", "float32"),
+                 ("JC2+G4", "float32"), ("MK7+G4", "float32"))
+FAMILY_TIME_REPS, FAMILY_B2B_REPS = 1, 3
+CODON_TAXA, CODON_SITES = 100, 2000    # 14b: 6 kb of coding sequence
+CODON_TRUE = (2.0, 0.3)                # GY{2.0,0.3}: kappa, omega
+# the -te fits whose logL less 0.5 bounds 14b's and 14d's searches, as the
+# reference fit bounds phase 6's: -st CODON -m GY+F3X4+G -te on 14b's
+# simulation (seed 4) and -m HKY+E+G -te ref_tree.nwk on example.phy, both
+# float32, as this script measured them on an H100 80GB HBM3 (every run
+# the same)
+CODON_TE_LOGL = -100709.2812
+HKY_E_TE_LOGL = -21499.8633
+PARAM_TOL = 0.15                       # 14b: relative
+# the searches' depth, cut for the script's time from the defaults (about
+# 100 iterations, -ninit 100 -ntop 20 -nbest 5): 14b's (at -n 5 -ninit 20
+# -ntop 5 it took 33 s, at -n 3 -ninit 10 -ntop 3 26 s), and 14e's and
+# 14f's (14f's took 103 s and 78 s at those depths: 9 s an iteration)
+CODON_DEPTH = ["-n", "2", "-ninit", "5", "-ntop", "2", "-nbest", "2"]
+FAMILY_DEPTH = ["-n", "1", "-ninit", "3", "-ntop", "1", "-nbest", "1"]
+ERROR_SHARE = 0.01                     # 14d: tip states replaced
+ERROR_RANGE = (0.003, 0.03)            # 14d: the fitted epsilon
+# 14d's search of example.phy, cut from the defaults: 24 s of iterations
+ERROR_DEPTH = ["-n", "10", "-ninit", "20", "-ntop", "5", "-nbest", "2"]
+RY_TAXA, RY_SITES = 100, 4096          # 14e
+MDEF_TOL = 1e-6                        # 14e: relative, float64
+MDEF_YAML = """\
+# phase 14e's --mdef file: a 2-state datatype and two models
+- datatype: RY
+  state: [R, Y]
+  missing: "?-"
+- model: MYRY
+  datatype: RY
+  rates: [1.0]
+  frequencies: [0.6, 0.4]
+- model: MYGTR
+  datatype: DNA
+  rates: [1.5, 4.0, 1.2, 0.8, 5.0, 1.0]
+  frequencies: [0.3, 0.2, 0.2, 0.3]
+"""
+MDEF_GTR = "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}"
+# 14f: the supermatrix's loci (sequence type, simulating model, sites) and
+# the models its charpartition names
+PMIX_TAXA = 100
+PMIX_LOCI = (("AA", "LG+C20+G{0.6}", 1000),
+             ("DNA", "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}",
+              2000))
+PMIX_MODELS = ["LG+C20+G", "GTR+G"]
+PMIX_TOL = 1e-3                        # 14f: card against the CPU, float64
 
 
 def fail(msg: str) -> int:
@@ -660,18 +740,20 @@ def partition_rates(prefix: Path) -> list[float]:
     return [float(row.split()[-1]) for row in table.splitlines()[3:]]
 
 
-def counted(args: list[str], tag: str, split: bool = False) -> dict:
-    """Phase 12's and 13's run of one command line: the launch counts reset
-    just before and read just after, held to one launch per pass; prints
-    the wall, the launches, the passes per partition (per tip-partial
-    tensor, one per partition engine), the peak device memory and with
-    split the partition fit's wall split. Returns the launches."""
+def counted(args: list[str], tag: str, split: bool = False,
+            runner=None) -> dict:
+    """Phase 12's, 13's and 14's run of one command line (through
+    ``runner``, run_cli where None): the launch counts reset just before
+    and read just after, held to one launch per pass; prints the wall, the
+    launches, the passes per partition (per tip-partial tensor, one per
+    partition engine), the peak device memory and with split the partition
+    fit's wall split. Returns the launches."""
     import torch
     from iqtree2_tpu_torch.ops import kernels
     torch.cuda.reset_peak_memory_stats()
     with PassCount() as passes, FitSplit() as fits:
         kernels.reset_launch_counts()
-        wall = run_cli(args)
+        wall = (runner or run_cli)(args)
         launches = dict(kernels.LAUNCHES)
     passes.check(launches, tag)
     print(f"{tag} {' '.join(args[-12:])}: {wall:.1f} s; launches "
@@ -1148,6 +1230,324 @@ def mix_weights(cpu: subprocess.Popen) -> None:
         raise RuntimeError(f"{tag} a kernel was never launched: {launches}")
 
 
+def family_kernels(errors: dict) -> list:
+    """14a: the kernels against their plain versions on the model families'
+    problems (FAMILY_CHECKS, at CHECK_TAXA x CHECK_SITES: codons for the
+    codon models), each pass one launch, with times loaded and back to
+    back, bounds, shares, occupancy and peak memory. Returns one row per
+    problem for the summary line."""
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.ops import kernels
+    rows = []
+    for name, dt in FAMILY_CHECKS:
+        dtype = getattr(torch, dt)
+        aln, tree, model, rates = kernelcheck.simulate(name, CHECK_TAXA,
+                                                       CHECK_SITES, seed=1)
+        eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device="cuda")
+        C, S = int(eng._pack["cat_rate"].shape[0]), aln.num_states
+        torch.cuda.reset_peak_memory_stats()
+        window = kernelcheck.plain_window(eng)
+        tag = f"[phase 14a] {name} {CHECK_TAXA} x {CHECK_SITES}"
+        res = check_kernels(tag, eng, tree, FAMILY_TIME_REPS, errors,
+                            window=window, b2b_reps=FAMILY_B2B_REPS)
+        bnd = kernelcheck.bounds(eng, tree)
+        row = {"problem": name, "dtype": dt, "C": C, "S": S, "Pp": eng.Pp}
+        for r in res:
+            b = bnd[r["name"]]
+            row[r["name"]] = {
+                "ms": round(r["ms"], 4), "b2b_ms": round(r["b2b_ms"], 4),
+                "bound_ms": round(b["bound_ms"], 6),
+                "bound_by": b["bound_by"],
+                "share": round(b["bound_ms"] / r["b2b_ms"], 4),
+                "plain_ms": round(r["plain_ms"], 3),
+                "occupancy": kernels.pass_occupancy(r["name"], dtype, C, S,
+                                                    eng.Pp)}
+        b = bnd["down_pass_sitelp"]
+        row["down_pass + epilogue"] = {
+            "ms": round(res[0]["sitelp_ms"], 4),
+            "b2b_ms": round(res[0]["sitelp_b2b_ms"], 4),
+            "bound_ms": round(b["bound_ms"], 6),
+            "share": round(b["bound_ms"] / res[0]["sitelp_b2b_ms"], 4),
+            "plain_ms": round(res[0]["sitelp_plain_ms"], 3)}
+        print(f"{tag} {dt} C={C} S={S} Pp={eng.Pp}: plain window {window}; "
+              f"launches per pass "
+              f"{ {r['name']: r['launches'] for r in res} } (sitelp "
+              f"{res[0]['sitelp_launches']}); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{json.dumps(row)}", flush=True)
+        if any(r["launches"] != 1 for r in res) or \
+                res[0]["sitelp_launches"] != 1:
+            raise RuntimeError(f"{tag}: not one launch per pass: {res}")
+        if name == "HKY+E+G4" and not bool(((eng._tipP > 0)
+                                             & (eng._tipP < 1)).any()):
+            raise RuntimeError(f"{tag}: the tips are indicator rows")
+        rows.append(row)
+        del eng, res
+        torch.cuda.empty_cache()
+    return rows
+
+
+def report_value(prefix: Path, label: str) -> float:
+    """The number after ``label:`` in a run's .iqtree."""
+    return float(re.search(re.escape(label) + r": (-?[\d.]+)",
+                           Path(f"{prefix}.iqtree").read_text()).group(1))
+
+
+def tree_length(prefix: Path) -> float:
+    return report_value(prefix, "Total tree length (sum of branch lengths)")
+
+
+def wall_split(prefix: Path) -> str:
+    return re.search(r"Wall seconds: (.*)", log_lines(prefix)).group(1)
+
+
+def family_codon(launches: dict) -> tuple[str, str, Path]:
+    """14b: CODON_TAXA x CODON_SITES codons simulated under
+    GY{2.0,0.3}+F3X4+G{0.8}; -st CODON -m GY+F3X4+G -B 1000 (CODON_DEPTH)
+    in float32: logL at least the -te fit on the simulating tree
+    (CODON_TE_LOGL) - 0.5, kappa and omega within PARAM_TOL of the
+    simulating values, phase 6's files, every kernel launched. Adds the
+    launches to ``launches``; returns the alignment's and the simulating
+    tree's paths and the search's prefix."""
+    from iqtree2_tpu_torch import kernelcheck
+    aln, tree, _, _ = kernelcheck.simulate("GY+F3X4+G4", CODON_TAXA,
+                                           CODON_SITES, seed=4)
+    phy, nwk = kernelcheck.write_problem(aln, tree, OUT / "codon")
+    bound = CODON_TE_LOGL - 0.5
+    pre = OUT / "codon_search"
+    tag = "[phase 14b]"
+    got = counted(["-s", phy, "-st", "CODON", "-m", "GY+F3X4+G", "-B",
+                   str(FLAGSHIP_REPLICATES)] + CODON_DEPTH
+                  + ["-pre", str(pre)], tag)
+    add(launches, got)
+    logl = check_flagship(pre, bound)
+    kappa = report_value(pre, "Transition/transversion ratio (kappa)")
+    omega = report_value(pre, "Nonsynonymous/synonymous ratio (omega)")
+    print(f"{tag} {aln.ntaxa} x {aln.nsites} codons ({aln.num_patterns} "
+          f"patterns) f32: logL {logl:.4f} (bound {bound:.4f}, the -te "
+          f"fit's - 0.5), tree length {tree_length(pre):.4f}, kappa "
+          f"{kappa} omega {omega} (simulated "
+          f"{CODON_TRUE}); wall seconds: {wall_split(pre)}", flush=True)
+    for v, true in zip((kappa, omega), CODON_TRUE):
+        if not abs(v - true) <= PARAM_TOL * true:
+            raise RuntimeError(f"{tag} kappa {kappa}, omega {omega}: not "
+                               f"within {PARAM_TOL} of {CODON_TRUE}")
+    if not all(v > 0 for v in got.values()):
+        raise RuntimeError(f"{tag} a kernel of the path was never "
+                           f"launched: {got}")
+    return phy, nwk, pre
+
+
+def family_codon_models(phy: str, nwk: str, gy: Path,
+                        launches: dict) -> None:
+    """14c: -m KOSI07+F+G and -m MG+F3X4 -te on 14b's data and simulating
+    tree: finite logLs, tree lengths within 2x of 14b's GY fit's."""
+    length = tree_length(gy)
+    for model in ("KOSI07+F+G", "MG+F3X4"):
+        pre = OUT / f"codon_{model.split('+')[0].lower()}"
+        tag = f"[phase 14c {model}]"
+        add(launches, counted(["-s", phy, "-st", "CODON", "-m", model, "-te",
+                               nwk, "-pre", str(pre)], tag))
+        logl, tl = report_logl(pre), tree_length(pre)
+        print(f"{tag} logL {logl:.4f}, tree length {tl:.4f} (GY+F3X4+G's "
+              f"{length:.4f})", flush=True)
+        if not math.isfinite(logl) or not length / 2 <= tl <= 2 * length:
+            raise RuntimeError(f"{tag} logL {logl}, tree length {tl}")
+
+
+def with_errors(aln_path: str, share: float, seed: int) -> str:
+    """A copy of a DNA alignment file with ``share`` of its tip states, drawn
+    from ``seed``, each replaced by one of the other three bases (drawn
+    uniformly); returns its path."""
+    import numpy as np
+    from iqtree2_tpu_torch.data.alignment import Alignment
+    from iqtree2_tpu_torch.data.seqtypes import DNA_STATE_TO_CODE
+    from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
+    aln = read_alignment(aln_path)
+    mat = aln.expand_to_sites().copy()
+    rng = np.random.default_rng(seed)
+    hit = rng.random(mat.shape) < share
+    state = np.searchsorted(DNA_STATE_TO_CODE, mat[hit])
+    if not np.array_equal(DNA_STATE_TO_CODE[state], mat[hit]):
+        raise RuntimeError("the alignment holds ambiguous states")
+    mat[hit] = DNA_STATE_TO_CODE[(state + rng.integers(1, 4, state.size))
+                                 % 4]
+    path = str(OUT / "big_errors.phy")
+    write_phylip(Alignment.from_site_matrix(aln.names, mat, aln.seqtype),
+                 path)
+    return path
+
+
+def family_seqerror(aln_path: str, tree_path: str, launches: dict) -> None:
+    """14d: phase 5's alignment with ERROR_SHARE of its tip states
+    replaced: -m GTR+E+G -te fits epsilon within ERROR_RANGE and a logL
+    above -m GTR+G -te's on the same file; then -m HKY+E+G -B 1000 on
+    example.phy under phase 6's checks (its logL at least the -te fit on
+    the reference tree, HKY_E_TE_LOGL, - 0.5)."""
+    noisy = with_errors(aln_path, ERROR_SHARE, seed=7)
+    fits = {}
+    for model in ("GTR+E+G", "GTR+G"):
+        pre = OUT / f"errors_{model.replace('+', '')}"
+        add(launches, counted(["-s", noisy, "-m", model, "-te", tree_path,
+                               "-pre", str(pre)],
+                              f"[phase 14d {model}]"))
+        fits[model] = pre
+    eps = report_value(fits["GTR+E+G"],
+                       "Sequencing error probability (epsilon)")
+    le, lg = report_logl(fits["GTR+E+G"]), report_logl(fits["GTR+G"])
+    print(f"[phase 14d] {ERROR_SHARE:.0%} of the tips replaced: epsilon "
+          f"{eps} (range {ERROR_RANGE}); logL GTR+E+G {le:.4f}, GTR+G "
+          f"{lg:.4f}", flush=True)
+    if not (ERROR_RANGE[0] <= eps <= ERROR_RANGE[1] and le > lg):
+        raise RuntimeError(f"[phase 14d] epsilon {eps}, logLs {le} / {lg}")
+    pre = OUT / "hky_e_search"
+    tag = "[phase 14d HKY+E+G -B]"
+    got = counted(["-s", str(GOLDEN / "example.phy"), "-m", "HKY+E+G", "-B",
+                   str(FLAGSHIP_REPLICATES)] + ERROR_DEPTH
+                  + ["-pre", str(pre)], tag)
+    add(launches, got)
+    logl = check_flagship(pre, HKY_E_TE_LOGL - 0.5)
+    print(f"{tag} logL {logl:.4f} (-te {HKY_E_TE_LOGL}), epsilon "
+          f"{report_value(pre, 'Sequencing error probability (epsilon)')};"
+          f" wall seconds: {wall_split(pre)}", flush=True)
+    if not all(v > 0 for v in got.values()):
+        raise RuntimeError(f"{tag} a kernel was never launched: {got}")
+
+
+def family_mdef(aln_path: str, tree_path: str, launches: dict) -> None:
+    """14e: --mdef MDEF_YAML: MYRY+G2 -B 1000 (FAMILY_DEPTH) on RY_TAXA x
+    RY_SITES of the 2-state RY datatype (phase 6's files, a finite logL),
+    and MYGTR+G{0.6} -te on phase 5's alignment in float64 equal to the
+    same GTR written in the -m string within MDEF_TOL relative."""
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.io.alignment_io import write_phylip
+    defs = OUT / "defs.yml"
+    defs.write_text(MDEF_YAML)
+    aln, _, _, _ = kernelcheck.simulate("JC2+G4", RY_TAXA, RY_SITES, seed=5)
+    phy = str(OUT / "ry.phy")
+    write_phylip(aln, phy)
+    # binary states 0/1 as R/Y, after each line's 12-character name field
+    head, *rows = Path(phy).read_text().splitlines()
+    Path(phy).write_text("\n".join(
+        [head] + [r[:12] + r[12:].translate(str.maketrans("01", "RY"))
+                  for r in rows]) + "\n")
+    pre = OUT / "ry_search"
+    tag = "[phase 14e MYRY+G2 -B]"
+    got = counted(["--mdef", str(defs), "-s", phy, "-st", "RY", "-m",
+                   "MYRY+G2", "-B", str(FLAGSHIP_REPLICATES)] + FAMILY_DEPTH
+                  + ["-pre", str(pre)], tag)
+    add(launches, got)
+    logl = check_flagship(pre, -math.inf)
+    print(f"{tag} {RY_TAXA} x {RY_SITES} RY: logL {logl:.4f}; wall "
+          f"seconds: {wall_split(pre)}", flush=True)
+    if not math.isfinite(logl):
+        raise RuntimeError(f"{tag} logL {logl}")
+    if not all(v > 0 for v in got.values()):
+        raise RuntimeError(f"{tag} a kernel was never launched: {got}")
+    logls = {}
+    for model, extra in (("MYGTR+G{0.6}", ["--mdef", str(defs)]),
+                         (MDEF_GTR, [])):
+        pre = OUT / f"mdef_{'yaml' if extra else 'gtr'}"
+        add(launches, counted(extra + ["-s", aln_path, "-m", model, "-te",
+                                       tree_path, "--f64", "-pre", str(pre)],
+                              f"[phase 14e {model} f64]"))
+        logls[model] = report_logl(pre)
+    a, b = logls.values()
+    print(f"[phase 14e] f64 -te on phase 5's alignment: {logls}; relative "
+          f"difference {abs(a - b) / abs(b):.3e} (tol {MDEF_TOL:g})",
+          flush=True)
+    if not abs(a - b) <= MDEF_TOL * abs(b):
+        raise RuntimeError(f"[phase 14e] MYGTR and GTR differ: {logls}")
+
+
+def family_partitions(launches: dict) -> None:
+    """14f: a -q supermatrix of PMIX_TAXA taxa, an LG+C20+G protein locus
+    beside a GTR+G DNA locus (PMIX_LOCI, the protein locus simulated class
+    by class): -te in float64 on the card, its fitted parameters and tree
+    evaluated on the CPU (the plain versions) within PMIX_TOL; then -B 1000
+    in float32 at FAMILY_DEPTH."""
+    import torch
+    from iqtree2_tpu_torch import cli, kernelcheck, partition_analysis
+    from iqtree2_tpu_torch.data.superalignment import read_partition_spec
+    from iqtree2_tpu_torch.partition.engine import PartitionEngine
+    sa, tree, _, _ = kernelcheck.simulate_loci(
+        [(st, m, n, 0.0, 1.0) for st, m, n in PMIX_LOCI], PMIX_TAXA, seed=6)
+    d = OUT / "pmix"
+    d.mkdir(exist_ok=True)
+    nex = kernelcheck.write_partitioned(sa, PMIX_MODELS, d)
+    nwk = d / "true.nwk"
+    nwk.write_text(tree.to_newick() + "\n")
+    res = {}
+
+    def run_te(args):
+        parser = cli.build_parser()
+        ns = parser.parse_args(args + ["--device", "cuda", "-redo",
+                                       "--quiet"])
+        cli.refuse_unported(ns, parser)
+        t0 = time.perf_counter()
+        res.update(partition_analysis.run_partition_analysis(
+            cli.params_from_args(ns), device="cuda"))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    base = ["-q", nex, "-m", "GTR+G"]
+    tag = "[phase 14f -te f64]"
+    add(launches, counted(base + ["-te", str(nwk), "--f64", "-pre",
+                                  str(d / "te")], tag, runner=run_te))
+    card = res["logL"]
+    t0 = time.perf_counter()
+    peng = res["peng"]
+    host = PartitionEngine(read_partition_spec(nex), peng.models,
+                           peng.rates, partition_type=peng.partition_type,
+                           dtype=torch.float64, device="cpu")
+    cpu = host.loglik_tree(res["tree"])
+    print(f"{tag} {PMIX_TAXA} taxa, {PMIX_MODELS} over "
+          f"{[n for _, _, n in PMIX_LOCI]} sites: card logL {card:.6f}, the "
+          f"CPU's at its fitted parameters {cpu:.6f} (in "
+          f"{time.perf_counter() - t0:.1f} s); fitted {res['models']}",
+          flush=True)
+    if not abs(card - cpu) <= PMIX_TOL:
+        raise RuntimeError(f"{tag} card {card} against the CPU's {cpu}")
+    pre = d / "search"
+    tag = "[phase 14f -B]"
+    got = counted(base + ["-B", str(FLAGSHIP_REPLICATES)] + FAMILY_DEPTH
+                  + ["-pre", str(pre)], tag)
+    add(launches, got)
+    n_boot = len(Path(f"{pre}.ufboot").read_text().splitlines())
+    print(f"{tag} logL {report_logl(pre):.4f}, {n_boot} replicate trees; "
+          f"wall seconds: {wall_split(pre)}", flush=True)
+    if n_boot != FLAGSHIP_REPLICATES:
+        raise RuntimeError(f"{tag} .ufboot holds {n_boot} trees")
+    if not all(v > 0 for v in got.values()):
+        raise RuntimeError(f"{tag} a kernel was never launched: {got}")
+
+
+def add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def model_families(errors: dict, aln_path: str, tree_path: str,
+                   parts: str = "abcdef") -> tuple[dict, list]:
+    """Phase 14's parts; returns the launches of 14b-f's command lines and
+    14a's rows."""
+    launches: dict = {}
+    rows = family_kernels(errors) if "a" in parts else []
+    if "b" in parts or "c" in parts:
+        phy, nwk, gy = family_codon(launches)
+        if "c" in parts:
+            family_codon_models(phy, nwk, gy, launches)
+    if "d" in parts:
+        family_seqerror(aln_path, tree_path, launches)
+    if "e" in parts:
+        family_mdef(aln_path, tree_path, launches)
+    if "f" in parts:
+        family_partitions(launches)
+    return launches, rows
+
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -1200,7 +1600,7 @@ def main() -> int:
 
 
 def run(started: list) -> int:
-    """Phases 1-13; each process it starts goes into ``started``."""
+    """Phases 1-14; each process it starts goes into ``started``."""
     if not (ROOT / "iqtree2_tpu_torch").is_dir() or not GOLDEN.is_dir():
         return fail("run from the root of a checkout of the repository "
                     "(iqtree2_tpu_torch/ and tests/golden/ are missing)")
@@ -1575,7 +1975,11 @@ def run(started: list) -> int:
     mix_phy, mix_launches = mix_search()
     mix_pmsf_search(mix_phy)
     mix_weights(cpu_fit)
-    print(f"[time] phases 1-13 in {time.perf_counter() - t_start:.1f} s",
+
+    stamp(14)
+    # 14. the model families: codon, +E, --mdef, partitioned mixtures
+    family_launches, _ = model_families(errors, aln_path, tree_path)
+    print(f"[time] phases 1-14 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": [
@@ -1584,6 +1988,7 @@ def run(started: list) -> int:
          "slice_launches": slice_launches[k],
          "partition_launches": part_launches[k],
          "mixture_launches": mix_launches[k],
+         "model_family_launches": family_launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],

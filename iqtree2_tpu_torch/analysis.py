@@ -56,6 +56,7 @@ from iqtree2_tpu_torch import tests_branch
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.io import report as report_io
 from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
+from iqtree2_tpu_torch.io.yamlmodels import load_definitions
 from iqtree2_tpu_torch.io.nexus import parse_nexus
 from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.model.factory import build_model
@@ -486,6 +487,11 @@ def run_analysis(params: Params, device="cuda") -> dict:
         if ckp.get("finished") and not params.redo:
             log("Checkpoint indicates a finished run; use redo to restart.")
         dtype = compute_dtype(params.use_f64)
+
+        if params.mdef_file:
+            dts, mds = load_definitions(params.mdef_file)
+            log(f"Loaded YAML definitions: datatypes {dts or '-'}, "
+                f"models {mds or '-'}")
 
         log(f"Reading alignment {params.aln_file} ...")
         aln = read_alignment(params.aln_file, seqtype=params.seqtype)

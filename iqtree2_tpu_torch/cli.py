@@ -65,14 +65,14 @@ PORTED_DESTS = frozenset({
     "outgroup", "constraint_tree", "standard_bootstrap", "num_runs",
     "symtest", "symtest_remove_bad", "symtest_pval", "partition_edge_prop",
     "partition_edge_equal", "partition_unlinked", "partition_topo_unlinked",
-    "merge_algorithm", "boot_spec", "pmsf", "start_tree"})
+    "merge_algorithm", "boot_spec", "pmsf", "start_tree", "mdef_file"})
 # destinations the JAX package's partition path (-p/-q/-Q) accepts and never
 # reads: the port refuses them there
 PARTITION_IGNORED = ("constraint_tree", "standard_bootstrap", "num_runs",
                      "bnni", "tbe", "user_trees_file", "write_site_lh",
                      "write_site_rate", "write_site_prob", "write_ml_rate",
                      "do_asr", "write_ml_dist", "outgroup",
-                     "fix_branch_lengths", "pmsf")
+                     "fix_branch_lengths", "pmsf", "mdef_file")
 # destinations whose path needs what the PMSF site-specific-frequency engine
 # lacks (rate posteriors, ASR, a model, NNI site log-likelihoods, reweighted
 # views): each raises AttributeError in the JAX package (ROADMAP C12)

@@ -10,9 +10,9 @@ tree/phylotreesse.cpp:243).
 
 Reference character conversions: alignment/alignment.cpp (convertState).
 
-Copied from iqtree2_tpu/data/seqtypes.py, without the user datatypes of
---mdef YAML files (not ported): the port keeps its own host modules and
-imports nothing of the JAX package.
+Copied from iqtree2_tpu/data/seqtypes.py, with the user datatypes of --mdef
+YAML files looked up in the port's io/yamlmodels.DATATYPES: the port keeps
+its own host modules and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -218,6 +218,11 @@ def get_seqtype(name: str, **kw) -> SeqType:
     if name.startswith("CODON"):
         gid = int(name[5:]) if len(name) > 5 else kw.get("genetic_code", 1)
         return codon_type(gid)
+    # user-defined datatypes registered from --mdef YAML files
+    # (reference analog: phylo-yaml/statespace.h)
+    from iqtree2_tpu_torch.io.yamlmodels import DATATYPES
+    if name in DATATYPES:
+        return DATATYPES[name]
     raise ValueError(f"unknown sequence type {name}")
 
 

@@ -4,8 +4,9 @@ Reference format support: alignment/alignment.h:200-294 (readPhylip,
 readFasta, readNexus, readClustal, readMSF). The readers here are fresh
 host-side Python; they only need to produce (names, sequences).
 
-Copied from iqtree2_tpu/io/alignment_io.py: the port keeps its own host
-modules and imports nothing of the JAX package.
+Copied from iqtree2_tpu/io/alignment_io.py, with codon alignments written
+as triplets (_code_chars): the port keeps its own host modules and imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -107,14 +108,24 @@ def parse_phylip(text: str) -> tuple[list[str], list[str]]:
     return names, seqs
 
 
+def _code_chars(st) -> tuple[dict[int, str], int]:
+    """(code -> the text written for it, characters per site): one
+    character per code, and for codon data the sense triplet of each
+    state and NNN for the unknown code (the JAX package's writers give
+    codons one '?' each, which no reader takes back)."""
+    if st.name.startswith("CODON"):
+        from iqtree2_tpu_torch.model.codon import sense_codons
+        chars = dict(enumerate(sense_codons(int(st.name[5:]))))
+        chars[st.unknown_code] = "NNN"
+        return chars, 3
+    return {i: st.code_to_char(i) for i in range(st.num_codes)}, 1
+
+
 def write_phylip(aln: Alignment, path) -> None:
     mat = aln.expand_to_sites()
-    st = aln.seqtype
+    code_chars, width = _code_chars(aln.seqtype)
     with open(path, "w") as f:
-        f.write(f"{aln.ntaxa} {aln.nsites}\n")
-        code_chars = {}
-        for i in range(st.num_codes):
-            code_chars[i] = st.code_to_char(i)
+        f.write(f"{aln.ntaxa} {aln.nsites * width}\n")
         for j, nm in enumerate(aln.names):
             seq = "".join(code_chars[int(c)] for c in mat[:, j])
             f.write(f"{nm:<12}{seq}\n")
@@ -140,8 +151,7 @@ def parse_fasta(text: str) -> tuple[list[str], list[str]]:
 
 def write_fasta(aln: Alignment, path) -> None:
     mat = aln.expand_to_sites()
-    st = aln.seqtype
-    code_chars = {i: st.code_to_char(i) for i in range(st.num_codes)}
+    code_chars, _ = _code_chars(aln.seqtype)
     with open(path, "w") as f:
         for j, nm in enumerate(aln.names):
             f.write(f">{nm}\n")

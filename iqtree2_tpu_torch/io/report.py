@@ -5,7 +5,8 @@ sections from reportModel (:293), reportRate (:533), reportTree (:594).
 The output surface follows SURVEY A1.
 
 Copied from iqtree2_tpu/io/report.py, plus the report of a run that stops
-after model selection: the port keeps its own host modules and imports
+after model selection and the codon models' kappa and omega and +E's
+epsilon (MODEL_SCALARS): the port keeps its own host modules and imports
 nothing of the JAX package.
 """
 
@@ -100,6 +101,12 @@ def write_iqtree_report(path, *, params, aln, model, rates, tree, logL,
     a("-" * 20)
     a(f"Model of substitution: {model_string(model, rates)}")
     a("")
+    scalars = [(label, getattr(model, attr))
+               for label, attr in MODEL_SCALARS if hasattr(model, attr)]
+    if scalars:
+        for label, v in scalars:
+            a(f"{label}: {v:.4f}")
+        a("")
     if hasattr(model, "exch_rates") and model.num_states <= 20:
         a("Rate parameter R:")
         names = {4: ["A-C", "A-G", "A-T", "C-G", "C-T", "G-T"]}.get(
@@ -250,6 +257,13 @@ def write_partition_report(path, *, params, sa, peng, model_strs, tree,
         a(f"Total wall-clock time used: {elapsed:.3f} sec")
     a("")
     Path(path).write_text("\n".join(out))
+
+# the scalar parameters of the codon models (kappa, omega) and of +E
+# (epsilon), which the JAX package's report leaves out: (label, attribute)
+MODEL_SCALARS = (("Transition/transversion ratio (kappa)", "kappa"),
+                 ("Nonsynonymous/synonymous ratio (omega)", "omega"),
+                 ("Sequencing error probability (epsilon)", "epsilon"))
+
 
 def model_string(model, rates) -> str:
     s = model.name

@@ -41,14 +41,16 @@ from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.data.superalignment import (SuperAlignment,
                                                    build_superalignment)
 from iqtree2_tpu_torch.engine import LikelihoodEngine
+from iqtree2_tpu_torch.io import yamlmodels
 from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
+from iqtree2_tpu_torch.model.codon import sense_codons
 from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.model.mixture import MixtureModel
 from iqtree2_tpu_torch.model.rates import RateModel
 from iqtree2_tpu_torch.ops import kernels, pruning
 from iqtree2_tpu_torch.ops.pruning import DownPass
 from iqtree2_tpu_torch.search.perturb import random_nnis
-from iqtree2_tpu_torch.simulator import simulate_alignment
+from iqtree2_tpu_torch.simulator import model_state_chars, simulate_alignment
 from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
 
@@ -94,7 +96,23 @@ MODELS = {
     "LG4X": ("AA", "ARNDCQEGHILKMFPSTWYV",
              "LG4X+R4{0.2,0.2,0.3,0.7,0.3,1.2,0.2,2.0}"),
     "MIX{LG,WAG}+G4": ("AA", "ARNDCQEGHILKMFPSTWYV", "MIX{LG,WAG}+G{0.6}"),
+    # the model families of codon data (S = 61, the S <= 64 instance, an
+    # odd width; the alphabet is the 61 sense triplets), +E sequencing
+    # error (tip rows of 1 - eps and eps / 3, not indicators), two states
+    # (binary data, the S <= 4 instance) and seven (a --mdef datatype,
+    # YAML_DATATYPES, the S <= 20 instance)
+    "GY+F3X4+G4": ("CODON1", "".join(sense_codons(1)),
+                   "GY{2.0,0.3}+F3X4+G{0.8}"),
+    "KOSI07+G4": ("CODON1", "".join(sense_codons(1)), "KOSI07+G{0.8}"),
+    "HKY+E+G4": ("DNA", "ACGT",
+                 "HKY{3.0}+F{0.3,0.2,0.2,0.3}+E{0.02}+G{0.6}"),
+    "JC2+G4": ("BIN", "01", "JC2+G{0.6}"),
+    "MK7+G4": ("STATES7", "ABCDEFG", "MK+G{0.6}"),
 }
+# the datatypes of MODELS that --mdef defines: name -> its definition,
+# registered by simulate where it is first asked for
+YAML_DATATYPES = {"STATES7": "- datatype: STATES7\n"
+                             "  state: [A, B, C, D, E, F, G]\n"}
 # the partitioned path's shapes, one supermatrix each: per partition the
 # MODELS name, its sites and the share of taxa it lacks (all-gap rows on the
 # union taxon set)
@@ -150,6 +168,8 @@ def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
     """(Alignment, true Tree, model, rates) simulated under MODELS[name]
     (a mixture class by class, simulate_mixture)."""
     seqtype, alphabet, model_str = MODELS[model_name]
+    if seqtype in YAML_DATATYPES and seqtype not in yamlmodels.DATATYPES:
+        yamlmodels.define(YAML_DATATYPES[seqtype])
     rng = np.random.default_rng(seed)
     names = [f"t{i}" for i in range(ntaxa)]
     tree = Tree.random_topology(names, rng)
@@ -160,6 +180,11 @@ def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
         seqs = simulate_mixture(tree, model, rates, nsites, rng)
     else:
         seqs = simulate_alignment(tree, model, rates, nsites, rng)
+    chars = "".join(model_state_chars(model))
+    if chars != alphabet:
+        # a --mdef datatype's states, which the simulator numbers
+        seqs = {k: v.translate(str.maketrans(chars, alphabet))
+                for k, v in seqs.items()}
     aln = Alignment.from_sequences(list(seqs), list(seqs.values()),
                                    seqtype=seqtype)
     model, rates, _ = build_model(model_str, aln)
@@ -169,9 +194,9 @@ def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
 def simulate_loci(loci, ntaxa: int, seed: int
                   ) -> tuple[SuperAlignment, Tree, list, list]:
     """(SuperAlignment, true Tree, models, rates) of loci simulated on one
-    random topology: per locus (sequence type, model string with every
-    parameter fixed, sites, share of taxa it lacks, rate multiplier of the
-    tree's lengths).
+    random topology (a mixture class by class, simulate_mixture): per
+    locus (sequence type, model string with every parameter fixed, sites,
+    share of taxa it lacks, rate multiplier of the tree's lengths).
     The taxa a locus lacks are drawn from the seed and left out of it (so
     absent from its presence mask and all-unknown on the union taxon
     set); a taxon every locus would lack stays in the last one."""
@@ -187,7 +212,10 @@ def simulate_loci(loci, ntaxa: int, seed: int
         scaled = tree.copy()
         for key in scaled.blen:
             scaled.blen[key] *= rate
-        seqs = simulate_alignment(scaled, model, rates, nsites, rng)
+        if isinstance(model, MixtureModel):
+            seqs = simulate_mixture(scaled, model, rates, nsites, rng)
+        else:
+            seqs = simulate_alignment(scaled, model, rates, nsites, rng)
         drop = set(rng.choice(ntaxa, int(gaps * ntaxa), replace=False)
                    .tolist())
         drawn.append((seqtype, seqs, drop))

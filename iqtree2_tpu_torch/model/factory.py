@@ -4,18 +4,25 @@ Reference analog: ModelFactory (model/modelfactory.cpp:151) which parses the
 model specification into substitution-model + rate-heterogeneity objects.
 Grammar the port runs:
 
-  NAME[{p1,p2,...}] [+F|+FO|+FQ|+FC|+FU{...}|+FEQ] [+I[{p}]] [+G[n][{a}]]
-       [+R[n][{r1,w1,...}]] [+ASC]  and MIX{m1,...}, named mixtures (C10-C60,
-       CF4, LG4M, LG4X, EX2, ...) and base+profile (LG+C20, WAG+C60, ...)
+  NAME[{p1,p2,...}] [+F|+FO|+FQ|+FC|+FU{...}|+FEQ|+F1X4|+F3X4] [+I[{p}]]
+       [+G[n][{a}]] [+R[n][{r1,w1,...}]] [+E|+EA|+EC|+EG|+ET[{eps}]] [+ASC]
+       and MIX{m1,...}, named mixtures (C10-C60, CF4, LG4M, LG4X, EX2, ...)
+       and base+profile (LG+C20, WAG+C60, ...)
 
-Copied from iqtree2_tpu/model/factory.py with the branches the port runs:
-named DNA and protein models (and the MK/ORDERED forms of GTR) and the
-mixture models of model/mixture.py, under uniform, +I, +G, +I+G, +R and
-+I+R rates. The JAX package's other model families (codon,
-nonreversible, Lie-Markov, PoMo, +E sequencing error, +H heterotachy, YAML
-models) stop with a SystemExit that names the model as not yet ported.
-The port keeps its own host modules and imports nothing of the JAX
-package.
+Copied from iqtree2_tpu/model/factory.py with the branches the port runs,
+in the JAX order: the mixture models of model/mixture.py, the YAML models
+of --mdef (io/yamlmodels.py), the codon models (model/codon.py: GY, MG,
+MGK, ... and KOSI07/ECMREST/SCHN05; every model on CODON data, so MK there
+is GY94 under another name, as in the JAX package), the named DNA and
+protein models (and the MK/ORDERED forms of GTR), and on DNA the +E
+sequencing-error wrapper (model/seqerror.py), under uniform, +I, +G,
++I+G, +R and +I+R rates. The JAX package accepts +E beside a mixture
+(MIX{...} too), a YAML or a codon model and ignores it (its branches
+return before the wrapper): the port refuses that with a SystemExit. The
+JAX package's other model families (nonreversible, Lie-Markov, PoMo, +H
+heterotachy) stop with a SystemExit that names the model as not yet
+ported. The port keeps its own host modules and imports nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -25,11 +32,14 @@ import re
 import numpy as np
 
 from iqtree2_tpu_torch.data.alignment import Alignment
+from iqtree2_tpu_torch.io import yamlmodels
 from iqtree2_tpu_torch.model import dna, protein
+from iqtree2_tpu_torch.model.codon import make_codon_model
 from iqtree2_tpu_torch.model.mixture import make_generic_mix, make_mixture
 from iqtree2_tpu_torch.model.rates import (RateFree, RateFreeInvar, RateGamma,
                                            RateGammaInvar, RateInvar,
                                            RateModel)
+from iqtree2_tpu_torch.model.seqerror import DNAErrorModel
 from iqtree2_tpu_torch.model.subst import GTRModel, SubstModel
 
 
@@ -113,8 +123,18 @@ MIXTURE_NAMES = {"C10", "C20", "C30", "C40", "C50", "C60", "EX2", "EX3",
                  "EHO", "UL2", "UL3", "EX_EHO", "LG4M", "LG4X", "LG4",
                  "CF4", "C10OPT", "C20OPT"}
 CODON_NAMES = ("GY", "MG", "MGK", "GY1KTS", "GY1KTV", "GY2K")
-# rate terms of other model families: +E* sequencing error, +P PoMo
+# the rate terms of the +E sequencing-error models
 _SEQERR_TERMS = ("E", "EA", "EC", "EG", "ET")
+
+
+def _refuse_seqerror(spec_str: str, spec: ModelSpec, what: str) -> None:
+    """SystemExit for +E beside ``what`` (a mixture, a YAML or a codon
+    model): the JAX factory's branches for those return before
+    _maybe_wrap_seqerror, so it fits the model without the error term."""
+    if {k for (k, _, _) in spec.rate_terms} & set(_SEQERR_TERMS):
+        raise SystemExit(f"-m {spec_str}: +E (the sequencing-error model) "
+                         f"with {what} is ignored by the JAX package (it "
+                         f"wraps DNA models only); drop the +E term")
 
 
 def not_ported(spec_str: str, what: str) -> SystemExit:
@@ -136,10 +156,11 @@ def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
             if depth == 0 and ch == "}":
                 break
         comps = _split_top_level(s[4:i])
+        terms = parse_model_string("JC" + s[i + 1:])
+        _refuse_seqerror(spec_str, terms, "a mixture")
         model = make_generic_mix(comps, aln)
         extras = {}
-        rates = _build_rates(parse_model_string("JC" + s[i + 1:]), extras,
-                             spec_str)
+        rates = _build_rates(terms, extras, spec_str)
         return model, rates, extras
 
     spec = parse_model_string(spec_str)
@@ -149,15 +170,30 @@ def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
     # named protein mixtures (C10..C60, LG4M, LG4X, EX2, ...) and
     # base+profile combinations like LG+C20[+G...]
     base_up = spec.base.upper()
-    if base_up in MIXTURE_NAMES or spec.other_terms:
+    kinds = {k for (k, _, _) in spec.rate_terms}
+    mixture = base_up in MIXTURE_NAMES or bool(spec.other_terms)
+    yaml_model = base_up in yamlmodels.MODELS
+    codon = st.startswith("CODON") or base_up in CODON_NAMES
+    if mixture or yaml_model or codon:
+        _refuse_seqerror(spec_str, spec, "a mixture" if mixture else
+                         "a YAML model" if yaml_model else "a codon model")
+    if mixture:
         return _build_mixture_model(spec, aln, extras, spec_str)
-    if st.startswith("CODON") or base_up in CODON_NAMES:
-        raise not_ported(spec_str, "codon models")
+
+    # user-defined YAML models (--mdef; phylo-yaml analog)
+    if yaml_model:
+        model = yamlmodels.make_yaml_model(base_up, aln)
+        rates = _build_rates(spec, extras, spec_str)
+        return model, rates, extras
+
+    # codon models
+    if codon:
+        model = make_codon_model(spec, aln)
+        rates = _build_rates(spec, extras, spec_str)
+        return model, rates, extras
+
     if base_up in ("UNREST", "NONREV"):
         raise not_ported(spec_str, "nonreversible models")
-    kinds = {k for (k, _, _) in spec.rate_terms}
-    if kinds & set(_SEQERR_TERMS):
-        raise not_ported(spec_str, "+E sequencing-error models")
     if "P" in kinds:
         raise not_ported(spec_str, "PoMo (+P) models")
 
@@ -208,13 +244,29 @@ def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
         model = protein.make_protein_model("GTR20", freq_type=freq_type)
     elif st == "DNA":
         raise not_ported(spec_str, f"{spec.base!r} is not a named DNA "
-                         f"model; Lie-Markov and YAML models")
+                         f"model; Lie-Markov models")
     else:
         raise ValueError(
             f"model {spec.base!r} not supported for seqtype {st}")
 
+    model = _maybe_wrap_seqerror(model, spec, extras, st)
     rates = _build_rates(spec, extras, spec_str)
     return model, rates, extras
+
+
+def _maybe_wrap_seqerror(model, spec, extras: dict, st: str):
+    """+E/+EA/+EC/+EG/+ET: wrap a DNA model with the sequencing-error tip
+    transform (model/modeldnaerror.cpp)."""
+    for kind, _, p in spec.rate_terms:
+        if kind in _SEQERR_TERMS:
+            if st != "DNA":
+                raise ValueError("+E sequencing error requires DNA data")
+            base = -1 if kind == "E" else "ACGT".index(kind[1])
+            eps = p[0] if p else 0.05
+            extras["seqerr"] = kind
+            return DNAErrorModel(model, epsilon=eps, fix_epsilon=bool(p),
+                                 error_base=base)
+    return model
 
 
 def _build_rates(spec: ModelSpec, extras: dict, spec_str: str) -> RateModel:

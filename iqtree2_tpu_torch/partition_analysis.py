@@ -54,7 +54,6 @@ from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.io import report as report_io
 from iqtree2_tpu_torch.io.alignment_io import write_phylip
 from iqtree2_tpu_torch.model.factory import build_model
-from iqtree2_tpu_torch.model.mixture import MixtureModel
 from iqtree2_tpu_torch.modelfinder import information_scores, run_modelfinder
 from iqtree2_tpu_torch.ops.pars import random_stepwise_addition
 from iqtree2_tpu_torch.ops.prec import compute_dtype
@@ -480,9 +479,6 @@ def run_partition_analysis(params: Params, device="cuda") -> dict:
         for p, m in zip(sa.partitions, model_strs):
             mo, ra, ex = build_model(m, p)
             check_model_ported(m, ex)
-            if isinstance(mo, MixtureModel):
-                raise SystemExit(f"-m {m}: mixture models with -p/-q/-Q are "
-                                 f"not yet ported to iqtree2_tpu_torch")
             models.append(mo)
             rates.append(ra)
             asc_flags.append(ex.get("asc", False))

@@ -13,8 +13,9 @@ is O(n_edges * nsites * S) numpy work — the reference's per-site loops are
 replaced by whole-array gathers.
 
 Copied from iqtree2_tpu/simulator.py, simulate_alignment and what it calls
-(kernelcheck.py simulates its problems with it): the port keeps its own
-host modules and imports nothing of the JAX package.
+(kernelcheck.py simulates its problems with it), with codon models'
+states written as their sense triplets: the port keeps its own host
+modules and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -104,15 +105,16 @@ def simulate_alignment(tree: Tree, model, rates, nsites: int,
 
 def model_state_chars(model) -> list[str]:
     S = model.num_states
+    if hasattr(model, "gid"):
+        # codon models: each state's sense triplet (the JAX package reads
+        # CODON1's state_chars, which are empty, and fails)
+        from iqtree2_tpu_torch.model.codon import sense_codons
+        return sense_codons(model.gid)
     if S == 4:
         return list("ACGT")
     if S == 20:
         return list("ARNDCQEGHILKMFPSTWYV")
     if S == 2:
         return list("01")
-    if S == 61:
-        from iqtree2_tpu_torch.data import seqtypes
-        st = seqtypes.get_seqtype("CODON1")
-        return [st.state_chars[i] for i in range(S)]
     return [chr(ord("0") + i) if i < 10 else chr(ord("A") + i - 10)
             for i in range(S)]

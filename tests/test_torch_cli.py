@@ -133,7 +133,8 @@ def test_unported_flag_is_refused(tmp_path, extra, message):
     (["-te", TREE, "-m", "GTR+G", "--tbe"],
      "--tbe: works on the ultrafast bootstrap"),
     (["-te", TREE, "-m", "UNREST"], "nonreversible"),
-    (["-te", TREE, "-m", "HKY+E"], "sequencing-error"),
+    # +E runs on DNA models; beside a mixture the JAX package ignores it
+    (["-te", TREE, "-m", "MIX{HKY,GTR}+E"], "sequencing-error"),
 ])
 def test_unported_path_is_refused(tmp_path, argv, message):
     """Paths the port does not run, and flags that need another (-bnni and
@@ -310,7 +311,8 @@ def test_mixture_and_pmsf_refusals(protein, tmp_path, argv, message):
 def test_pmsf_needs_a_mixture_and_no_partitions(protein, tmp_path):
     """--pmsf under a model without classes stops, as in the JAX package;
     with -p/-q/-Q (whose JAX path ignores --pmsf) it is refused, and a
-    mixture model in a partition stops the partitioned run."""
+    mixture model in a partition runs without it (the partitioned run
+    fits the mixture, as the JAX partition path does)."""
     from iqtree2_tpu_torch import kernelcheck
     phy, nwk = protein
     with pytest.raises(SystemExit, match="--pmsf requires a profile"):
@@ -319,10 +321,12 @@ def test_pmsf_needs_a_mixture_and_no_partitions(protein, tmp_path):
     with pytest.raises(SystemExit, match="--pmsf with -p/-q/-Q"):
         cli.main(["-s", ALN, "-p", NEX, "--pmsf", "-te", TREE, "--device",
                   "cpu", "-pre", str(tmp_path / "x"), "--quiet"])
-    sa, _, _, _ = kernelcheck.simulate_loci(
+    sa, tree, _, _ = kernelcheck.simulate_loci(
         [("AA", "LG+G{0.6}", 60, 0.0, 1.0), ("AA", "WAG+G{0.6}", 60, 0.0,
                                                1.0)], 6, seed=1)
     nex = kernelcheck.write_partitioned(sa, ["LG+C10+G", "WAG+G"], tmp_path)
-    with pytest.raises(SystemExit, match="mixture models with -p/-q/-Q"):
-        cli.main(["-p", nex, "-m", "LG+G", "-te", nwk, "--device", "cpu",
-                  "-pre", str(tmp_path / "x"), "--quiet"])
+    (tmp_path / "loci.nwk").write_text(tree.to_newick() + "\n")
+    assert cli.main(["-p", nex, "-m", "LG+G", "-te",
+                     str(tmp_path / "loci.nwk"), "--device", "cpu", "-pre",
+                     str(tmp_path / "x"), "--quiet"]) == 0
+    assert "LG+C10+G" in (tmp_path / "x.iqtree").read_text()

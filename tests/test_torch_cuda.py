@@ -1,8 +1,10 @@
 """The Hopper kernels (H1-H3) against their plain PyTorch versions on a card,
 also at the partitioned path's and the mixtures' shapes (C = 80, 240 and
-LG4X's four eigensystems), and the search path on the card (fused NNI
-round, NNI hill-climb, joint fit), the partition engine, a mixture's
-search and the PMSF engine against the CPU's plain versions.
+LG4X's four eigensystems) and the model families' (61-state codon
+models, +E tips, 2 and 7 states), and the search path on the card (fused
+NNI round, NNI hill-climb, joint fit), the partition engine, a mixture's
+search, the PMSF engine and the codon and partitioned-mixture fits against
+the CPU's plain versions.
 
 This file imports nothing of JAX and nothing of the JAX package, so it runs
 on the machine with the card, which has no jax; the repository's
@@ -46,7 +48,9 @@ def cuda():
                                         "GTR+G8", "JC", "GTR+I+R3",
                                         "GTR+R10", "LG+I", "LG+F+R10",
                                         "LG+C20+G4", "LG4X",
-                                        "MIX{LG,WAG}+G4"])
+                                        "MIX{LG,WAG}+G4", "GY+F3X4+G4",
+                                        "KOSI07+G4", "HKY+E+G4", "JC2+G4",
+                                        "MK7+G4"])
 def test_kernels_match_plain(cuda, model_name, dtype):
     aln, tree, model, rates = kernelcheck.simulate(model_name, 24, 700,
                                                    seed=2)
@@ -513,3 +517,38 @@ def test_ssf_engine_on_cuda_matches_cpu(cuda):
     assert l1 == pytest.approx(l0, rel=1e-10)
     for a, b in zip(n1, n0):
         np.testing.assert_allclose(a, b, rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["codon", "partitioned mixture"])
+def test_model_family_fits_on_cuda_match_cpu(cuda, tmp_path, family):
+    """-st CODON -m GY+F3X4+G -te and a -q supermatrix of an LG+C10+G
+    protein locus beside a GTR+G DNA locus -te, in float64 through the
+    CLI on the card and on the CPU: logLs within 1e-3, the card's passes
+    on the kernels."""
+    from pathlib import Path
+    from iqtree2_tpu_torch import cli
+    if family == "codon":
+        aln, tree, _, _ = kernelcheck.simulate("GY+F3X4+G4", 10, 150, seed=3)
+        phy, nwk = kernelcheck.write_problem(aln, tree, tmp_path / "cds")
+        args = ["-s", phy, "-st", "CODON", "-m", "GY+F3X4+G", "-te", nwk]
+    else:
+        sa, tree, _, _ = kernelcheck.simulate_loci(
+            [("AA", "LG+C10+G{0.6}", 120, 0.0, 1.0),
+             ("DNA", kernelcheck.MODELS["GTR+G4"][2], 200, 0.0, 1.0)],
+            10, seed=3)
+        args = ["-q", kernelcheck.write_partitioned(
+            sa, ["LG+C10+G", "GTR+G"], tmp_path), "-m", "GTR+G", "-te",
+            str(tmp_path / "true.nwk")]
+        (tmp_path / "true.nwk").write_text(tree.to_newick() + "\n")
+    logl = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        assert cli.main(args + ["--f64", "--device", dev, "-pre",
+                                str(tmp_path / dev), "--quiet"]) == 0
+        text = Path(f"{tmp_path / dev}.iqtree").read_text()
+        logl[dev] = float(text.split("Log-likelihood of the tree:")[1]
+                          .split()[0])
+    assert logl["cuda"] == pytest.approx(logl["cpu"], abs=1e-3)
+    assert kernels.LAUNCHES["sitelp"] > 0 and \
+        kernels.LAUNCHES["theta_pass"] > 0

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's host modules against the
 originals, on the same inputs (files of tests/golden, numpy seeds).
 
-iqtree2_tpu_torch keeps copies of the alignment, model (mixtures and their
-data files included), tree-schedule,
+iqtree2_tpu_torch keeps copies of the alignment, model (mixtures, codon
+models, the +E error model and their data files included), --mdef YAML
+definition, tree-schedule,
 parsimony, BIONJ, UFBoot, simulation, optimizer, WH-test, transfer-support,
 tree-test, constraint-tree, supermatrix, terrace and symmetry-test modules
 and of the partition analysis' host helpers so that
@@ -488,3 +489,154 @@ def test_opt_profile_names_repaired():
         ref = mixture.make_mixture(fixed)
         for a, b in zip(m.components, ref.components):
             np.testing.assert_array_equal(a[1], b[1])
+
+
+def _codon_alignments(gid: int):
+    """A small codon alignment of genetic code ``gid`` (random sense
+    codons, a gap), on both sides."""
+    from iqtree2_tpu_torch.model.codon import sense_codons
+    rng = np.random.default_rng(gid)
+    codons = sense_codons(gid)
+    names = [f"t{i}" for i in range(5)]
+    seqs = ["".join(rng.choice(codons, 30)) + "---" for _ in names]
+    aln = Alignment.from_sequences(names, seqs, seqtype=f"CODON{gid}")
+    return aln, jax_alignment(aln)
+
+
+@pytest.mark.parametrize("gid", [1, 2])
+def test_codon_models_match_jax(gid):
+    """model/codon.py: the single-step pairs, the counted frequencies of
+    every mode, and per model name and frequency mode the
+    exchangeabilities, frequencies and eigensystem, numpy to numpy, on the
+    standard code and the vertebrate mitochondrial one (60 sense codons);
+    the empirical models (standard code only) with their published or
+    counted frequencies."""
+    from iqtree2_tpu.model import codon as jcodon
+    from iqtree2_tpu_torch.model import codon
+    aln, jaln = _codon_alignments(gid)
+    assert aln.num_states == (61 if gid == 1 else 60)
+    np.testing.assert_array_equal(codon.codon_pair_info(gid),
+                                  jcodon.codon_pair_info(gid))
+    for mode in ("F", "F1X4", "F3X4", "FQ"):
+        np.testing.assert_array_equal(codon.count_codon_freqs(aln, mode),
+                                      jcodon.count_codon_freqs(jaln, mode))
+    built = [(f"{n}{{2.0,0.3}}{f}", True)
+             for n in ("GY", "MG", "MGK", "GY1KTS", "GY1KTV", "GY2K")
+             for f in ("", "+F", "+F1X4", "+F3X4", "+FQ")]
+    built += [(f"{n}{f}", gid == 1) for n in ("KOSI07", "ECM", "ECMREST",
+                                              "SCHN05", "ECMS05")
+              for f in ("", "+F", "+FQ")]
+    for spec, ok in built:
+        if not ok:
+            for build, a in ((build_model, aln), (jbuild_model, jaln)):
+                with pytest.raises(ValueError, match="standard genetic"):
+                    build(spec, a)
+            continue
+        m, _, _ = build_model(spec, aln)
+        jm, _, _ = jbuild_model(spec, jaln)
+        assert (type(m).__name__, m.name, m.freq_type) == \
+            (type(jm).__name__, jm.name, jm.freq_type), spec
+        exch = m._exch() if hasattr(m, "_exch") else m._exch_full
+        jexch = jm._exch() if hasattr(jm, "_exch") else jm._exch_full
+        np.testing.assert_array_equal(exch, jexch)
+        np.testing.assert_array_equal(m.freqs, jm.freqs)
+        e, je = m.get_eigensystem(), jm.get_eigensystem()
+        for f in ("eigvals", "U", "V", "W", "freqs", "mix_weights"):
+            np.testing.assert_array_equal(getattr(e, f), getattr(je, f),
+                                          err_msg=f"{spec} {f}")
+        np.testing.assert_array_equal(m.get_params(), jm.get_params())
+        for a, b in zip(m.param_bounds(), jm.param_bounds()):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_codon_data_file_is_a_copy():
+    """model/data/codon_ecm.npz (KOSI07, ECMREST, SCHN05), byte for
+    byte."""
+    from iqtree2_tpu.model import codon as jcodon
+    from iqtree2_tpu_torch.model import codon
+    port = Path(codon.__file__).parent / "data" / "codon_ecm.npz"
+    ref = Path(jcodon.__file__).parent / "data" / "codon_ecm.npz"
+    assert port.read_bytes() == ref.read_bytes()
+
+
+def test_codon_writers_and_simulator():
+    """The port writes codon alignments as triplets (the JAX package's
+    writers give each codon one '?') and its simulator spells codon
+    states as their triplets (the JAX package's fails on codon models):
+    a simulated codon alignment written as PHYLIP and FASTA reads back
+    the same."""
+    import tempfile
+    from iqtree2_tpu_torch.model.codon import sense_codons
+    aln, _, _, _ = kernelcheck.simulate("GY+F3X4+G4", 5, 40, seed=1)
+    assert sense_codons(1)[:4] == ["TTT", "TTC", "TTA", "TTG"]
+    with tempfile.TemporaryDirectory() as d:
+        for write in (write_phylip, write_fasta):
+            path = f"{d}/c.{write.__name__}"
+            write(aln, path)
+            back = read_alignment(path, seqtype="CODON")
+            np.testing.assert_array_equal(back.expand_to_sites(),
+                                          aln.expand_to_sites())
+
+
+@pytest.mark.parametrize("kind", ["E", "EA", "EC", "EG", "ET"])
+def test_seqerror_model_matches_jax(kind):
+    """model/seqerror.py: name, parameters, bounds, the clipped epsilon
+    and the tip rows of every DNA code at three epsilons."""
+    aln, jaln = _both_alignments("example.phy", None)
+    for spec in (f"HKY+{kind}", f"GTR+{kind}{{0.02}}"):
+        m, _, _ = build_model(spec, aln)
+        jm, _, _ = jbuild_model(spec, jaln)
+        assert (m.name, m.error_base, m.fix_epsilon) == \
+            (jm.name, jm.error_base, jm.fix_epsilon)
+        np.testing.assert_array_equal(m.get_params(), jm.get_params())
+        for a, b in zip(m.param_bounds(), jm.param_bounds()):
+            np.testing.assert_array_equal(a, b)
+        for eps in (1e-5, 0.02, 0.7):
+            x = np.concatenate([m.get_params()[:-1], [eps]]) \
+                if not m.fix_epsilon else m.get_params()
+            m.set_params(x)
+            jm.set_params(x)
+            assert m.epsilon == jm.epsilon
+            table = aln.seqtype.tip_table
+            np.testing.assert_array_equal(m.transform_tip_table(table),
+                                          jm.transform_tip_table(table))
+
+
+def test_yaml_datatypes_and_models_match_jax(tmp_path):
+    """io/yamlmodels.py: the datatype built from a definition with
+    ambiguity codes and missing characters, found by get_seqtype, and the
+    reversible models built from definitions (rates, frequencies,
+    fix_rates), as the JAX package builds them."""
+    from iqtree2_tpu.data import seqtypes as jseqtypes
+    from iqtree2_tpu.io import yamlmodels as jyaml
+    from iqtree2_tpu_torch.data import seqtypes
+    from iqtree2_tpu_torch.io import yamlmodels
+    doc = ("- datatype: HOSTABC\n  state: [A, B, C, D]\n  missing: '?'\n"
+           "  equate: {X: [A, B], Z: [B, C, D]}\n"
+           "- model: HOSTM1\n  datatype: HOSTABC\n"
+           "  rates: [1, 2, 3, 4, 5, 6]\n"
+           "- model: HOSTM2\n  datatype: HOSTABC\n"
+           "  frequencies: [1, 2, 3, 4]\n  fix_rates: false\n")
+    path = tmp_path / "d.yml"
+    path.write_text(doc)
+    assert yamlmodels.load_definitions(str(path)) == \
+        jyaml.load_definitions(str(path))
+    st, jst = seqtypes.get_seqtype("hostabc"), jseqtypes.get_seqtype(
+        "hostabc")
+    np.testing.assert_array_equal(st.tip_table, jst.tip_table)
+    np.testing.assert_array_equal(st.char_to_code, jst.char_to_code)
+    assert (st.unknown_code, st.state_chars) == \
+        (jst.unknown_code, jst.state_chars)
+    aln = Alignment.from_sequences(["a", "b", "c"],
+                                   ["ABXZ?", "DCBA?", "ZZAB?"],
+                                   seqtype="HOSTABC")
+    jaln = jax_alignment(aln)
+    for name in ("HOSTM1+G4", "HOSTM2"):
+        m, r, _ = build_model(name, aln)
+        jm, jr, _ = jbuild_model(name, jaln)
+        assert (m.name, m.freq_type, m.fixed_rates) == \
+            (jm.name, jm.freq_type, jm.fixed_rates)
+        np.testing.assert_array_equal(m.exch_rates, jm.exch_rates)
+        np.testing.assert_array_equal(m.freqs, jm.freqs)
+        np.testing.assert_array_equal(r.category_rates(),
+                                      jr.category_rates())

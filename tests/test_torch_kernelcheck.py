@@ -243,3 +243,28 @@ def test_check_times_every_pass(problem, monkeypatch, window):
     assert res[0]["sitelp_ms"] == res[0]["sitelp_b2b_ms"] == 1.0
     plain_reps = 3 if window is None else 1
     assert sorted(calls) == sorted([plain_reps, 3, 3, plain_reps, 2] * 4)
+
+
+@pytest.mark.parametrize("model_name", ["GY+F3X4+G4", "JC2+G4", "MK7+G4"])
+def test_bounds_count_the_state_space_of_the_tensors(model_name):
+    """At 61 (codons), 2 and 7 states the bounds' bytes are the sizes of
+    the tensors each pass reads and writes (down_pass: P, tips, the
+    schedule, the internal rows with their scales; theta_pass as above),
+    and the operations follow S from the tip partials."""
+    aln, tree, model, rates = kernelcheck.simulate(model_name, 9, 40, seed=2)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
+                           device="cpu")
+    pb = kernelcheck.Problem(eng, tree)
+    S = pb.tipP.shape[1]
+    assert S == {"GY+F3X4+G4": 61, "JC2+G4": 2, "MK7+G4": 7}[model_name]
+    dp = pb.down(kernels.down_pass_plain, pb.down_buffers())
+    t = pb.theta_buffers()
+    size = lambda *xs: sum(x.numel() * x.element_size() for x in xs)
+    ops = (pb.P, pb.tipP, pb.cs, pb.ce, pb.steps, dp.all[pb.L:],
+           dp.scale[pb.L:])
+    bnd = kernelcheck.bounds(eng, tree)
+    assert bnd["down_pass"]["bytes"] == size(*ops)
+    assert bnd["theta_pass"]["bytes"] == size(
+        *ops, pb.U, pb.V, pb.pack["root_freqs"], t.theta, t.scale)
+    C, Pp = pb.P.shape[1], pb.tipP.shape[-1]
+    assert bnd["down_pass"]["flops"] == pb.n_int * Pp * C * (4 * S * S + S)

@@ -1,15 +1,16 @@
-"""The port imports torch and never jax, and nothing of the JAX package: the
-machine with the card has no jax, and the port keeps its own copies of the
-host modules it needs.
+"""The port imports torch and never jax or yaml, and nothing of the JAX
+package: the machine with the card has neither jax nor PyYAML, and the
+port keeps its own copies of the host modules it needs.
 
-A subprocess blocks jax, optax and iqtree2_tpu (sys.modules[...] = None
+A subprocess blocks jax, optax, yaml and iqtree2_tpu (sys.modules[...] = None
 makes any import of them fail), imports every module of iqtree2_tpu_torch,
 and runs through the CLI on the CPU a golden fixed-tree evaluation, a
 two-iteration tree search with UFBoot, a small ModelFinder run
 (-m TESTONLY), the command line of chip_smoke.py's phase 10 at -B 100
 (every support, the site outputs, -asr, -mldist, -o), a partitioned fit
 (-p example.nex -te) and, on a small simulated protein alignment, a
-profile mixture's -te fit with -wspm and a --pmsf -te run. A source scan fails on any import of
+profile mixture's -te fit with -wspm and a --pmsf -te run, then a codon
+-te fit, +E and a --mdef model. A source scan fails on any import of
 iqtree2_tpu itself in the port, in chip_smoke.py and in the card-only
 tests/test_torch_cuda.py.
 """
@@ -28,6 +29,7 @@ import importlib, pkgutil, sys, tempfile
 sys.modules["jax"] = None
 sys.modules["optax"] = None
 sys.modules["iqtree2_tpu"] = None
+sys.modules["yaml"] = None
 import iqtree2_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(iqtree2_tpu_torch.__path__,
                                                "iqtree2_tpu_torch.")
@@ -71,8 +73,26 @@ with tempfile.TemporaryDirectory() as d:
     assert cli.main(["-s", phy, "-m", "LG+C10+G", "--pmsf", "-te", nwk,
                      "--device", "cpu", "-pre", d + "/y", "--quiet"]) == 0
     assert len(open(d + "/y.sitefreq").read().splitlines()) == 40
+    aln, tree, _, _ = kernelcheck.simulate("GY+F3X4+G4", 5, 30, seed=1)
+    phy, nwk = kernelcheck.write_problem(aln, tree, d + "/cds")
+    assert cli.main(["-s", phy, "-st", "CODON", "-m", "GY+F3X4+G", "-te",
+                     nwk, "--device", "cpu", "-pre", d + "/c",
+                     "--quiet"]) == 0
+    aln, tree, _, _ = kernelcheck.simulate("HKY+E+G4", 6, 100, seed=1)
+    phy, nwk = kernelcheck.write_problem(aln, tree, d + "/dna")
+    assert cli.main(["-s", phy, "-m", "HKY+E+G", "-te", nwk, "--device",
+                     "cpu", "-pre", d + "/e", "--quiet"]) == 0
+    open(d + "/defs.yml", "w").write(
+        "- model: MYGTR\n  datatype: DNA\n"
+        "  rates: [1.5, 4.0, 1.2, 0.8, 5.0, 1.0]\n"
+        "  frequencies: [0.3, 0.2, 0.2, 0.3]\n")
+    assert cli.main(["--mdef", d + "/defs.yml", "-s", sys.argv[1], "-m",
+                     "MYGTR+G", "-te", sys.argv[2], "--device", "cpu",
+                     "-pre", d + "/y", "--quiet"]) == 0
+    for ext in ("c", "e", "y"):
+        assert "Log-likelihood" in open(d + "/" + ext + ".iqtree").read()
 assert not [m for m in sys.modules
-            if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu")
+            if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu", "yaml")
             and sys.modules[m] is not None]
 print(len(names), "modules;", report.split("Log-likelihood of the tree:")[1]
       .split()[0])
@@ -123,11 +143,15 @@ def test_no_source_file_imports_the_jax_package():
 
 
 def test_no_source_file_imports_jax():
+    """Nor jax, optax or yaml (PyYAML: the machine with the card has none;
+    io/yamlmodels.py reads --mdef files itself)."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 10
     for f in files:
+        assert not {"jax", "optax", "yaml"} & _imported(f), f
         for line in f.read_text().splitlines():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
-                        and words[1].split(".")[0] in ("jax", "optax")), \
+                        and words[1].split(".")[0] in ("jax", "optax",
+                                                       "yaml")), \
                 f"{f}: {line}"

@@ -13,9 +13,10 @@ with ops/kernels.bind and the whole-pass kernels run on CPU tensors
 site-logL epilogue, the up pass and the theta pass, on down-pass buffers
 whose tip rows are NaN (no kernel may read them); DNA (the register
 column, and C = 8 through the two-sweep column), protein and a 61-state
-GTR, float32 and float64, on trees deep enough to rescale; and the shapes
+GTR, float32 and float64, on trees deep enough to rescale; the shapes
 ModelFinder brings (one category, FreeRate weights with +I, ten
-categories, at 4 and 20 states), and every partition engine of the
+categories, at 4 and 20 states); the codon models (GY+F3X4, KOSI07), +E
+tips, two states and seven; and every partition engine of the
 supermatrices of kernelcheck.PARTITIONS (a short partition, one lacking
 taxa, protein beside DNA). It checks
 indexing, the barriers and the rescale; it says nothing of speed or of
@@ -111,7 +112,12 @@ def main() -> int:
                                     ("GTR+G8", 30, 200), ("LG+G4", 9, 150),
                                     ("JC", 30, 200), ("GTR+I+R3", 30, 200),
                                     ("GTR+R10", 30, 200), ("LG+I", 9, 150),
-                                    ("LG+F+R10", 9, 150)):
+                                    ("LG+F+R10", 9, 150),
+                                    ("GY+F3X4+G4", 12, 60),
+                                    ("KOSI07+G4", 12, 60),
+                                    ("HKY+E+G4", 40, 300),
+                                    ("JC2+G4", 40, 300),
+                                    ("MK7+G4", 30, 200)):
             aln, tree, model, rates = kernelcheck.simulate(name, ntaxa,
                                                            nsites, seed=3)
             for dtype in (torch.float32, torch.float64):
