@@ -101,7 +101,8 @@ ending in torch.cuda.synchronize():
 12. the partitioned path, float32 unless stated, launch counts reset just
    before each command line and read just after, one kernel launch per pass
    of each partition (passes counted per partition): (a) the partitioned
-   default command, -s example.phy -p example.nex -B 1000 with no -m, so
+   default command, -s example.phy -p example.nex -B 1000 -n 10 (depth
+   cut for time) with no -m, so
    ModelFinder runs per partition: each partition's winner the JAX
    package's (PART_WINNERS), .best_scheme.nex, the .iqtree partition table,
    1000 replicate trees, integer supports, logL at least the JAX package's
@@ -121,7 +122,7 @@ ending in torch.cuda.synchronize():
    (d) a supermatrix of 20 loci x 1000 sites over 100 taxa, each locus
    simulated under GTR+G4, HKY+G4, TN+I+G4 or K2P+R3 at a rate in 0.25-4
    without a tenth of the taxa, one PHYLIP file per locus, searched with
-   -p -m GTR+G -B 1000 -n 3 -ninit 10 -nbest 1 (iterations and start
+   -p -m GTR+G -B 1000 -n 2 -ninit 10 -nbest 1 (iterations and start
    trees cut for time) under the charpartition's models: a .terrace
    report, 1000 replicate trees; then each kernel against its plain
    version at the shapes of its smallest partition and of its largest
@@ -176,9 +177,30 @@ ending in torch.cuda.synchronize():
    supermatrix of 100 taxa, an LG+C20+G protein locus (1000 sites, C = 80)
    beside a GTR+G DNA locus (2000 sites): -te in float64 on the card, its
    fitted state evaluated on the CPU within 1e-3, then -B 1000
-   (FAMILY_DEPTH).
+   (FAMILY_DEPTH);
+15. the nonreversible and per-class-length families, each command line
+   under the launch and pass counters (one launch per pass): (a) each
+   kernel against its plain version at 64 x 4096 under UNREST+G4 (complex
+   eigenvalues; float32 and float64), 12.12+G4 (a Lie-Markov model),
+   GTR+P+G4 (PoMo, 52 states, tips of k/N sampling weights; float32 and
+   float64), GTR+H4 (per-class lengths) and UNREST+G4 rooted (the root
+   test's all-unknown __ROOT__ leaf on a zero-length edge), with times
+   loaded and back to back, bounds, shares and occupancy; (b) 1000 x 16384
+   simulated under UNREST+G4 by expm: one logL, the nonreversible Newton
+   (ms per round, peak memory, one launch per pass), an NNI climb of at
+   most 3 rounds, and the card's site logLs against the plain path at
+   64 x 1024 within kernelcheck.TOLERANCE; (c) example.phy -m UNREST+G
+   -B 1000 --root-test (NONREV_DEPTH): logL at least the -te fit's - 0.5
+   (UNREST_TE_LOGL), 31 rootings whose rootstrap sums to 1; (d) -m GTR+H4
+   -B 1000: the final per-class fit at least the search's logL, the class
+   weights summing to 1; (e) -m GTR+P and -m 3.3b+G -te in float64, each
+   within 1e-3 of the CPU's logL at the same tree and parameters; (f) -m
+   GTR+G+T -te with the golden tree and one NNI from it: EM's logL never
+   falling, weights summing to 1; (g) a --mdef model with reversible:
+   false against -m UNREST{...} of the same matrix, -te in float64, equal
+   within 1e-6 relative.
 
-A "[time]" line gives the start of each phase and the end of phase 14.
+A "[time]" line gives the start of each phase and the end of phase 15.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
@@ -186,7 +208,8 @@ phase-8 default command, the program's main path, slice_launches
 from phase 10's first command line, the supports' path,
 partition_launches from phase 12's partitioned default command and
 mixture_launches from phase 13c's mixture search,
-model_family_launches from phase 14b-f's command lines; times,
+model_family_launches from phase 14b-f's command lines, nonrev_launches
+from phase 15c's UNREST search with the root test; times,
 back-to-back times
 and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
 single PyTorch call computes a pruning pass, so library_ms is null); the
@@ -265,8 +288,13 @@ LOCI, LOCUS_SITES, LOCUS_TAXA, LOCUS_GAPS = 20, 1000, 100, 0.1
 # 12d's search depth, cut from the defaults (-ninit 100, -nbest 5) for the
 # script's time: each NNI polish of a start tree takes about 13 s there;
 # cut from -n 10 -ninit 20 -nbest 2 for phase 13, then from -n 5 and -ntop
-# 20 (10 start trees polished, 29 s) for phase 14
-LOCUS_DEPTH = ["-n", "3", "-ninit", "10", "-ntop", "2", "-nbest", "1"]
+# 20 (10 start trees polished, 29 s) for phase 14, then from -n 3 for
+# phase 15
+LOCUS_DEPTH = ["-n", "2", "-ninit", "10", "-ntop", "2", "-nbest", "1"]
+# 12a's search depth, cut from the default (about 100 iterations, 44.8 s
+# of its wall) for phase 15: at -n 10 it reaches the same logL,
+# -21141.4985, on the CPU
+PART_DEFAULT_DEPTH = ["-n", "10"]
 LOCUS_MODELS = (
     ("GTR+G", "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}"),
     ("HKY+G", "HKY{3.0}+F{0.25,0.25,0.2,0.3}+G{0.8}"),
@@ -346,6 +374,28 @@ PMIX_LOCI = (("AA", "LG+C20+G{0.6}", 1000),
               2000))
 PMIX_MODELS = ["LG+C20+G", "GTR+G"]
 PMIX_TOL = 1e-3                        # 14f: card against the CPU, float64
+# phase 15: the nonreversible and per-class-length families. 15a's kernel
+# checks (kernelcheck.MODELS name, dtype) at CHECK_TAXA x CHECK_SITES: UNREST
+# and 12.12 with complex eigenvalues, PoMo's 52 states, +H's per-class
+# lengths, and the root test's __ROOT__ pseudo-taxon
+NONREV_CHECKS = (("UNREST+G4", "float32"), ("UNREST+G4", "float64"),
+                 ("12.12+G4", "float32"), ("GTR+P+G4", "float32"),
+                 ("GTR+P+G4", "float64"), ("GTR+H4", "float32"),
+                 ("UNREST+G4 rooted", "float32"))
+NONREV_ROUNDS = 4                      # 15b: nonreversible Newton rounds
+NONREV_CLIMB_ROUNDS = 3                # 15b: NNI rounds of the climb
+NONREV_CUT_SITES = 1024                # 15b: the card against the plain path
+# the -te fit whose logL less 0.5 bounds 15c's search, as the reference
+# fit bounds phase 6's: -m UNREST+G -te ref_tree.nwk on example.phy in
+# float32, as this script measured it on an H100 80GB HBM3
+UNREST_TE_LOGL = -21150.2891
+# 15c's and 15d's search depth, cut from the defaults for the script's time
+NONREV_DEPTH = ["-n", "3", "-ninit", "10", "-ntop", "3", "-nbest", "2"]
+ROOTTEST_ROWS = 2 * 17 - 3             # 15c: every branch of example.phy's
+CARD_CPU_TOL = 1e-3                    # 15e: card against the CPU, float64
+MDEF_NONREV_TOL = 1e-6                 # 15g: relative, float64
+MDEF_NONREV_MATRIX = ((0, 1.5, 3.0, 0.6), (0.9, 0, 1.1, 2.8),
+                      (2.5, 0.7, 0, 1.3), (0.8, 3.3, 1.2, 0))
 
 
 def fail(msg: str) -> int:
@@ -770,8 +820,8 @@ def part_default() -> dict:
     pdef = OUT / "part_default"
     launches = counted(["-s", str(GOLDEN / "example.phy"), "-p",
                         str(GOLDEN / "example.nex"), "-B",
-                        str(FLAGSHIP_REPLICATES), "-pre", str(pdef)],
-                       "[phase 12a]")
+                        str(FLAGSHIP_REPLICATES)] + PART_DEFAULT_DEPTH
+                       + ["-pre", str(pdef)], "[phase 12a]")
     winners = scheme_models(pdef)
     logl = check_flagship(pdef, PART_DEFAULT_LOGL - 0.5)
     print(f"[phase 12a] winners {winners} (the JAX package's "
@@ -1236,20 +1286,37 @@ def family_kernels(errors: dict) -> list:
     codon models), each pass one launch, with times loaded and back to
     back, bounds, shares, occupancy and peak memory. Returns one row per
     problem for the summary line."""
+    return kernel_rows(FAMILY_CHECKS, "14a", errors,
+                       not_indicators=("HKY+E+G4",))
+
+
+def kernel_rows(checks, phase: str, errors: dict,
+                not_indicators=()) -> list:
+    """Each (kernelcheck.MODELS name, dtype) of ``checks`` at CHECK_TAXA x
+    CHECK_SITES (a name ending in " rooted" as the root test's problem,
+    kernelcheck.rooted_problem), on the engine its model takes
+    (kernelcheck.make_engine): the kernels against their plain versions,
+    one launch per pass, times loaded and back to back, bounds, shares,
+    occupancy and peak memory; the tips of the problems in
+    ``not_indicators`` must not be indicator rows. Returns one row per
+    problem."""
     import torch
     from iqtree2_tpu_torch import kernelcheck
-    from iqtree2_tpu_torch.engine import LikelihoodEngine
     from iqtree2_tpu_torch.ops import kernels
     rows = []
-    for name, dt in FAMILY_CHECKS:
+    for name, dt in checks:
         dtype = getattr(torch, dt)
-        aln, tree, model, rates = kernelcheck.simulate(name, CHECK_TAXA,
+        model_name = name.removesuffix(" rooted")
+        aln, tree, model, rates = kernelcheck.simulate(model_name, CHECK_TAXA,
                                                        CHECK_SITES, seed=1)
-        eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device="cuda")
-        C, S = int(eng._pack["cat_rate"].shape[0]), aln.num_states
+        if model_name != name:
+            aln, tree = kernelcheck.rooted_problem(aln, tree)
+        eng = kernelcheck.make_engine(aln, model, rates, dtype=dtype,
+                                      device="cuda")
+        C, S = int(eng._pack["cat_rate"].shape[0]), eng._tipP.shape[1]
         torch.cuda.reset_peak_memory_stats()
         window = kernelcheck.plain_window(eng)
-        tag = f"[phase 14a] {name} {CHECK_TAXA} x {CHECK_SITES}"
+        tag = f"[phase {phase}] {name} {aln.ntaxa} x {CHECK_SITES}"
         res = check_kernels(tag, eng, tree, FAMILY_TIME_REPS, errors,
                             window=window, b2b_reps=FAMILY_B2B_REPS)
         bnd = kernelcheck.bounds(eng, tree)
@@ -1280,8 +1347,8 @@ def family_kernels(errors: dict) -> list:
         if any(r["launches"] != 1 for r in res) or \
                 res[0]["sitelp_launches"] != 1:
             raise RuntimeError(f"{tag}: not one launch per pass: {res}")
-        if name == "HKY+E+G4" and not bool(((eng._tipP > 0)
-                                             & (eng._tipP < 1)).any()):
+        if name in not_indicators and not bool(((eng._tipP > 0)
+                                                 & (eng._tipP < 1)).any()):
             raise RuntimeError(f"{tag}: the tips are indicator rows")
         rows.append(row)
         del eng, res
@@ -1548,6 +1615,280 @@ def model_families(errors: dict, aln_path: str, tree_path: str,
     return launches, rows
 
 
+def run_analysis(args: list[str], keep: dict) -> float:
+    """The command line's single-alignment analysis in this process
+    (cli.refuse_unported, then analysis.run_analysis on the card, as
+    cli.main runs it), its result dict kept in ``keep``; returns its wall
+    seconds."""
+    import torch
+    from iqtree2_tpu_torch import analysis, cli
+    parser = cli.build_parser()
+    ns = parser.parse_args(args + ["-redo", "--quiet"])
+    cli.refuse_unported(ns, parser)
+    t0 = time.perf_counter()
+    keep.update(analysis.run_analysis(cli.params_from_args(ns),
+                                      device="cuda"))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def nonrev_wide(launches: dict) -> None:
+    """15b: BIG_TAXA x BIG_SITES simulated under UNREST+G4 (complex
+    eigenvalues, P by expm) in float32: one logL, optimize_branches with
+    the nonreversible Newton (NONREV_ROUNDS rounds: both passes, then the
+    direct derivatives per edge), then the NNI climb (phase 7's, with the
+    site logLs, at most NONREV_CLIMB_ROUNDS rounds) from the simulating
+    tree moved by 19 random NNIs; launches per pass (one each), ms per
+    Newton round, peak device memory. Then the card's site logLs against
+    the plain path on a CHECK_TAXA x NONREV_CUT_SITES cut within
+    kernelcheck.TOLERANCE."""
+    import numpy as np
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.ops import kernels
+    from iqtree2_tpu_torch.search.nni import nni_optimize
+    tag = "[phase 15b]"
+    t0 = time.perf_counter()
+    aln, tree, model, rates = kernelcheck.simulate("UNREST+G4", BIG_TAXA,
+                                                   BIG_SITES, seed=1)
+    print(f"{tag} simulated {BIG_TAXA} x {BIG_SITES} under UNREST+G4 by "
+          f"expm in {time.perf_counter() - t0:.1f} s", flush=True)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
+                           device="cuda")
+    eng.loglik_tree(tree)                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logl0 = eng.loglik_tree(tree)
+    lg_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logl = eng.optimize_branches(tree, n_rounds=NONREV_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+    passes.check(got, tag)
+    add(launches, got)
+    rounds = passes.calls["up_pass"]
+    round_ms = (wall - passes.calls["sitelp"] * lg_s) / max(rounds, 1) * 1e3
+    print(f"{tag} f32 logL {logl0:.4f} ({lg_s * 1e3:.2f} ms) -> "
+          f"{logl:.4f} after {rounds} nonreversible Newton rounds in "
+          f"{wall:.2f} s ({passes.calls['sitelp']} logLs): {round_ms:.2f} "
+          f"ms per round without its logLs; launches {got}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    if not (math.isfinite(logl) and logl >= logl0 - 1e-3 and rounds > 0):
+        raise RuntimeError(f"{tag} logL {logl0} -> {logl}")
+    start, n = kernelcheck.perturbed(tree, seed=7, strength=0.02)
+    eng.optimize_branches(start, n_rounds=2)
+    times: list = []
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, lp = nni_optimize(eng, start, want_lp=True,
+                               max_rounds=NONREV_CLIMB_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+    passes.check(got, tag)
+    add(launches, got)
+    print(f"{tag} NNI climb from {n} random NNIs: {res.n_rounds} rounds, "
+          f"{res.n_applied_total} swaps, logL {res.logL:.4f} in {wall:.1f} "
+          f"s; launches {got}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not (math.isfinite(res.logL) and np.isfinite(lp).all()):
+        raise RuntimeError(f"{tag} climb logL {res.logL}")
+    del eng
+    torch.cuda.empty_cache()
+    s_aln, s_tree, s_model, s_rates = kernelcheck.simulate(
+        "UNREST+G4", CHECK_TAXA, NONREV_CUT_SITES, seed=1)
+    for dtype in (torch.float32, torch.float64):
+        lps = [LikelihoodEngine(s_aln, s_model, s_rates, dtype=dtype,
+                                device=dev).site_lp(s_tree)[1]
+               for dev in ("cuda", "cpu")]
+        err = kernelcheck.lp_error(torch.as_tensor(lps[0]),
+                                   torch.as_tensor(lps[1]), dtype)
+        tol = kernelcheck.TOLERANCE[dtype]["lp"]
+        print(f"{tag} {CHECK_TAXA} x {NONREV_CUT_SITES} {str(dtype)[6:]}: "
+              f"site logLs of the card against the plain path within "
+              f"{err:.3e} (tol {tol:g})", flush=True)
+        if not err <= tol:
+            raise RuntimeError(f"{tag} site logLs differ by {err}")
+
+
+def roottest_rows(prefix: Path) -> list:
+    import csv
+    with open(f"{prefix}.roottest.csv") as f:
+        return list(csv.DictReader(f))
+
+
+def nonrev_search() -> dict:
+    """15c: example.phy -m UNREST+G -B 1000 --root-test (NONREV_DEPTH) in
+    float32: phase 6's files, logL at least UNREST_TE_LOGL - 0.5, every
+    kernel of the nonreversible path launched (down_pass with and without
+    its epilogue, up_pass), .roottest.csv with ROOTTEST_ROWS rows whose
+    rootstrap sums to 1 within 1e-9, .rooted.nwk. Returns the launches."""
+    pre = OUT / "unrest_search"
+    tag = "[phase 15c]"
+    got = counted(["-s", str(GOLDEN / "example.phy"), "-m", "UNREST+G",
+                   "-B", str(FLAGSHIP_REPLICATES), "--root-test"]
+                  + NONREV_DEPTH + ["-pre", str(pre)], tag)
+    bound = UNREST_TE_LOGL - 0.5
+    logl = check_flagship(pre, bound)
+    rows = roottest_rows(pre)
+    total = sum(float(r["rootstrap"]) for r in rows)
+    best = max(rows, key=lambda r: float(r["logL"]))
+    print(f"{tag} logL {logl:.4f} (bound {bound:.4f}); root test: "
+          f"{len(rows)} branches, best {best['Branch']} (logL "
+          f"{best['logL']}, rootstrap {best['rootstrap']}), rootstrap sum "
+          f"{total!r}; wall seconds: {wall_split(pre)}", flush=True)
+    if len(rows) != ROOTTEST_ROWS or not abs(total - 1.0) <= 1e-9:
+        raise RuntimeError(f"{tag} {len(rows)} rows, rootstrap sum {total}")
+    if "__ROOT__" in Path(f"{pre}.rooted.nwk").read_text():
+        raise RuntimeError(f"{tag} the pseudo-taxon is in .rooted.nwk")
+    # the nonreversible Newton takes both passes and no theta
+    if not all(got[k] > 0 for k in ("down_pass", "sitelp", "up_pass")):
+        raise RuntimeError(f"{tag} a kernel was never launched: {got}")
+    return got
+
+
+def class_weights(prefix: Path) -> list[float]:
+    """The proportions of the .iqtree's rate-category table."""
+    text = Path(f"{prefix}.iqtree").read_text()
+    table = text.split("Category  Relative_rate  Proportion")[1]
+    return [float(m) for m in re.findall(r"^\s+\d+\s+[\d.]+\s+([\d.]+)$",
+                                         table.split("\n\n")[0], re.M)]
+
+
+def mixlen_search(launches: dict) -> None:
+    """15d: example.phy -m GTR+H4 -B 1000 (NONREV_DEPTH) in float32: phase
+    6's files with the search's own bound (the final per-class fit at
+    least the search's logL - 1e-6), four class weights summing to 1."""
+    pre = OUT / "h4_search"
+    tag = "[phase 15d]"
+    add(launches, counted(["-s", str(GOLDEN / "example.phy"), "-m",
+                           "GTR+H4", "-B", str(FLAGSHIP_REPLICATES)]
+                          + NONREV_DEPTH + ["-pre", str(pre)], tag))
+    searched = float(re.search(r"Search done: .* best logL (-?[\d.]+)",
+                               log_lines(pre)).group(1))
+    logl = check_flagship(pre, searched - 1e-6)
+    w = class_weights(pre)
+    print(f"{tag} search logL {searched:.4f}, final per-class fit "
+          f"{logl:.4f}, class weights {w} (sum {sum(w):.4f}); wall "
+          f"seconds: {wall_split(pre)}", flush=True)
+    if len(w) != 4 or not abs(sum(w) - 1.0) <= 2e-4:
+        raise RuntimeError(f"{tag} class weights {w}")
+
+
+def family_te(launches: dict) -> None:
+    """15e: -m GTR+P (PoMo, 52 states) and -m 3.3b+G (Lie-Markov) -te on
+    the golden tree in float64 on the card: each logL within CARD_CPU_TOL
+    of the port's CPU evaluation of the same tree and parameters."""
+    import torch
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    for model in ("GTR+P", "3.3b+G"):
+        keep: dict = {}
+        tag = f"[phase 15e {model}]"
+        pre = OUT / f"te_{model.replace('+', '_')}"
+        add(launches, counted(
+            ["-s", str(GOLDEN / "example.phy"), "-m", model, "-te",
+             str(GOLDEN / "ref_tree.nwk"), "--f64", "-pre", str(pre)], tag,
+            runner=lambda a: run_analysis(a, keep)))
+        cpu = LikelihoodEngine(keep["aln"], keep["model"], keep["rates"],
+                               dtype=torch.float64, device="cpu"
+                               ).loglik_tree(keep["tree"])
+        print(f"{tag} card f64 logL {keep['logL']:.6f}, the CPU's at the "
+              f"same tree and parameters {cpu:.6f} (tol {CARD_CPU_TOL:g})",
+              flush=True)
+        if not abs(keep["logL"] - cpu) <= CARD_CPU_TOL:
+            raise RuntimeError(f"{tag} card {keep['logL']} != CPU {cpu}")
+
+
+def treemix_te(launches: dict) -> None:
+    """15f: example.phy -m GTR+G+T -te with the golden tree and one NNI
+    from it: EM's logL never falls between iterations, the weights sum to
+    1."""
+    import numpy as np
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.io.alignment_io import read_alignment
+    from iqtree2_tpu_torch.tree.topology import Tree
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    tree = Tree.from_newick((GOLDEN / "ref_tree.nwk").read_text(), aln.names)
+    other, _ = kernelcheck.perturbed(tree, seed=1, strength=1 / 14)
+    two = OUT / "two_trees.nwk"
+    two.write_text(tree.to_newick() + "\n" + other.to_newick() + "\n")
+    keep: dict = {}
+    pre = OUT / "treemix"
+    tag = "[phase 15f]"
+    add(launches, counted(["-s", str(GOLDEN / "example.phy"), "-m",
+                           "GTR+G+T", "-te", str(two), "-pre", str(pre)],
+                          tag, runner=lambda a: run_analysis(a, keep)))
+    em = [float(x) for x in re.findall(r"EM iter \d+: logL (-?[\d.]+)",
+                                       log_lines(pre))]
+    w = keep["weights"]
+    print(f"{tag} EM logLs {em}, weights {w}", flush=True)
+    if len(em) < 2 or any(b < a - 1e-3 for a, b in zip(em, em[1:])) or \
+            not abs(sum(w) - 1.0) <= 1e-9 or \
+            not np.isfinite(keep["logL"]):
+        raise RuntimeError(f"{tag} EM {em}, weights {w}")
+
+
+def mdef_nonrev(launches: dict) -> None:
+    """15g: a --mdef model with reversible: false and the same matrix as
+    -m UNREST{...}, -te on example.phy in float64: equal logLs within
+    MDEF_NONREV_TOL relative."""
+    defs = OUT / "nonrev.yml"
+    defs.write_text("- model: MYNONREV\n  datatype: DNA\n"
+                    "  reversible: false\n  matrix: ["
+                    + ", ".join("[" + ", ".join(str(v) for v in row) + "]"
+                                for row in MDEF_NONREV_MATRIX) + "]\n")
+    rates = [v for i, row in enumerate(MDEF_NONREV_MATRIX)
+             for j, v in enumerate(row) if i != j]
+    logls = {}
+    for model, extra in (("MYNONREV+G", ["--mdef", str(defs)]),
+                         ("UNREST{" + ",".join(str(r) for r in rates)
+                          + "}+G", [])):
+        pre = OUT / f"nonrev_{'yaml' if extra else 'unrest'}"
+        add(launches, counted(extra + [
+            "-s", str(GOLDEN / "example.phy"), "-m", model, "-te",
+            str(GOLDEN / "ref_tree.nwk"), "--f64", "-pre", str(pre)],
+            f"[phase 15g {model} f64]"))
+        logls[model] = report_logl(pre)
+    a, b = logls.values()
+    print(f"[phase 15g] {logls}; relative difference "
+          f"{abs(a - b) / abs(b):.3e} (tol {MDEF_NONREV_TOL:g})", flush=True)
+    if not abs(a - b) <= MDEF_NONREV_TOL * abs(b):
+        raise RuntimeError(f"[phase 15g] the YAML model and UNREST differ: "
+                           f"{logls}")
+
+
+def nonrev_families(errors: dict, parts: str = "abcdefg"
+                    ) -> tuple[dict, list, dict]:
+    """Phase 15's parts; returns the launches of 15b and 15d-g, 15a's rows
+    and 15c's search launches."""
+    launches: dict = {}
+    search: dict = {}
+    rows = (kernel_rows(NONREV_CHECKS, "15a", errors,
+                        not_indicators=("GTR+P+G4",))
+            if "a" in parts else [])
+    if "b" in parts:
+        nonrev_wide(launches)
+    if "c" in parts:
+        search = nonrev_search()
+    if "d" in parts:
+        mixlen_search(launches)
+    if "e" in parts:
+        family_te(launches)
+    if "f" in parts:
+        treemix_te(launches)
+    if "g" in parts:
+        mdef_nonrev(launches)
+    return launches, rows, search
+
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -1600,7 +1941,7 @@ def main() -> int:
 
 
 def run(started: list) -> int:
-    """Phases 1-14; each process it starts goes into ``started``."""
+    """Phases 1-15; each process it starts goes into ``started``."""
     if not (ROOT / "iqtree2_tpu_torch").is_dir() or not GOLDEN.is_dir():
         return fail("run from the root of a checkout of the repository "
                     "(iqtree2_tpu_torch/ and tests/golden/ are missing)")
@@ -1979,7 +2320,11 @@ def run(started: list) -> int:
     stamp(14)
     # 14. the model families: codon, +E, --mdef, partitioned mixtures
     family_launches, _ = model_families(errors, aln_path, tree_path)
-    print(f"[time] phases 1-14 in {time.perf_counter() - t_start:.1f} s",
+
+    stamp(15)
+    # 15. nonreversible models, PoMo, +H, +T, the root test
+    _, _, nonrev_launches = nonrev_families(errors)
+    print(f"[time] phases 1-15 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": [
@@ -1989,6 +2334,7 @@ def run(started: list) -> int:
          "partition_launches": part_launches[k],
          "mixture_launches": mix_launches[k],
          "model_family_launches": family_launches[k],
+         "nonrev_launches": nonrev_launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],

@@ -24,6 +24,14 @@ the report; -o roots the printed trees on the first outgroup taxon (every
 one must exist); -wsl, -wsr, -wspr/-wspm/-wspmr, --mlrate, -asr and
 -mldist write .sitelh, .rate, .siteprob, .mlrate, .state and .mldist.
 
+The nonreversible models (UNREST/NONREV, Lie-Markov, PoMo +P, a YAML
+``reversible: false``) run on the same engine through pack["Q"]; +H runs on
+the per-class model/heterotachy.MixlenEngine (the final fit alternates the
+model parameters, the per-class lengths and the EM weights); +T fits a
+tree mixture (model/treemix.py) over the -te trees and stops there;
+--root-test (roottest.py) tests every branch of the final tree as the root
+and writes .roottest.csv and .rooted.nwk.
+
 Mixture models (model/mixture.py) run on the same engine, their classes
 fused with the rate categories on one category axis; -wspm writes their
 class posteriors. --pmsf (iqtree2_tpu/analysis.py:187-215) fits the
@@ -60,14 +68,18 @@ from iqtree2_tpu_torch.io.yamlmodels import load_definitions
 from iqtree2_tpu_torch.io.nexus import parse_nexus
 from iqtree2_tpu_torch.model import torchfit
 from iqtree2_tpu_torch.model.factory import build_model
+from iqtree2_tpu_torch.model.heterotachy import MixlenEngine
 from iqtree2_tpu_torch.model.mixture import MixtureModel
 from iqtree2_tpu_torch.model.optimize import optimize_model_parameters
 from iqtree2_tpu_torch.model.pmsf import SSFEngine, run_pmsf
+from iqtree2_tpu_torch.model.treemix import TreeMixture
 from iqtree2_tpu_torch.modelfinder import MODES, run_modelfinder
 from iqtree2_tpu_torch.ops.distances import ml_distances
 from iqtree2_tpu_torch.ops.pars import random_stepwise_addition
 from iqtree2_tpu_torch.ops.prec import compute_dtype
 from iqtree2_tpu_torch.params import Params
+from iqtree2_tpu_torch.roottest import (rooted_newick, run_root_test,
+                                        write_roottest_csv)
 from iqtree2_tpu_torch.search.search import SearchParams, TreeSearch
 from iqtree2_tpu_torch.search.ufboot import UFBoot, greedy_consensus
 from iqtree2_tpu_torch.siterates import site_rates_ml, write_mlrate
@@ -103,12 +115,64 @@ class Logger:
             self.f.close()
 
 
-def check_model_ported(model_str: str, extras: dict) -> None:
-    """SystemExit for a model term whose likelihood path is not yet ported
-    (model/factory.py refuses the model families the port does not run)."""
+# destinations the JAX package's +T flow (iqtree2_tpu/analysis.py:228-250)
+# never reads: it fits the tree mixture, writes .treefile and .iqtree, and
+# returns
+TREEMIX_IGNORED = (("alrt_replicates", "-alrt"), ("abayes", "-abayes"),
+                   ("user_trees_file", "-z"), ("write_site_lh", "-wsl"),
+                   ("write_site_rate", "-wsr"), ("write_site_prob", "-wsp*"),
+                   ("write_ml_rate", "--mlrate"), ("do_asr", "-asr"),
+                   ("write_ml_dist", "-mldist"), ("outgroup", "-o"),
+                   ("root_test", "--root-test"),
+                   ("fix_branch_lengths", "-blfix"), ("num_runs", "--runs"),
+                   ("pmsf", "--pmsf"))
+# the branch tests and -bnni score NNIs with per-pattern logLs and reweighted
+# views, which the JAX package's MixlenEngine does not give (it fails)
+MIXLEN_REFUSED = (("alrt_replicates", "-alrt"), ("abayes", "-abayes"),
+                  ("bnni", "-bnni"))
+
+
+def check_model_ported(params: Params, model_str: str, extras: dict) -> None:
+    """SystemExit for a flag the model's path does not run: with +T (tree
+    mixtures) one that the JAX package's +T flow ignores, and -te with two
+    or more trees missing; with +H (per-class lengths) the branch tests and
+    -bnni."""
+    defaults = Params()
     if extras.get("treemix"):
-        raise SystemExit(f"-m {model_str}: tree mixtures (+T) are not yet "
-                         f"ported to iqtree2_tpu_torch")
+        if not params.user_tree:
+            raise SystemExit("+T (tree mixture) requires -te FILE with two "
+                             "or more trees")
+        for dest, flag in TREEMIX_IGNORED:
+            if getattr(params, dest) != getattr(defaults, dest):
+                raise SystemExit(f"{flag} with -m {model_str}: the tree "
+                                 f"mixture (+T) flow does not run it (the "
+                                 f"JAX package ignores it)")
+    if extras.get("mixlen"):
+        for dest, flag in MIXLEN_REFUSED:
+            if getattr(params, dest) != getattr(defaults, dest):
+                raise SystemExit(f"{flag} with -m {model_str}: needs NNI "
+                                 f"site log-likelihoods under per-class "
+                                 f"branch lengths (+H), which the JAX "
+                                 f"package's MixlenEngine does not give")
+
+
+def check_partition_model(model_str: str, model, extras: dict) -> None:
+    """SystemExit for a model family the JAX package's partition path does
+    not run as a model (ROADMAP C19): its joint Newton forms eigenbasis
+    thetas, which for a nonreversible model (UNREST, Lie-Markov, PoMo, a
+    YAML ``reversible: false``) keep only a complex eigensystem's real
+    parts, and it never reads the +H, +T or PoMo extras."""
+    for key, what in (("mixlen", "per-class branch lengths (+H)"),
+                      ("treemix", "tree mixtures (+T)"),
+                      ("pomo", "PoMo (+P)")):
+        if extras.get(key):
+            raise SystemExit(f"-m {model_str} with -p/-q/-Q: {what} are not "
+                             f"run on partitions (ROADMAP C19)")
+    if not model.is_reversible():
+        raise SystemExit(f"-m {model_str} with -p/-q/-Q: a nonreversible "
+                         f"model is not run on partitions (ROADMAP C19: the "
+                         f"JAX package's joint Newton reads a real-part "
+                         f"eigensystem)")
 
 
 def outgroup_root(outgroup: str, names: list[str]) -> int | None:
@@ -244,14 +308,55 @@ def class_posteriors(cat_post: np.ndarray, cat_mix) -> np.ndarray:
 
 def fit_model(eng, tree: Tree, epsilon: float) -> float:
     """The model and branch-length refit of a fixed topology, on a
-    LikelihoodEngine or on the PMSF SSFEngine, whose free parameters are
-    the branch lengths and the Gamma shape
-    (iqtree2_tpu.analysis._fit_model). Returns the logL."""
+    LikelihoodEngine, on the PMSF SSFEngine, whose free parameters are
+    the branch lengths and the Gamma shape, or on the MixlenEngine (+H):
+    the model parameters on the mean lengths, then the per-class lengths
+    and EM weights (iqtree2_tpu.analysis._fit_model). Returns the logL."""
     if isinstance(eng, SSFEngine):
         eng.optimize_branches(tree)
         eng.optimize_alpha(tree)
         return eng.optimize_branches(tree, n_rounds=4)
+    if isinstance(eng, MixlenEngine):
+        optimize_model_parameters(eng, tree,
+                                  epsilon=max(epsilon, QUICK_FIT_EPS))
+        return eng.optimize_mixlen(tree)
     return optimize_model_parameters(eng, tree, epsilon=epsilon)
+
+
+def tree_mixture(params: Params, eng, aln, extras: dict,
+                 log) -> tuple[TreeMixture, float]:
+    """+T (iqtree2_tpu/analysis.py:228-250): the model fitted on the first
+    -te tree, then the tree mixture's EM over all of them; returns the
+    mixture and its logL."""
+    trees = read_tree_set(params.user_tree, aln.names)
+    if len(trees) < 2:
+        raise SystemExit("+T (tree mixture) requires -te FILE with two or "
+                         "more trees")
+    log(f"Tree mixture (+T): {len(trees)} trees")
+    optimize_model_parameters(eng, trees[0].copy(),
+                              epsilon=max(params.model_eps, QUICK_FIT_EPS))
+    tm = TreeMixture(eng, trees, weights=extras.get("treemix_weights"))
+    return tm, tm.fit(log=log)
+
+
+def root_test(params: Params, eng, tree: Tree, aln, search_info: dict,
+              log) -> None:
+    """--root-test (iqtree2_tpu/analysis.py:487-501): every branch of the
+    tree as the root, under the engine's model, dtype and device; writes
+    .roottest.csv and .rooted.nwk (rooted on the best branch)."""
+    log("Root position test: evaluating every branch as root "
+        "(doRootTest analog + RELL rootstrap)...")
+    rres = run_root_test(aln, tree, eng.model, eng.rates, dtype=eng.dtype,
+                         device=eng.device, log=log)
+    write_roottest_csv(f"{params.prefix}.roottest.csv", rres)
+    ra, rb = rres.branches[rres.best]
+    with open(f"{params.prefix}.rooted.nwk", "w") as f:
+        f.write(rooted_newick(tree, ra, rb) + "\n")
+    search_info["Best root branch"] = rres.labels[rres.best]
+    search_info["Rootstrap of best root"] = (
+        f"{rres.rootstrap[rres.best]:.3f}")
+    log(f"Root test -> {params.prefix}.roottest.csv; rooted tree -> "
+        f"{params.prefix}.rooted.nwk")
 
 
 def pmsf_engine(params: Params, eng: LikelihoodEngine, aln, rng,
@@ -514,7 +619,7 @@ def run_analysis(params: Params, device="cuda") -> dict:
                     f"selection written to {prefix}.iqtree")
                 return {"model_selection": model_selection}
         model, rates, extras = build_model(model_str, aln)
-        check_model_ported(model_str, extras)
+        check_model_ported(params, model_str, extras)
         if params.write_ml_dist and isinstance(model, MixtureModel):
             # the JAX package measures them under class 0 alone (ROADMAP
             # C13)
@@ -522,8 +627,12 @@ def run_analysis(params: Params, device="cuda") -> dict:
                              f"under a mixture model are not yet ported to "
                              f"iqtree2_tpu_torch")
         out_root = outgroup_root(params.outgroup, aln.names)
-        eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=device,
-                               asc=extras.get("asc", False))
+        if extras.get("mixlen"):
+            eng = MixlenEngine(aln, model, rates, dtype=dtype, device=device)
+        else:
+            eng = LikelihoodEngine(aln, model, rates, dtype=dtype,
+                                   device=device,
+                                   asc=extras.get("asc", False))
         log(f"Likelihood engine: {eng.device}, {dtype}, "
             f"{eng.Pp} padded patterns")
         # the branch tests' RELL draws come from this generator, made where
@@ -541,6 +650,28 @@ def run_analysis(params: Params, device="cuda") -> dict:
         if params.ufboot_replicates > 0:
             ufboot = UFBoot(aln, n_replicates=params.ufboot_replicates,
                             seed=params.seed)
+        if extras.get("treemix"):
+            tm, logL = tree_mixture(params, eng, aln, extras, log)
+            tree = tm.trees[int(np.argmax(tm.weights))]
+            with open(f"{prefix}.treefile", "w") as f:
+                for t in tm.trees:
+                    f.write(t.to_newick() + "\n")
+            search_info["Tree mixture weights"] = \
+                ", ".join(f"{w:.4f}" for w in tm.weights)
+            elapsed = time.time() - t_start
+            report_io.write_iqtree_report(
+                f"{prefix}.iqtree", params=params, aln=aln, model=model,
+                rates=rates, tree=tree, logL=logL, search_info=search_info,
+                model_selection=None, support=None, elapsed=elapsed,
+                tree_tests=None)
+            ckp.put("finished", True)
+            ckp.dump(force=True)
+            log(f"Tree-mixture analysis done in {elapsed:.2f}s; mixture "
+                f"logL {logL:.4f}")
+            return {"logL": logL, "trees": tm.trees, "tree": tree,
+                    "weights": tm.weights.tolist(), "elapsed": elapsed,
+                    "model": model, "rates": rates, "aln": aln,
+                    "model_selection": None}
         if params.user_tree:
             log(f"Reading fixed topology from {params.user_tree}")
             tree = Tree.from_newick(Path(params.user_tree).read_text(),
@@ -593,6 +724,8 @@ def run_analysis(params: Params, device="cuda") -> dict:
         report_io.write_treefile(f"{prefix}.treefile", tree, support=support,
                                  root=out_root)
         _write_site_outputs(params, eng, tree, aln, log)
+        if params.root_test:
+            root_test(params, eng, tree, aln, search_info, log)
         elapsed = time.time() - t_start
         report_io.write_iqtree_report(
             f"{prefix}.iqtree", params=params, aln=aln, model=model,

@@ -8,7 +8,7 @@
                               [-alrt N] [-abayes] [-z TREES [-zb N] [-au]]
                               [-wsl] [-wsr] [-wspr|-wspm|-wspmr] [--mlrate]
                               [-asr] [-mldist] [-o TAXA] [--symtest]
-                              [--pmsf [-t TREE]] [-n N]
+                              [--root-test] [--pmsf [-t TREE]] [-n N]
                               [-nstop N] [-ninit N] [-ntop N] [-nbest N]
                               [-pers X] [--f64] [--device cuda|cpu]
   python -m iqtree2_tpu_torch [-s ALN] -p|-q|-Q|-S PARTITIONS
@@ -31,14 +31,18 @@ constraint tree), then the branch supports (-alrt, -abayes, -bnni,
 outputs (-wsl, -wsr, -wspr/-wspm/-wspmr, --mlrate, -asr, -mldist, -o),
 the standard bootstrap (-b), independent runs (--runs) and the symmetry
 tests (--symtest), under any model of the factory (mixtures included,
-with -wspm) and under PMSF (--pmsf, -t naming its guide tree); and the
+with -wspm; the nonreversible, Lie-Markov and PoMo models; +H per-class
+branch lengths; +T tree mixtures over the -te trees) and under PMSF
+(--pmsf, -t naming its guide tree), and the root position test
+(--root-test); and the
 partitioned analysis (-p edge-proportional, -q edge-equal, -Q unlinked
 branch lengths, -S one tree per locus) with per-partition ModelFinder and
 merging, -bsam and --symtest-remove-bad.
 Any flag whose path is not yet ported stops the run with a SystemExit that
 names it, and so does each flag the JAX package's partition path accepts
 and ignores (-g, -b, --runs, -bnni, --tbe, -z, -wsl, -wsr, -wsp*,
---mlrate, -asr, -mldist, -o, -blfix, --pmsf), and with --pmsf each output
+--mlrate, -asr, -mldist, -o, -blfix, --pmsf, --mdef, --root-test; and the
+model families of ROADMAP C19), and with --pmsf each output
 the JAX package's site-specific-frequency engine cannot give (PMSF_REFUSED),
 so nothing is silently ignored.
 """
@@ -65,14 +69,15 @@ PORTED_DESTS = frozenset({
     "outgroup", "constraint_tree", "standard_bootstrap", "num_runs",
     "symtest", "symtest_remove_bad", "symtest_pval", "partition_edge_prop",
     "partition_edge_equal", "partition_unlinked", "partition_topo_unlinked",
-    "merge_algorithm", "boot_spec", "pmsf", "start_tree", "mdef_file"})
+    "merge_algorithm", "boot_spec", "pmsf", "start_tree", "mdef_file",
+    "root_test"})
 # destinations the JAX package's partition path (-p/-q/-Q) accepts and never
 # reads: the port refuses them there
 PARTITION_IGNORED = ("constraint_tree", "standard_bootstrap", "num_runs",
                      "bnni", "tbe", "user_trees_file", "write_site_lh",
                      "write_site_rate", "write_site_prob", "write_ml_rate",
                      "do_asr", "write_ml_dist", "outgroup",
-                     "fix_branch_lengths", "pmsf", "mdef_file")
+                     "fix_branch_lengths", "pmsf", "mdef_file", "root_test")
 # destinations whose path needs what the PMSF site-specific-frequency engine
 # lacks (rate posteriors, ASR, a model, NNI site log-likelihoods, reweighted
 # views): each raises AttributeError in the JAX package (ROADMAP C12)

@@ -9,7 +9,9 @@ Hopper kernels of ops/kernels.py; on the CPU through their plain versions.
 Ported: pattern padding, refresh_model, with_pattern_weights,
 schedule_arrays, loglik_tree/loglik_sched, site_lp, compute_passes, the
 all-branch Newton optimize_branches (the JAX "std" path's math, through its
-v2 fused-theta path: a down pass and one theta_pass per round), NNI scoring
+v2 fused-theta path: a down pass and one theta_pass per round; for a
+nonreversible model, pack["Q"], the JAX "nonrev" path: both passes and the
+direct derivatives per edge, optimize_blens_nonrev), NNI scoring
 (evaluate_nni_batch) and the fused NNI round (optimize_and_evaluate_nnis)
 with their K-tree forms. The JAX engine's mechanisms for the TPU's remote
 link and compiler (_pull, _pack_flat, _unpack_ints, _dev_scalar,
@@ -101,6 +103,45 @@ def optimize_blens(blens, tipP, sched, pack, pattern_weights, t_min: float,
     return _sweep_until(lg, one_round, blens, n_rounds, eps)
 
 
+# memory for one chunk of edges in the nonreversible Newton, whose edges
+# each hold about NONREV_SLABS [C, S, Pp] tensors (down, E, the products
+# out^T P, out^T rQ P and out^T rQ rQ P and their operands)
+NONREV_CHUNK_BYTES = 4 * 2**30
+NONREV_SLABS = 10
+
+
+def optimize_blens_nonrev(blens, tipP, sched, pack, pattern_weights,
+                          t_min: float, t_max: float, n_rounds: int,
+                          n_newton: int, eps: float = 1e-3):
+    """All-branch Newton for nonreversible models (counterpart of
+    engine._optimize_blens_nonrev_jit): no eigenbasis theta; each round
+    both passes, then per edge its down partial and its E feed the direct
+    derivatives through dP/dt = Q P (pruning.branch_lh_derivs_nonrev),
+    edges in chunks of NONREV_CHUNK_BYTES (each edge's sums are its own,
+    so the chunks change no result), then monotonic acceptance. Returns
+    (blens, logL)."""
+    def lg(b) -> float:
+        return float(pruning.tree_loglik(b, tipP, sched, pack,
+                                         pattern_weights)[0])
+
+    def one_round(b, logL_prev):
+        P = pruning.transition_tensors(b, pack)
+        dp, up = pruning.both_passes(P, tipP, sched, pack)
+        src = sched["edge_src"].long()
+        prop = torch.empty_like(b)
+        slab = dp.all[0].numel() * dp.all.element_size() * NONREV_SLABS
+        for a, z in pruning.chunk_ranges(b.shape[0], slab,
+                                         NONREV_CHUNK_BYTES):
+            down, down_sc = pruning.edge_down_partials(dp, src[a:z])
+            prop[a:z] = pruning.newton_branch_step_nonrev(
+                down, up.edge_E[a:z], up.edge_E_scale[a:z] + down_sc,
+                b[a:z], pack, pack["log_ptn_invar"], pattern_weights,
+                t_min, t_max, n_iter=n_newton)
+        return _backtrack(lg, b, prop.clamp(t_min, t_max), logL_prev)
+
+    return _sweep_until(lg, one_round, blens, n_rounds, eps)
+
+
 class LikelihoodEngine:
     def __init__(self, aln: Alignment, model, rates,
                  dtype: torch.dtype = torch.float32, device="cuda",
@@ -153,15 +194,12 @@ class LikelihoodEngine:
         """Rebuild the model pack after model/rate parameter changes, and
         that of the float64 view where precise() has made one."""
         pk = build_model_pack(self.aln, self.model, self.rates)
-        if pk.Q is not None:
-            raise NotImplementedError("nonreversible models are not yet "
-                                      "ported to iqtree2_tpu_torch")
         pad = self.Pp - self.aln.num_patterns
         log_inv = np.pad(pk.log_ptn_invar, (0, pad), constant_values=-np.inf)
         self.pack_np = pk
         pack = pack_to_torch(
             {**{f: getattr(pk, f) for f in ("eigvals", "U", "V", "W",
-                                            "sqrt_freqs", "cat_rate",
+                                            "sqrt_freqs", "Q", "cat_rate",
                                             "cat_weight", "cat_mix",
                                             "root_freqs", "tip_table")},
              "log_ptn_invar": log_inv},
@@ -306,6 +344,20 @@ class LikelihoodEngine:
         cat_post = cat_post[:, : self.aln.num_patterns].cpu().numpy()
         return np.asarray(self.pack_np.cat_rate) @ cat_post, cat_post
 
+    @property
+    def nonrev(self) -> bool:
+        """The model has no eigenbasis theta (pack["Q"]): the branch Newton
+        and NNI scoring take the direct derivatives (the JAX engine's
+        _opt_kind "nonrev")."""
+        return self._pack.get("Q") is not None
+
+    def _optimize_blens(self, blens, sa, t_min, t_max, n_rounds: int,
+                        n_newton: int):
+        """(blens, logL) of the all-branch Newton this model takes."""
+        opt = optimize_blens_nonrev if self.nonrev else optimize_blens
+        return opt(blens, self._tipP, sa, self._pack, self._pw, t_min, t_max,
+                   n_rounds, n_newton)
+
     def optimize_branches(self, tree: Tree, n_rounds: int = 10,
                           n_newton: int = 4,
                           t_min: float = DEFAULT_MIN_BLEN,
@@ -313,9 +365,9 @@ class LikelihoodEngine:
         """Optimize all branch lengths in place on the host tree; returns
         the final logL."""
         sched = build_schedule(tree)
-        nb, logL = optimize_blens(self._blens(sched, t_min), self._tipP,
-                                  self.schedule_arrays(sched), self._pack,
-                                  self._pw, t_min, t_max, n_rounds, n_newton)
+        nb, logL = self._optimize_blens(self._blens(sched, t_min),
+                                        self.schedule_arrays(sched), t_min,
+                                        t_max, n_rounds, n_newton)
         write_blens_to_tree(tree, sched, nb.double().cpu().numpy())
         return float(logL)
 
@@ -325,12 +377,14 @@ class LikelihoodEngine:
         if nni5:
             out = nni.evaluate_nnis5(cand_arrays, blens, dp, up, sa,
                                      self._pack, self._pw, t_min, t_max,
-                                     return_site_lp=return_site_lp)
+                                     return_site_lp=return_site_lp,
+                                     nonrev=self.nonrev)
         else:
             out = nni.evaluate_nnis(cand_arrays, blens, dp, up.up_in,
                                     up.up_scale, sa, self._pack, self._pw,
                                     t_min, t_max,
-                                    return_site_lp=return_site_lp)
+                                    return_site_lp=return_site_lp,
+                                    nonrev=self.nonrev)
         out = [o.double().cpu().numpy() for o in out]
         if return_site_lp:
             out[-1] = out[-1][:, :, : self.aln.num_patterns]
@@ -365,9 +419,8 @@ class LikelihoodEngine:
         Returns (opt_logL, logl [n, 3], t_opt [n, 3][, t5 [n, 3, 5]]
         [, site_lp [num_patterns]])."""
         sa = self.schedule_arrays(sched)
-        nb, logL = optimize_blens(self._blens(sched, t_min), self._tipP, sa,
-                                  self._pack, self._pw, t_min, t_max,
-                                  n_rounds, n_newton=4)
+        nb, logL = self._optimize_blens(self._blens(sched, t_min), sa, t_min,
+                                        t_max, n_rounds, n_newton=4)
         P = pruning.transition_tensors(nb, self._pack)
         dp, up = pruning.both_passes(P, self._tipP, sa, self._pack,
                                      want_lp=want_lp)

@@ -25,8 +25,8 @@ nested block collections, plain and quoted scalars, flow lists and flow
 mappings over any number of lines, ``#`` comments) and resolves plain
 scalars as yaml.safe_load does; anything else (anchors, tags, block
 scalars, several documents) stops with a ValueError naming the line.
-A nonreversible model (``reversible: false``, an UnrestModel in the JAX
-package) stops with a SystemExit: nonreversible models are not yet ported.
+A nonreversible model (``reversible: false``) is an UnrestModel of its
+``matrix`` (model/nonrev.py), as in the JAX package.
 The port keeps its own host modules and imports nothing of the JAX
 package.
 """
@@ -477,6 +477,7 @@ def define(text: str) -> tuple[list[str], list[str]]:
 
 def make_yaml_model(name: str, aln):
     """Instantiate a registered YAML model for an alignment."""
+    from iqtree2_tpu_torch.model.nonrev import UnrestModel
     from iqtree2_tpu_torch.model.subst import GTRModel
     d = MODELS[name.upper()]
     S = aln.num_states
@@ -498,6 +499,9 @@ def make_yaml_model(name: str, aln):
         return GTRModel(S, exch_rates=rates, freqs=freqs, freq_type=ft,
                         name=name.upper(),
                         fixed_rates=bool(d.get("fix_rates", True)))
-    raise SystemExit(f"-m {name}: nonreversible YAML models (reversible: "
-                     f"false) are not yet ported to iqtree2_tpu_torch "
-                     f"(ROADMAP.md Queue A item 2, nonreversible models)")
+    M = np.asarray(d["matrix"], float)
+    if M.shape != (S, S):
+        raise ValueError(f"model {name}: matrix must be [{S},{S}]")
+    off = np.asarray([M[i, j] for i in range(S) for j in range(S)
+                      if i != j])
+    return UnrestModel(num_states=S, rates=off, name=name.upper())

@@ -2,7 +2,9 @@
 
 Used by chip_smoke.py and tests/test_torch_cuda.py (the parity tests use
 its ``simulate``). A problem is an alignment simulated under one of MODELS on
-a random topology (a mixture class by class, simulate), or a supermatrix
+a random topology (a mixture class by class, a nonreversible model through
+expm, simulate; the root test's shape by rooted_problem, on the engine
+make_engine picks), or a supermatrix
 of PARTITIONS (simulate_partitioned),
 whose every partition engine is one problem; every kernel then gets exactly
 the inputs its plain version gets:
@@ -45,10 +47,12 @@ from iqtree2_tpu_torch.io import yamlmodels
 from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
 from iqtree2_tpu_torch.model.codon import sense_codons
 from iqtree2_tpu_torch.model.factory import build_model
+from iqtree2_tpu_torch.model.heterotachy import MixlenEngine, RateHeterotachy
 from iqtree2_tpu_torch.model.mixture import MixtureModel
 from iqtree2_tpu_torch.model.rates import RateModel
 from iqtree2_tpu_torch.ops import kernels, pruning
 from iqtree2_tpu_torch.ops.pruning import DownPass
+from iqtree2_tpu_torch.roottest import root_alignment, rooted_tree_on_branch
 from iqtree2_tpu_torch.search.perturb import random_nnis
 from iqtree2_tpu_torch.simulator import model_state_chars, simulate_alignment
 from iqtree2_tpu_torch.tree.schedule import build_schedule
@@ -60,6 +64,12 @@ _R10_WEIGHTS = (0.02, 0.05, 0.08, 0.1, 0.15, 0.2, 0.15, 0.12, 0.08, 0.05)
 _R10_RATES = (0.01, 0.05, 0.15, 0.3, 0.5, 0.8, 1.2, 1.8, 2.8, 4.5)
 _AA_FREQS = (0.08, 0.06, 0.04, 0.05, 0.02, 0.04, 0.07, 0.07, 0.02, 0.05,
              0.1, 0.06, 0.02, 0.04, 0.05, 0.07, 0.05, 0.01, 0.03, 0.07)
+# fixed UNREST rates and Lie-Markov 12.12 parameters whose rate matrices
+# have complex eigenvalues (the imaginary parts are the largest of 2000
+# draws each)
+_UNREST_RATES = (3.9, 3.3, 0.1, 0.4, 0.4, 0.9, 0.2, 0.7, 3.4, 3.5, 2.7, 1.0)
+_LM_PARAMS = (-0.23, 0.24, -0.78, 0.34, 0.57, 0.48, -0.89, -0.57, 0.46,
+              0.18, 0.64)
 
 # name -> (sequence type, state alphabet, model string with every parameter
 # fixed, so the problem is the same in every run)
@@ -108,7 +118,24 @@ MODELS = {
                  "HKY{3.0}+F{0.3,0.2,0.2,0.3}+E{0.02}+G{0.6}"),
     "JC2+G4": ("BIN", "01", "JC2+G{0.6}"),
     "MK7+G4": ("STATES7", "ABCDEFG", "MK+G{0.6}"),
+    # the nonreversible and per-class-length families: UNREST with a
+    # complex pair of eigenvalues (-2.36 +- 0.70i) and the full Lie-Markov
+    # model 12.12 with one (-1.39 +- 0.50i), both simulated by expm(Q t)
+    # (simulate_nonrev); PoMo at N = 9 (52 states, the S <= 64 instance;
+    # tips of k/N sampling weights, simulated as DNA, SIMULATE_UNDER); four
+    # +H classes of rate 1 whose lengths spread 0.5x to 1.5x the tree's
+    # (MixlenEngine.init_blens2), through make_engine
+    "UNREST+G4": ("DNA", "ACGT", "UNREST{" + ",".join(
+        str(r) for r in _UNREST_RATES) + "}+G{0.6}"),
+    "12.12+G4": ("DNA", "ACGT", "12.12{" + ",".join(
+        str(p) for p in _LM_PARAMS) + "}+G{0.6}"),
+    "GTR+P+G4": ("DNA", "ACGT", "GTR{1.5,4.0,1.2,0.8,5.0}+P{0.01}+G{0.6}"),
+    "GTR+H4": ("DNA", "ACGT", "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}"
+               "+H4"),
 }
+# problems simulated under another model than the one they are fitted
+# under: PoMo's polymorphic states are not the alignment's
+SIMULATE_UNDER = {"GTR+P+G4": "GTR+G4"}
 # the datatypes of MODELS that --mdef defines: name -> its definition,
 # registered by simulate where it is first asked for
 YAML_DATATYPES = {"STATES7": "- datatype: STATES7\n"
@@ -164,10 +191,28 @@ def simulate_mixture(tree: Tree, model: MixtureModel, rates, nsites: int,
     return {k: "".join(b[k] for b in blocks) for k in blocks[0]}
 
 
+def simulate_nonrev(tree: Tree, model, rates, nsites: int,
+                    rng) -> dict[str, str]:
+    """{taxon: sequence} under a nonreversible model, P(t) = expm(Q t) in
+    float64 (ops/pruning.expm_ss): the simulator's own P comes from the
+    eigensystem, which for such a model keeps a complex one's real parts
+    (ROADMAP C18)."""
+    Q = torch.as_tensor(np.asarray(model.get_eigensystem().Q)[0],
+                        dtype=torch.float64)
+
+    def pmatrix(t: float) -> np.ndarray:
+        return pruning.expm_ss(Q * t).numpy()
+    return simulate_alignment(tree, model, rates, nsites, rng,
+                              pmatrix=pmatrix)
+
+
 def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
     """(Alignment, true Tree, model, rates) simulated under MODELS[name]
-    (a mixture class by class, simulate_mixture)."""
+    (a mixture class by class, simulate_mixture; a nonreversible model by
+    expm, simulate_nonrev; SIMULATE_UNDER's problems under their DNA
+    model), with the model and rates of MODELS[name] on the result."""
     seqtype, alphabet, model_str = MODELS[model_name]
+    sim_str = MODELS[SIMULATE_UNDER.get(model_name, model_name)][2]
     if seqtype in YAML_DATATYPES and seqtype not in yamlmodels.DATATYPES:
         yamlmodels.define(YAML_DATATYPES[seqtype])
     rng = np.random.default_rng(seed)
@@ -175,9 +220,11 @@ def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
     tree = Tree.random_topology(names, rng)
     dummy = Alignment.from_sequences(names, [alphabet] * ntaxa,
                                      seqtype=seqtype)
-    model, rates, _ = build_model(model_str, dummy)
+    model, rates, _ = build_model(sim_str, dummy)
     if isinstance(model, MixtureModel):
         seqs = simulate_mixture(tree, model, rates, nsites, rng)
+    elif model.get_eigensystem().Q is not None:
+        seqs = simulate_nonrev(tree, model, rates, nsites, rng)
     else:
         seqs = simulate_alignment(tree, model, rates, nsites, rng)
     chars = "".join(model_state_chars(model))
@@ -262,6 +309,23 @@ def write_partitioned(sa: SuperAlignment, models: list[str],
     path = directory / "partitions.nex"
     path.write_text("\n".join(lines + ["end;"]) + "\n")
     return str(path)
+
+
+def make_engine(aln, model, rates, **kw) -> LikelihoodEngine:
+    """The engine a model takes: a MixlenEngine for +H (per-class lengths),
+    else a LikelihoodEngine (kw: dtype, device)."""
+    if isinstance(rates, RateHeterotachy):
+        return MixlenEngine(aln, model, rates, **kw)
+    return LikelihoodEngine(aln, model, rates, **kw)
+
+
+def rooted_problem(aln: Alignment, tree: Tree) -> tuple[Alignment, Tree]:
+    """The root test's shape of a problem: the all-unknown pseudo-taxon
+    __ROOT__ as leaf 0 on a zero-length edge (P_0 = I, the root's
+    neighbourhood without data) spliced into the tree's first edge
+    (roottest.root_alignment, rooted_tree_on_branch)."""
+    a, b = sorted(tree.edges())[0]
+    return root_alignment(aln), rooted_tree_on_branch(tree, a, b)
 
 
 def load_problem(aln_path, tree_path, model_name: str):
@@ -360,7 +424,10 @@ class Problem:
         self.sched = build_schedule(tree)
         sa = eng.schedule_arrays(self.sched)
         self.pack, self.tipP = eng._pack, eng._tipP
-        self.P = pruning.transition_tensors(eng._blens(self.sched), self.pack)
+        # per-class lengths [E, H] on a MixlenEngine (+H)
+        blens = (eng._t(eng._blens2_for(tree, self.sched))
+                 if isinstance(eng, MixlenEngine) else eng._blens(self.sched))
+        self.P = pruning.transition_tensors(blens, self.pack)
         self.cs, self.ce = sa["child_src"], sa["child_edge"]
         self.steps = sa["step_node"]
         self.L = self.tipP.shape[0]

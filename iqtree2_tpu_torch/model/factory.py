@@ -6,6 +6,7 @@ Grammar the port runs:
 
   NAME[{p1,p2,...}] [+F|+FO|+FQ|+FC|+FU{...}|+FEQ|+F1X4|+F3X4] [+I[{p}]]
        [+G[n][{a}]] [+R[n][{r1,w1,...}]] [+E|+EA|+EC|+EG|+ET[{eps}]] [+ASC]
+       [+P[N][{theta}]] [+H[k][{w1,...}]] [+T[{w1,...}]]
        and MIX{m1,...}, named mixtures (C10-C60, CF4, LG4M, LG4X, EX2, ...)
        and base+profile (LG+C20, WAG+C60, ...)
 
@@ -13,16 +14,19 @@ Copied from iqtree2_tpu/model/factory.py with the branches the port runs,
 in the JAX order: the mixture models of model/mixture.py, the YAML models
 of --mdef (io/yamlmodels.py), the codon models (model/codon.py: GY, MG,
 MGK, ... and KOSI07/ECMREST/SCHN05; every model on CODON data, so MK there
-is GY94 under another name, as in the JAX package), the named DNA and
+is GY94 under another name, as in the JAX package), the nonreversible
+UNREST/NONREV (model/nonrev.py) and, on DNA, the 37 Lie-Markov models
+(model/liemarkov.py) unless the name is a DNA model's, the named DNA and
 protein models (and the MK/ORDERED forms of GTR), and on DNA the +E
-sequencing-error wrapper (model/seqerror.py), under uniform, +I, +G,
-+I+G, +R and +I+R rates. The JAX package accepts +E beside a mixture
-(MIX{...} too), a YAML or a codon model and ignores it (its branches
-return before the wrapper): the port refuses that with a SystemExit. The
-JAX package's other model families (nonreversible, Lie-Markov, PoMo, +H
-heterotachy) stop with a SystemExit that names the model as not yet
-ported. The port keeps its own host modules and imports nothing of the
-JAX package.
+sequencing-error wrapper (model/seqerror.py) and PoMo +P{N}
+(model/pomo.py), under uniform, +I, +G, +I+G, +R, +I+R and +H{k}
+(model/heterotachy.py, alone) rates, with +T (tree mixtures) and +ASC
+as flags. The JAX package accepts +E or +P beside a mixture (MIX{...}
+too), a YAML, a codon, a nonreversible or a Lie-Markov model and ignores
+it (its branches return before the wrappers; +P replaces the +E model):
+the port refuses that with a SystemExit, and +H beside a mixture or a
+nonreversible model too. The port keeps its own host modules and imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +39,12 @@ from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.io import yamlmodels
 from iqtree2_tpu_torch.model import dna, protein
 from iqtree2_tpu_torch.model.codon import make_codon_model
+from iqtree2_tpu_torch.model.heterotachy import RateHeterotachy
+from iqtree2_tpu_torch.model.liemarkov import (LieMarkovModel,
+                                               is_lie_markov_name)
 from iqtree2_tpu_torch.model.mixture import make_generic_mix, make_mixture
+from iqtree2_tpu_torch.model.nonrev import UnrestModel
+from iqtree2_tpu_torch.model.pomo import PoMoModel
 from iqtree2_tpu_torch.model.rates import (RateFree, RateFreeInvar, RateGamma,
                                            RateGammaInvar, RateInvar,
                                            RateModel)
@@ -137,9 +146,24 @@ def _refuse_seqerror(spec_str: str, spec: ModelSpec, what: str) -> None:
                          f"wraps DNA models only); drop the +E term")
 
 
-def not_ported(spec_str: str, what: str) -> SystemExit:
-    return SystemExit(f"-m {spec_str}: {what} are not yet ported to "
-                      f"iqtree2_tpu_torch")
+def _refuse_pomo(spec_str: str, spec: ModelSpec, what: str) -> None:
+    """SystemExit for +P beside ``what``: the JAX factory's branches for
+    those return before _maybe_pomo, so it fits the model without PoMo."""
+    if any(k == "P" for (k, _, _) in spec.rate_terms):
+        raise SystemExit(f"-m {spec_str}: +P (PoMo) with {what} is ignored "
+                         f"by the JAX package (it builds PoMo on a named DNA "
+                         f"model only); drop the +P term")
+
+
+def _refuse_nonrev_mixlen(spec_str: str, model, extras: dict) -> None:
+    """SystemExit for +H beside a nonreversible model: the JAX package's
+    per-class Newton reads the eigensystem, which for such a model keeps
+    only the real parts of a complex one (ROADMAP C18)."""
+    if extras.get("mixlen") and not model.is_reversible():
+        raise SystemExit(f"-m {spec_str}: +H (per-class branch lengths) "
+                         f"with a nonreversible model runs the JAX "
+                         f"package's eigenbasis Newton on a real-part "
+                         f"eigensystem (ROADMAP C18); not run here")
 
 
 def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
@@ -175,15 +199,25 @@ def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
     yaml_model = base_up in yamlmodels.MODELS
     codon = st.startswith("CODON") or base_up in CODON_NAMES
     if mixture or yaml_model or codon:
-        _refuse_seqerror(spec_str, spec, "a mixture" if mixture else
-                         "a YAML model" if yaml_model else "a codon model")
+        what = ("a mixture" if mixture else "a YAML model" if yaml_model
+                else "a codon model")
+        _refuse_seqerror(spec_str, spec, what)
+        _refuse_pomo(spec_str, spec, what)
     if mixture:
+        if "H" in kinds:
+            # the classes times the rate categories are the category axis,
+            # which per-class lengths [E, H] do not match (the JAX package
+            # fails inside its transition builder)
+            raise SystemExit(f"-m {spec_str}: +H (per-class branch lengths) "
+                             f"with a mixture model is not run by the JAX "
+                             f"package")
         return _build_mixture_model(spec, aln, extras, spec_str)
 
     # user-defined YAML models (--mdef; phylo-yaml analog)
     if yaml_model:
         model = yamlmodels.make_yaml_model(base_up, aln)
         rates = _build_rates(spec, extras, spec_str)
+        _refuse_nonrev_mixlen(spec_str, model, extras)
         return model, rates, extras
 
     # codon models
@@ -191,11 +225,6 @@ def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
         model = make_codon_model(spec, aln)
         rates = _build_rates(spec, extras, spec_str)
         return model, rates, extras
-
-    if base_up in ("UNREST", "NONREV"):
-        raise not_ported(spec_str, "nonreversible models")
-    if "P" in kinds:
-        raise not_ported(spec_str, "PoMo (+P) models")
 
     # ---------------- substitution model
     freqs = None
@@ -210,6 +239,26 @@ def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
         freq_type = "user"
     elif freq_type == "empirical":
         freqs = aln.state_frequencies()
+
+    # nonreversible models, then the Lie-Markov names for DNA (a DNA model's
+    # name wins), as in the JAX order; both return before the +E and +P
+    # wrappers, so those terms are refused beside them
+    lie_markov = (st == "DNA" and is_lie_markov_name(spec.base)
+                  and not dna.is_dna_model_name(base_up))
+    if base_up in ("UNREST", "NONREV") or lie_markov:
+        what = "a nonreversible model" if not lie_markov else \
+            "a Lie-Markov model"
+        _refuse_seqerror(spec_str, spec, what)
+        _refuse_pomo(spec_str, spec, what)
+        if lie_markov:
+            model = LieMarkovModel(spec.base, params=spec.base_params)
+        else:
+            model = UnrestModel(aln.num_states,
+                                rates=(np.asarray(spec.base_params)
+                                       if spec.base_params else None))
+        rates = _build_rates(spec, extras, spec_str)
+        _refuse_nonrev_mixlen(spec_str, model, extras)
+        return model, rates, extras
 
     if st == "DNA" and dna.is_dna_model_name(base_up):
         # DNA named model; default '+F'-less behavior: counted frequencies
@@ -242,16 +291,36 @@ def build_model(spec_str: str, aln: Alignment) -> tuple[SubstModel, RateModel,
                 iu[1] - iu[0] == 1, 1.0, 0.0).astype(np.float64)
     elif base_up == "GTR20":
         model = protein.make_protein_model("GTR20", freq_type=freq_type)
-    elif st == "DNA":
-        raise not_ported(spec_str, f"{spec.base!r} is not a named DNA "
-                         f"model; Lie-Markov models")
     else:
         raise ValueError(
             f"model {spec.base!r} not supported for seqtype {st}")
 
+    if "P" in kinds:
+        # the JAX package wraps the +E model and then replaces it by PoMo
+        _refuse_seqerror(spec_str, spec, "a PoMo model")
     model = _maybe_wrap_seqerror(model, spec, extras, st)
+    model = _maybe_pomo(model, spec, extras, st, aln)
     rates = _build_rates(spec, extras, spec_str)
+    _refuse_nonrev_mixlen(spec_str, model, extras)
     return model, rates, extras
+
+
+def _maybe_pomo(model, spec, extras: dict, st: str, aln):
+    """+P{N}: replace the DNA model with the polymorphism-aware PoMo
+    state space built on its mutation parameters (model/modelpomo.h:40)."""
+    for kind, n, p in spec.rate_terms:
+        if kind != "P":
+            continue
+        if st != "DNA":
+            raise ValueError("PoMo (+P) requires DNA data")
+        exch = getattr(model, "exch_rates", None)
+        freqs = aln.state_frequencies()
+        N = n or 9
+        extras["pomo"] = N
+        theta = p[0] if p else 0.01
+        return PoMoModel(N=N, exch=exch, freqs=freqs, theta=theta,
+                         fix_theta=bool(p))
+    return model
 
 
 def _maybe_wrap_seqerror(model, spec, extras: dict, st: str):
@@ -282,7 +351,14 @@ def _build_rates(spec: ModelSpec, extras: dict, spec_str: str) -> RateModel:
         extras["treemix_weights"] = get["T"][1] or None
         kinds.discard("T")
     if "H" in kinds:
-        raise not_ported(spec_str, "heterotachy (+H) models")
+        # +H{k}: heterotachy (GHOST), k classes with their own branch
+        # lengths; weights EM-optimized (tree/phylotreemixlen.cpp)
+        if kinds - {"H"}:
+            raise SystemExit(f"-m {spec_str}: +H cannot be combined with "
+                             f"other rate terms")
+        n, p = get["H"]
+        extras["mixlen"] = n
+        return RateHeterotachy(n, weights=p or None)
 
     # "+X{v}" brace parameters FIX the value (reference semantics: the model
     # string grammar of ModelFactory, model/modelfactory.cpp:151); the fix

@@ -3,7 +3,8 @@ iqtree2_tpu/ops/distances.py).
 
 The numpy helpers are copied (their module imports jax); the batched
 Newton over all T = L(L-1)/2 pairs runs in torch on the given device (the
-search passes the engine's).
+search passes the engine's), under a nonreversible model through expm(Q t)
+(ROADMAP C18: the JAX package's runs on a real-part eigensystem).
 Reference analogs: utils/hammingdistance.h, alignment/alignmentpairwise.cpp
 (per-pair ML distance by 1-D Newton on the pair frequency table).
 """
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from iqtree2_tpu_torch.data.alignment import Alignment
+from iqtree2_tpu_torch.ops.pruning import expm_ss
 
 MAX_DIST = 9.0  # reference: MAX_GENETIC_DIST
 
@@ -69,46 +71,76 @@ def hamming_jc_distances(aln: Alignment) -> np.ndarray:
     return np.maximum(D, 0.0)
 
 
-def ml_dist_newton(F, t0, lam, U, V, n_iter: int = 20):
-    """Batched 1-D Newton maximising sum_xy F log P_xy(t) for every pair.
-
-    F [T, S, S]; t0 [T]; lam [S], U, V [S, S] of one rate matrix."""
+def _newton(F, t0, derivs, n_iter: int):
+    """Batched 1-D Newton maximising sum_xy F log P_xy(t) for every pair,
+    derivs(t) -> (P, dP/dt, d2P/dt2) [T, S, S]."""
     t = t0
-
-    def pt(w):
-        return torch.einsum("xk,pk,ky->pxy", U, w, V)
-
     for _ in range(n_iter):
-        e = torch.exp(lam * t[:, None])
-        P = pt(e).clamp(min=1e-12)
-        r = pt(e * lam) / P                          # dP/dt / P
+        P, P1, P2 = derivs(t)
+        P = P.clamp(min=1e-12)
+        r = P1 / P                                   # dP/dt / P
         d1 = (F * r).sum((1, 2))
-        d2 = (F * (pt(e * lam * lam) / P - r * r)).sum((1, 2))
+        d2 = (F * (P2 / P - r * r)).sum((1, 2))
         step = torch.where(d2 < 0, -d1 / d2, torch.sign(d1) * 0.5 * t)
         t = (t + step).clamp(1e-6, MAX_DIST)
     return t
 
 
+def ml_dist_newton(F, t0, lam, U, V, n_iter: int = 20):
+    """The Newton of every pair under one reversible rate matrix: F [T, S,
+    S]; t0 [T]; lam [S], U, V [S, S] its eigensystem."""
+    def pt(w):
+        return torch.einsum("xk,pk,ky->pxy", U, w, V)
+
+    def derivs(t):
+        e = torch.exp(lam * t[:, None])
+        return pt(e), pt(e * lam), pt(e * lam * lam)
+    return _newton(F, t0, derivs, n_iter)
+
+
+def ml_dist_newton_q(F, t0, Q, n_iter: int = 20):
+    """The Newton of every pair under a nonreversible rate matrix Q [S, S]:
+    P = expm(Q t), dP/dt = Q P, d2P/dt2 = Q Q P. The JAX package runs
+    ml_dist_newton on the real parts of Q's complex eigensystem instead
+    (ROADMAP C18)."""
+    def derivs(t):
+        P = expm_ss(Q[None] * t[:, None, None])
+        QP = torch.matmul(Q, P)
+        return P, QP, torch.matmul(Q, QP)
+    return _newton(F, t0, derivs, n_iter)
+
+
 def ml_distances(aln: Alignment, model, dtype=torch.float64,
                  device="cuda") -> np.ndarray:
-    """[L, L] ML pairwise distances under a single reversible rate matrix,
-    on the card unless ``device`` says otherwise (as the engine).
-    Reference analog: computeMLDist (main/phyloanalysis.cpp:1932).
+    """[L, L] ML pairwise distances under a single rate matrix, on the card
+    unless ``device`` says otherwise (as the engine): through its
+    eigensystem for a reversible model, through expm(Q t) for a
+    nonreversible one (pack Q). Reference analog: computeMLDist
+    (main/phyloanalysis.cpp:1932).
 
-    Raises NotImplementedError for a nonreversible or mixture model, whose
-    first eigensystem does not describe the whole model."""
+    Raises NotImplementedError for a mixture model, whose first
+    eigensystem does not describe the whole model, and for a model whose
+    states are not the alignment's (PoMo: the JAX package's distances fail
+    there and its search takes the JC distances)."""
     eig = model.get_eigensystem()
-    if eig.Q is not None or eig.num_mixtures > 1:
-        raise NotImplementedError("ML distances need one reversible rate "
-                                  "matrix")
+    if eig.num_mixtures > 1:
+        raise NotImplementedError("ML distances need one rate matrix")
+    if model.num_states != aln.num_states:
+        raise NotImplementedError("ML distances need the model's states to "
+                                  "be the alignment's")
     F, pairs = pair_frequency_tables(aln)
     D0 = hamming_jc_distances(aln)
     t0 = np.maximum(D0[pairs[:, 0], pairs[:, 1]], 1e-4)
     kw = dict(dtype=dtype, device=device)
-    t = ml_dist_newton(torch.as_tensor(F, **kw), torch.as_tensor(t0, **kw),
-                       torch.as_tensor(np.asarray(eig.eigvals)[0], **kw),
-                       torch.as_tensor(np.asarray(eig.U)[0], **kw),
-                       torch.as_tensor(np.asarray(eig.V)[0], **kw))
+    F, t0 = torch.as_tensor(F, **kw), torch.as_tensor(t0, **kw)
+    if eig.Q is not None:
+        t = ml_dist_newton_q(F, t0, torch.as_tensor(np.asarray(eig.Q)[0],
+                                                    **kw))
+    else:
+        t = ml_dist_newton(F, t0,
+                           torch.as_tensor(np.asarray(eig.eigvals)[0], **kw),
+                           torch.as_tensor(np.asarray(eig.U)[0], **kw),
+                           torch.as_tensor(np.asarray(eig.V)[0], **kw))
     D = np.zeros((aln.ntaxa, aln.ntaxa))
     D[pairs[:, 0], pairs[:, 1]] = D[pairs[:, 1], pairs[:, 0]] = \
         t.double().cpu().numpy()

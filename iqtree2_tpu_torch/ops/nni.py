@@ -88,9 +88,8 @@ def candidate_rows(cand_arrays, device) -> torch.Tensor:
 
 
 def _chunks(n: int, dp: pruning.DownPass, slabs: int):
-    slab = dp.all[0].numel() * dp.all.element_size()
-    m = max(1, int(CHUNK_BYTES // (slabs * slab)))
-    return [(i, min(n, i + m)) for i in range(0, n, m)]
+    return pruning.chunk_ranges(
+        n, slabs * dp.all[0].numel() * dp.all.element_size(), CHUNK_BYTES)
 
 
 def _theta(out, down, pack):
@@ -113,18 +112,78 @@ def _cat(parts, n, tail, dtype, device):
     return torch.zeros((n, *tail), dtype=dtype, device=device)
 
 
+def _branch_fns(pack, log_inv, pattern_weights, t_min, t_max, n_newton: int,
+                nonrev: bool, mixlen: bool):
+    """(operand(out, down) -> x, newton(x, scale, t), score(x, scale, t,
+    want_lp) -> (logl, site lp or None)) of a branch between an outside and
+    a down partial: x is the eigenbasis theta for a reversible model (per
+    category for mixlen, t then [..., C]), the two partials themselves for
+    a nonreversible one (the direct derivatives)."""
+    if nonrev:
+        def operand(out, down):
+            return out, down
+
+        def newton(x, sc, t):
+            return pruning.newton_branch_step_nonrev(
+                x[1], x[0], sc, t, pack, log_inv, pattern_weights, t_min,
+                t_max, n_iter=n_newton)
+
+        def score(x, sc, t, want_lp):
+            logl = pruning.branch_lh_derivs_nonrev(
+                x[1], x[0], sc, t, pack, log_inv, pattern_weights,
+                order=0)[0]
+            return logl, (pruning.branch_site_lp_nonrev(
+                x[1], x[0], sc, t, pack, log_inv) if want_lp else None)
+        return operand, newton, score
+    step = (pruning.newton_branch_step_mixlen if mixlen
+            else pruning.newton_branch_step)
+
+    def operand(out, down):
+        return _theta(out, down, pack)
+
+    def newton(theta, sc, t):
+        return step(theta, sc, t, pack, log_inv, pattern_weights, t_min,
+                    t_max, n_iter=n_newton)
+
+    def score(theta, sc, t, want_lp):
+        if mixlen:
+            return pruning.branch_lh_derivs_mixlen(
+                theta, sc, t, pack, log_inv, pattern_weights)[0], None
+        logl = pruning.branch_lh_derivs(theta, sc, t, pack, log_inv,
+                                        pattern_weights, order=0)[0]
+        return logl, (pruning.branch_site_lp(theta, sc, t, pack, log_inv)
+                      if want_lp else None)
+    return operand, newton, score
+
+
+def _refuse_mixlen_lp(mixlen: bool, return_site_lp: bool) -> None:
+    if mixlen and return_site_lp:
+        raise NotImplementedError(
+            "per-pattern NNI logLs under per-class lengths (+H): the JAX "
+            "package returns none either")
+
+
 def evaluate_nnis(cand_arrays, blens, dp: pruning.DownPass, up_in, up_scale,
                   sched, pack, pattern_weights, t_min, t_max,
-                  n_newton: int = 4, return_site_lp: bool = False):
+                  n_newton: int = 4, return_site_lp: bool = False,
+                  nonrev: bool = False, mixlen: bool = False):
     """NNI1: both variants and the baseline with the central branch
     re-optimised, for every candidate. Returns (logl [n, 3], t_opt [n, 3])
-    and with return_site_lp also per-pattern logLs [n, 3, Pp]."""
+    and with return_site_lp also per-pattern logLs [n, 3, Pp]. ``nonrev``
+    scores through the direct derivatives (a model with pack["Q"]; the JAX
+    package returns no per-pattern logLs there, this port does);
+    ``mixlen`` takes blens [E, C] and returns t_opt [n, 3, C]."""
+    _refuse_mixlen_lp(mixlen, return_site_lp)
     rows = candidate_rows(cand_arrays, dp.all.device)
     dtype = dp.all.dtype
     P = pruning.transition_tensors(blens.to(dtype), pack)
     cs = sched["child_src"].long()
     ce = sched["child_edge"].long()
     log_inv = pack["log_ptn_invar"]
+    operand, newton, score = _branch_fns(pack, log_inv, pattern_weights,
+                                         t_min, t_max, n_newton, nonrev,
+                                         mixlen)
+    tail = tuple(blens.shape[1:])
     outs = ([], [], [])
     for a, b in _chunks(rows.shape[1], dp, SLABS_NNI1):
         iu, iv, slot, eid = rows[:, a:b]
@@ -136,22 +195,17 @@ def evaluate_nnis(cand_arrays, blens, dp: pruning.DownPass, up_in, up_scale,
         out = torch.stack([rest * m_b, rest * m_a, rest * m_c], 1)
         scale = (torch.stack([s_a + s_c, s_b + s_c, s_a + s_b], 1)
                  + torch.stack([s_rest + s_b, s_rest + s_a, s_rest + s_c], 1))
-        theta = _theta(out, down, pack)
-        t0 = blens[eid].to(dtype)[:, None].expand(-1, 3)
-        t_opt = pruning.newton_branch_step(theta, scale, t0, pack, log_inv,
-                                           pattern_weights, t_min, t_max,
-                                           n_iter=n_newton)
-        logl, _, _ = pruning.branch_lh_derivs(theta, scale, t_opt, pack,
-                                              log_inv, pattern_weights,
-                                              order=0)
+        x = operand(out, down)
+        t0 = blens[eid].to(dtype)[:, None].expand(-1, 3, *tail)
+        t_opt = newton(x, scale, t0)
+        logl, lp = score(x, scale, t_opt, return_site_lp)
         outs[0].append(logl)
         outs[1].append(t_opt)
         if return_site_lp:
-            outs[2].append(pruning.branch_site_lp(theta, scale, t_opt, pack,
-                                                  log_inv))
+            outs[2].append(lp)
     n, dev = rows.shape[1], dp.all.device
-    res = (_cat(outs[0], n, (3,), dtype, dev), _cat(outs[1], n, (3,), dtype,
-                                                    dev))
+    res = (_cat(outs[0], n, (3,), dtype, dev),
+           _cat(outs[1], n, (3, *tail), dtype, dev))
     if return_site_lp:
         res += (_cat(outs[2], n, (3, dp.all.shape[-1]), dtype, dev),)
     return res
@@ -160,7 +214,8 @@ def evaluate_nnis(cand_arrays, blens, dp: pruning.DownPass, up_in, up_scale,
 def evaluate_nnis5(cand_arrays, blens, dp: pruning.DownPass,
                    up: pruning.UpPass, sched, pack, pattern_weights, t_min,
                    t_max, n_rounds: int = 2, n_newton: int = 2,
-                   return_site_lp: bool = False):
+                   return_site_lp: bool = False, nonrev: bool = False,
+                   mixlen: bool = False):
     """NNI5: both variants and the baseline with all five surrounding
     branches re-optimised by rounds of coordinate Newton (reference
     default, params.nni5).
@@ -169,8 +224,11 @@ def evaluate_nnis5(cand_arrays, blens, dp: pruning.DownPass,
     lengths of (a, b, c, d, e): a, b the child edges of u, c the other child
     edge of v, d the parent edge of v (kept when v is the schedule root),
     e the central edge; with return_site_lp also per-pattern logLs
-    [n, 3, Pp].
+    [n, 3, Pp]. ``nonrev`` runs the same coordinate Newton on the direct
+    derivatives; ``mixlen`` takes blens [E, C] and gives t_e [n, 3, C] and
+    t5 [n, 3, 5, C].
     """
+    _refuse_mixlen_lp(mixlen, return_site_lp)
     rows = candidate_rows(cand_arrays, dp.all.device)
     dtype, dev = dp.all.dtype, dp.all.device
     thresh, factor, _ = scaling_consts(dtype)
@@ -187,14 +245,20 @@ def evaluate_nnis5(cand_arrays, blens, dp: pruning.DownPass,
     def resc(x, sc):
         return _rescale(x, sc, thresh, factor)
 
+    tail = tuple(blens.shape[1:])          # (C,) under mixlen
+    ones = (1,) * len(tail)
+
     def trans(t):
-        return pruning.transition_tensors(t.reshape(-1), pack).view(
-            *t.shape, C, S, S)
+        """P [m, 3, C, S, S] of lengths t [m, 3, *tail]."""
+        return pruning.transition_tensors(t.reshape(-1, *tail), pack).view(
+            *t.shape[:2], C, S, S)
+
+    operand, newton_x, score = _branch_fns(pack, log_inv, pattern_weights,
+                                           t_min, t_max, n_newton, nonrev,
+                                           mixlen)
 
     def newton(out, down, sc, t):
-        return pruning.newton_branch_step(
-            _theta(out, down, pack), sc, t, pack, log_inv, pattern_weights,
-            t_min, t_max, n_iter=n_newton)
+        return newton_x(operand(out, down), sc, t)
 
     outs = ([], [], [], [])
     for a, b in _chunks(rows.shape[1], dp, SLABS_NNI5):
@@ -212,13 +276,14 @@ def evaluate_nnis5(cand_arrays, blens, dp: pruning.DownPass,
             is_root[:, None, None], up.up_scale[iv][:, None], s_Ed)
         t5 = torch.stack([blens[ce[iu, 0]], blens[ce[iu, 1]],
                           blens[ce[iv, slot]], blens[ed], blens[eid]],
-                         -1)[:, None].repeat(1, 3, 1)
+                         1)[:, None].repeat(1, 3, 1, *ones)
         PX = [torch.stack([p_abc[i] for i in r], 1) for r in roles]
         SX = [torch.stack([s_abc[i] for i in r], 1) for r in roles]
-        gi = [j.expand(m, 3)[..., None] for j in idx]
+        gi = [j.view(1, 3, 1, *ones).expand(m, 3, 1, *tail) for j in idx]
+        keep_d = is_root.view(m, 1, *ones)
 
         def lengths(ts):
-            return [ts.gather(-1, g)[..., 0] for g in gi]
+            return [ts.gather(2, g)[:, :, 0] for g in gi]
 
         def outside_v(td):
             return torch.where(root5, out_root, torch.matmul(
@@ -229,7 +294,7 @@ def evaluate_nnis5(cand_arrays, blens, dp: pruning.DownPass,
             at the lengths ``ts``."""
             m1, m2, m3 = (torch.matmul(trans(t), px)
                           for t, px in zip(lengths(ts), PX))
-            out_v = outside_v(ts[..., 3])
+            out_v = outside_v(ts[:, :, 3])
             down_u, s_du = resc(m1 * m2, SX[0] + SX[1])
             out_e, s_oe = resc(out_v * m3, s_out + SX[2])
             return m2, m3, out_v, down_u, s_du, out_e, s_oe
@@ -237,7 +302,7 @@ def evaluate_nnis5(cand_arrays, blens, dp: pruning.DownPass,
         ts = t5
         for _ in range(n_rounds):
             t1, t2, t3 = lengths(ts)
-            td, te = ts[..., 3], ts[..., 4]
+            td, te = ts[:, :, 3], ts[:, :, 4]
             m2, m3, out_v, down_u, s_du, out_e, s_oe = around_e(ts)
             te = newton(out_e, down_u, s_du + s_oe, te)
             Pe = trans(te)
@@ -251,29 +316,25 @@ def evaluate_nnis5(cand_arrays, blens, dp: pruning.DownPass,
                             s_oe + SX[0])
             t2 = newton(o2, PX[1], s_o2 + SX[1], t2)
             down_v, s_dv = resc(m_u * m3, s_du + SX[2])
-            td = torch.where(is_root[:, None], td,
+            td = torch.where(keep_d, td,
                              newton(E_d, down_v, s_dv + s_Ed, td))
-            ts = (ts.scatter(-1, gi[0], t1[..., None])
-                  .scatter(-1, gi[1], t2[..., None])
-                  .scatter(-1, gi[2], t3[..., None]))
-            ts = torch.cat([ts[..., :3], td[..., None], te[..., None]], -1)
+            ts = (ts.scatter(2, gi[0], t1[:, :, None])
+                  .scatter(2, gi[1], t2[:, :, None])
+                  .scatter(2, gi[2], t3[:, :, None]))
+            ts = torch.cat([ts[:, :, :3], td[:, :, None], te[:, :, None]], 2)
         # the score at the optimised lengths
         _, _, _, down_u, s_du, out_e, s_oe = around_e(ts)
-        theta = _theta(out_e, down_u, pack)
-        sc = s_du + s_oe
-        logl, _, _ = pruning.branch_lh_derivs(theta, sc, ts[..., 4], pack,
-                                              log_inv, pattern_weights,
-                                              order=0)
+        logl, lp = score(operand(out_e, down_u), s_du + s_oe, ts[:, :, 4],
+                         return_site_lp)
         outs[0].append(logl)
-        outs[1].append(ts[..., 4])
+        outs[1].append(ts[:, :, 4])
         outs[2].append(ts)
         if return_site_lp:
-            outs[3].append(pruning.branch_site_lp(theta, sc, ts[..., 4], pack,
-                                                  log_inv))
+            outs[3].append(lp)
     n = rows.shape[1]
     res = (_cat(outs[0], n, (3,), dtype, dev),
-           _cat(outs[1], n, (3,), dtype, dev),
-           _cat(outs[2], n, (3, 5), dtype, dev))
+           _cat(outs[1], n, (3, *tail), dtype, dev),
+           _cat(outs[2], n, (3, 5, *tail), dtype, dev))
     if return_site_lp:
         res += (_cat(outs[3], n, (3, Pp), dtype, dev),)
     return res

@@ -11,15 +11,22 @@ log-likelihoods are the down pass's epilogue (down_pass with ``pack``) and
 the Newton round's theta buffers come from one theta_pass, which never
 writes E; both_passes and edge_thetas keep E and the tip rows for NNI
 scoring. ``vmap`` over edges in the JAX engine becomes an explicit leading
-E axis here (theta_pass, branch_lh_derivs, newton_branch_step).
+E axis here (theta_pass, branch_lh_derivs, newton_branch_step and their
+nonreversible and mixlen forms).
 
-Not yet ported: nonreversible models (pack["Q"]) and per-category (mixlen)
-branch lengths; transition_tensors raises for both. ``expm_ss`` is here for
-the joint model fit (model/torchfit.py), which differentiates through it.
+Nonreversible models (pack["Q"]: UNREST, Lie-Markov, PoMo, YAML
+``reversible: false``) take P = max(expm_ss(Q r t), 0) and the direct
+derivatives through dP/dt = Q P (branch_lh_derivs_nonrev), since their
+eigensystems are complex; per-category (mixlen, +H) branch lengths are a
+[E, C] ``blens`` and take a coordinate Newton per category
+(branch_lh_derivs_mixlen). Both run through the same three kernels as a
+reversible model. ``expm_ss`` also serves the joint model fit
+(model/torchfit.py), which differentiates through it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -49,22 +56,24 @@ class Thetas(NamedTuple):
 
 # --------------------------------------------------------------- transition
 def transition_tensors(blens, pack):
-    """P[e, c] = exp(Q_m r_c t_e) -> [E, C, S, S] for reversible models.
+    """P[e, c] = exp(Q_m r_c t_e) -> [E, C, S, S].
 
-    With the orthonormal eigenvectors W (pack["W"]) the cancellation-free
-    form P = D^-1/2 (I + W diag(expm1(lambda r t)) W^T) D^1/2 is used,
-    otherwise U diag(exp(lambda r t)) V (reference:
-    ModelMarkov::computeTransMatrix, model/modelmarkov.cpp:504).
+    ``blens`` is [E] (one length per edge) or [E, C] (one per edge and
+    category: the mixlen models, +H). A nonreversible model (pack["Q"])
+    takes the scaling-and-squaring exponential of Q r t; a reversible one
+    with the orthonormal eigenvectors W (pack["W"]) the cancellation-free
+    form P = D^-1/2 (I + W diag(expm1(lambda r t)) W^T) D^1/2, otherwise
+    U diag(exp(lambda r t)) V (reference: ModelMarkov::computeTransMatrix,
+    model/modelmarkov.cpp:504).
     """
-    if pack.get("Q") is not None:
-        raise NotImplementedError("nonreversible models (pack['Q'], expm_ss) "
-                                  "are not yet ported to iqtree2_tpu_torch")
-    if blens.dim() != 1:
-        raise NotImplementedError("per-category (mixlen) branch lengths are "
-                                  "not yet ported to iqtree2_tpu_torch")
     cat_mix = pack["cat_mix"]
+    t_ec = blens[:, None] if blens.dim() == 1 else blens          # [E, C]
+    if pack.get("Q") is not None:
+        A = pack["Q"][cat_mix][None] * (pack["cat_rate"][None, :, None, None]
+                                        * t_ec[:, :, None, None])
+        return expm_ss(A).clamp(min=0.0).contiguous()
     lam = pack["eigvals"][cat_mix]                               # [C, S]
-    expo = lam[None] * pack["cat_rate"][None, :, None] * blens[:, None, None]
+    expo = lam[None] * pack["cat_rate"][None, :, None] * t_ec[:, :, None]
     # each product as a broadcast and a batched matmul: a three-operand
     # einsum asks opt_einsum for a contraction path on every call, which
     # costs more host time than the product at the search's sizes
@@ -81,12 +90,26 @@ def transition_tensors(blens, pack):
     return P.clamp(min=0.0).contiguous()   # the kernels take [E, C, S, S]
 
 
+# the largest scaled norm ||A / 2^k||_inf the Taylor series of expm_ss
+# takes: its order-8 remainder is then below 0.1^9 / 9! = 3e-15
+EXPM_MAX_SCALED_NORM = 0.1
+
+
 def expm_ss(A, order: int = 8, squarings: int = 8):
     """Batched matrix exponential by scaling and squaring with a truncated
     Taylor series, exp(A) = (exp(A / 2^k))^(2^k). For rate matrices Q t with
-    t <= 10 and mean rate 1 the scaled norm is tiny, so a fixed (order,
-    squarings) is accurate; matmuls only, so autograd is smooth at the
-    degenerate eigenvalues where an eigendecomposition's gradient is not."""
+    t <= 10 and mean rate 1 the scaled norm is tiny at the JAX package's
+    fixed k = ``squarings``, which is kept there; a stiffer A (PoMo's drift
+    rates over its small mean rate reach hundreds) takes more squarings,
+    until the scaled norm is at most EXPM_MAX_SCALED_NORM (the JAX package's
+    fixed k gives P entries far above 1 there, ROADMAP C20). Matmuls only,
+    so autograd is smooth at the degenerate eigenvalues where an
+    eigendecomposition's gradient is not."""
+    if A.numel():
+        norm = float(A.detach().abs().sum(-1).amax())
+        need = math.ceil(math.log2(max(norm, 1e-300)
+                                   / EXPM_MAX_SCALED_NORM))
+        squarings = max(squarings, need)
     A = A / (2.0 ** squarings)
     eye = torch.eye(A.shape[-1], dtype=A.dtype,
                     device=A.device).expand(A.shape)
@@ -331,16 +354,10 @@ def newton_branch_step(theta, scale, t0, pack, log_ptn_invar,
     at once (leading axes as in branch_lh_derivs). Mirrors minimizeNewton
     (utils/optimization.cpp:422): with the wrong curvature, step
     geometrically toward the bound the gradient points at."""
-    t = t0
-    for _ in range(n_iter):
-        _, d1, d2 = branch_lh_derivs(theta, scale, t, pack, log_ptn_invar,
-                                     pattern_weights)
-        newton_t = t - d1 / d2
-        bad = (d2 >= 0) | ~torch.isfinite(newton_t)
-        fallback = torch.where(d1 > 0, (t * 4.0).clamp(max=t_max),
-                               (t * 0.25).clamp(min=t_min))
-        t = torch.where(bad, fallback, newton_t.clamp(t_min, t_max))
-    return t
+    def derivs(t):
+        return branch_lh_derivs(theta, scale, t, pack, log_ptn_invar,
+                                pattern_weights)[1:]
+    return _newton_iter(derivs, t0, t_min, t_max, n_iter)
 
 
 def branch_site_lp(theta, scale, t, pack, log_ptn_invar):
@@ -355,3 +372,129 @@ def branch_site_lp(theta, scale, t, pack, log_ptn_invar):
     tiny = torch.finfo(dtype).tiny
     return torch.logaddexp(torch.log(site0.clamp(min=tiny)) - sc,
                            log_ptn_invar)
+
+
+# ------------------------------------------- nonreversible branch derivatives
+def _newton_iter(derivs, t, t_min, t_max, n_iter: int):
+    """Bounded Newton on t (any shape) from derivs(t) -> (d1, d2): with the
+    wrong curvature, step geometrically toward the bound the gradient
+    points at (minimizeNewton, utils/optimization.cpp:422)."""
+    for _ in range(n_iter):
+        d1, d2 = derivs(t)
+        newton_t = t - d1 / d2
+        bad = (d2 >= 0) | ~torch.isfinite(newton_t)
+        fallback = torch.where(d1 > 0, (t * 4.0).clamp(max=t_max),
+                               (t * 0.25).clamp(min=t_min))
+        t = torch.where(bad, fallback, newton_t.clamp(t_min, t_max))
+    return t
+
+
+def _nonrev_site0(down, out, t, pack):
+    """(site0 [..., Pp], out^T P per category, P, rQ) of branches of length
+    t [...] between the outside partials ``out`` and the down partials
+    ``down`` [..., C, S, Pp]: site0 = sum_c w_c out_c . P_c(t) . down_c."""
+    rQ = pack["Q"][pack["cat_mix"]] * pack["cat_rate"][:, None, None]
+    A = pack["Q"][pack["cat_mix"]] * (pack["cat_rate"][:, None, None]
+                                      * t[..., None, None, None])
+    P = expm_ss(A)                                           # [..., C, S, S]
+    outP = torch.matmul(P.transpose(-1, -2), out)            # [..., C, S, Pp]
+    w = pack["cat_weight"][:, None, None]
+    return (w * outP * down).sum((-3, -2)).clamp(min=0.0), P, rQ
+
+
+def _finish_lp(site0, scale, log_ptn_invar):
+    dtype = site0.dtype
+    _, _, log_rescale = scaling_consts(dtype)
+    sc = scale.to(dtype) * log_rescale
+    tiny = torch.finfo(dtype).tiny
+    return torch.logaddexp(torch.log(site0.clamp(min=tiny)) - sc,
+                           log_ptn_invar), sc
+
+
+def branch_lh_derivs_nonrev(down, out, scale, t, pack, log_ptn_invar,
+                            pattern_weights, order: int = 2):
+    """logL(t) of branches under a nonreversible model (no eigenbasis),
+    with d/dt and d2/dt2 through dP/dt = (r Q) P per category: site0 =
+    out . P(t) . down, site1 = out . rQ P . down, site2 = out . rQ rQ P .
+    down. down/out [..., C, S, Pp], scale [..., Pp], t [...]; returns
+    (logL, d1, d2) of shape [...] (d1 = d2 = None for order 0). Reference
+    analog: the nonreversible derivative kernels
+    (tree/phylokernelnonrev.h)."""
+    site0, P, rQ = _nonrev_site0(down, out, t, pack)
+    lp, sc = _finish_lp(site0, scale, log_ptn_invar)
+    logL = (pattern_weights * lp).sum(-1)
+    if order == 0:
+        return logL, None, None
+    rQt = rQ.transpose(-1, -2)
+    Pt = P.transpose(-1, -2)
+    q1 = torch.matmul(rQt, out)
+    q2 = torch.matmul(rQt, q1)
+    w = pack["cat_weight"][:, None, None]
+    site1 = (w * torch.matmul(Pt, q1) * down).sum((-3, -2))
+    site2 = (w * torch.matmul(Pt, q2) * down).sum((-3, -2))
+    denom = site0 + torch.exp(log_ptn_invar + sc)
+    d1p = site1 / denom
+    d2p = site2 / denom - d1p * d1p
+    return (logL, (pattern_weights * d1p).sum(-1),
+            (pattern_weights * d2p).sum(-1))
+
+
+def newton_branch_step_nonrev(down, out, scale, t0, pack, log_ptn_invar,
+                              pattern_weights, t_min, t_max,
+                              n_iter: int = 4):
+    """A few bounded Newton iterations on every branch of ``t0`` at once
+    under a nonreversible model (leading axes as in
+    branch_lh_derivs_nonrev)."""
+    def derivs(t):
+        return branch_lh_derivs_nonrev(down, out, scale, t, pack,
+                                       log_ptn_invar, pattern_weights)[1:]
+    return _newton_iter(derivs, t0, t_min, t_max, n_iter)
+
+
+def branch_site_lp_nonrev(down, out, scale, t, pack, log_ptn_invar):
+    """Per-pattern log-likelihood [..., Pp] of branches under a
+    nonreversible model: site0 = out . P(t) . down."""
+    site0, _, _ = _nonrev_site0(down, out, t, pack)
+    return _finish_lp(site0, scale, log_ptn_invar)[0]
+
+
+# ------------------------------------------------ mixlen branch derivatives
+def branch_lh_derivs_mixlen(theta, scale, tvec, pack, log_ptn_invar,
+                            pattern_weights):
+    """Per-category branch derivatives of the heterotachy (+H) models:
+    theta [..., C, K, Pp], tvec [..., C] (one length per category);
+    returns (logL [...], d1 [..., C], d2 [..., C]), the partial derivatives
+    per category with the cross terms through the site likelihood's
+    denominator kept (exact coordinate Newton). Reference analog:
+    computeLikelihoodDervMixlen (tree/phylotreemixlen.cpp)."""
+    lr = pack["eigvals"][pack["cat_mix"]] * pack["cat_rate"][:, None]  # [C, K]
+    wet = pack["cat_weight"][:, None] * torch.exp(lr * tvec[..., None])
+    s0c = (theta * wet[..., None]).sum(-2)                       # [..., C, Pp]
+    site0 = s0c.sum(-2).clamp(min=0.0)
+    lp, sc = _finish_lp(site0, scale, log_ptn_invar)
+    logL = (pattern_weights * lp).sum(-1)
+    s1c = (theta * (wet * lr)[..., None]).sum(-2)
+    s2c = (theta * (wet * lr * lr)[..., None]).sum(-2)
+    denom = (site0 + torch.exp(log_ptn_invar + sc))[..., None, :]
+    d1p = s1c / denom
+    d2p = s2c / denom - d1p * d1p
+    return (logL, (pattern_weights * d1p).sum(-1),
+            (pattern_weights * d2p).sum(-1))
+
+
+def newton_branch_step_mixlen(theta, scale, t0vec, pack, log_ptn_invar,
+                              pattern_weights, t_min, t_max,
+                              n_iter: int = 4):
+    """Bounded coordinate Newton on the C per-category lengths of every
+    branch jointly, each category's length stepped by its own d1/d2."""
+    def derivs(t):
+        return branch_lh_derivs_mixlen(theta, scale, t, pack, log_ptn_invar,
+                                       pattern_weights)[1:]
+    return _newton_iter(derivs, t0vec, t_min, t_max, n_iter)
+
+
+def chunk_ranges(n: int, item_bytes: int, budget: int) -> list:
+    """[a, b) ranges over n items of item_bytes each, at most ``budget``
+    bytes a range (at least one item)."""
+    m = max(1, int(budget // max(item_bytes, 1)))
+    return [(i, min(n, i + m)) for i in range(0, n, m)]

@@ -45,7 +45,7 @@ import torch
 
 from iqtree2_tpu_torch import tests_branch
 from iqtree2_tpu_torch.analysis import (Logger, _write_ufboot,
-                                        check_model_ported, merge_support,
+                                        check_partition_model, merge_support,
                                         run_analysis)
 from iqtree2_tpu_torch.data.superalignment import (SuperAlignment,
                                                    build_superalignment,
@@ -478,7 +478,7 @@ def run_partition_analysis(params: Params, device="cuda") -> dict:
         models, rates, asc_flags = [], [], []
         for p, m in zip(sa.partitions, model_strs):
             mo, ra, ex = build_model(m, p)
-            check_model_ported(m, ex)
+            check_partition_model(m, mo, ex)
             models.append(mo)
             rates.append(ra)
             asc_flags.append(ex.get("asc", False))

@@ -4,7 +4,8 @@ iqtree2_tpu/search/nni.py, whose module imports jax).
 On a LikelihoodEngine every round is one fused engine call
 (engine.optimize_and_evaluate_nnis): all-branch Newton, both passes, NNI
 scoring and, with want_lp, the site log-likelihoods for UFBoot. An engine
-without the fused round (partition/engine.PartitionEngine) takes the JAX
+without the fused round (partition/engine.PartitionEngine, and the
+per-class model/heterotachy.MixlenEngine, which opts out) takes the JAX
 package's unfused climb step for step: optimize_branches, then
 evaluate_nni_batch, the swaps, optimize_branches again; its unlinked mode
 and the PMSF SSFEngine (model/pmsf.py) score NNI1 only, with a NOTE. The host applies the best non-conflicting
@@ -115,6 +116,14 @@ def _revert_swaps(tree: Tree, undo) -> None:
     tree.blen_h = dict(blen_h_snap)
 
 
+def fused_round(eng) -> bool:
+    """The engine has the fused NNI round and takes it: not a partition or
+    PMSF engine (which lack it), not a MixlenEngine (_fused_nni False: the
+    fused round would optimise scalar lengths)."""
+    return (hasattr(eng, "optimize_and_evaluate_nnis")
+            and getattr(eng, "_fused_nni", True))
+
+
 def _supports_nni5(eng) -> bool:
     """Engines whose NNI scoring re-optimises five branches: all but a
     PartitionEngine with unlinked branch lengths (-Q) and the PMSF
@@ -138,7 +147,7 @@ def nni_optimize(eng: LikelihoodEngine, tree: Tree,
     log-likelihoods for UFBoot, from the last fused round where the tree
     did not change after it.
     """
-    if not hasattr(eng, "optimize_and_evaluate_nnis"):
+    if not fused_round(eng):
         return _nni_optimize_unfused(eng, tree, loglh_epsilon, max_rounds,
                                      nni5, want_lp, constraint)
     total_applied = 0
@@ -202,7 +211,10 @@ def _nni_optimize_unfused(eng, tree: Tree, loglh_epsilon: float,
     """The JAX package's climb for engines without the fused round
     (iqtree2_tpu/search/nni.py:240-350): optimize_branches before the
     first round and after every round's swaps, evaluate_nni_batch in
-    between; a regressing round is reverted and the lengths refitted."""
+    between; a regressing round is reverted and the lengths refitted. A
+    per-class engine reads the tree's class lengths (tree.blen_h) through
+    eng._nni_tree, as in the JAX package."""
+    eng._nni_tree = tree
     use5 = nni5
     if use5 and not _supports_nni5(eng):
         use5 = False

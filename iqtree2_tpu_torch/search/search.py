@@ -14,9 +14,10 @@ first, then each tree hill-climbs on its own (search/nni.nni_optimize), so
 both packages draw the same random numbers and visit the same trees. (The
 JAX package climbs a block in lockstep and lets finished trees ride to keep
 its compiled shapes; here a finished tree leaves the climb.) An engine
-without the fused NNI round (a PartitionEngine, the PMSF SSFEngine) runs
-one candidate per block, as the JAX package runs it. A -g constraint filters the parsimony
-start trees, the BIONJ tree, the random NNIs and the climbs' swaps.
+without the fused NNI round (a PartitionEngine, the PMSF SSFEngine, a
+MixlenEngine) runs one candidate per block, as the JAX package runs it. A
+-g constraint filters the parsimony start trees, the BIONJ tree, the
+random NNIs and the climbs' swaps.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from iqtree2_tpu_torch.ops.pars import (fitch_score, random_stepwise_addition,
                                         state_bitmasks)
 from iqtree2_tpu_torch.search.bionj import bionj_tree
 from iqtree2_tpu_torch.search.candidate import CandidateSet
-from iqtree2_tpu_torch.search.nni import nni_optimize
+from iqtree2_tpu_torch.search.nni import fused_round, nni_optimize
 from iqtree2_tpu_torch.search.perturb import random_nnis
 from iqtree2_tpu_torch.search.stoprule import StopRule
 from iqtree2_tpu_torch.tree.topology import Tree
@@ -81,9 +82,9 @@ class TreeSearch:
         self.log = log or (lambda s: None)
         self.ckp = ckp        # optional Checkpoint (mid-search resume)
         # the JAX package climbs K candidates at once only on a plain
-        # engine; a partitioned one runs serially (its search.py:71-77)
-        self.batch_iterations = (batch_iterations
-                                 if hasattr(eng, "optimize_and_evaluate_nnis")
+        # engine; a partitioned or per-class one runs serially (its
+        # search.py:71-77)
+        self.batch_iterations = (batch_iterations if fused_round(eng)
                                  else 1)
         self.constraint = constraint   # optional TopologyConstraint (-g)
         self._resume_iter = 0

@@ -37,11 +37,15 @@ def _categorical_rows(probs: np.ndarray, rng: np.random.Generator
 
 def simulate_alignment(tree: Tree, model, rates, nsites: int,
                        rng: np.random.Generator,
-                       root_seq: np.ndarray | None = None) -> dict[str, str]:
+                       root_seq: np.ndarray | None = None,
+                       pmatrix=None) -> dict[str, str]:
     """Simulate one alignment; returns {taxon name: sequence string}.
 
     model: SubstModel (provides eigensystem + root freqs + state chars);
-    rates: RateModel (category rates/weights + p_invar).
+    rates: RateModel (category rates/weights + p_invar); pmatrix: P(t) of
+    a length t (default the eigensystem's, transition_matrix; kernelcheck
+    passes expm(Q t) for a nonreversible model, whose eigensystem here
+    keeps a complex one's real parts, ROADMAP C18).
     """
     eig = model.get_eigensystem()
     freqs = np.asarray(model.freqs, np.float64)
@@ -90,7 +94,8 @@ def simulate_alignment(tree: Tree, model, rates, nsites: int,
             key = (t, float(r))
             if key not in pcache:
                 pcache[key] = np.maximum(
-                    transition_matrix(eig, t * float(r)), 0.0)
+                    transition_matrix(eig, t * float(r)) if pmatrix is None
+                    else pmatrix(t * float(r)), 0.0)
             P = pcache[key]
             rows = P[parent_states[sel]]           # [n_sel, S]
             child[sel] = _categorical_rows(rows, rng)

@@ -107,7 +107,8 @@ def test_search_with_ufboot_through_the_module(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["-lbp", "1000"], "-lbp: not yet ported"),
-    (["--root-test"], "--root-test: not yet ported"),
+    (["--root-test", "-q", str(GOLDEN / "example.nex")],
+     "--root-test with -p/-q/-Q"),
     (["-lmap", "100"], "-lmap: not yet ported"),
     (["--gcf", TREE], "--gcf: not yet ported"),
     (["--date", "TAXNAME"], "--date: not yet ported"),
@@ -132,7 +133,7 @@ def test_unported_flag_is_refused(tmp_path, extra, message):
     (["-m", "GTR+G", "-bnni"], "-bnni: works on the ultrafast bootstrap"),
     (["-te", TREE, "-m", "GTR+G", "--tbe"],
      "--tbe: works on the ultrafast bootstrap"),
-    (["-te", TREE, "-m", "UNREST"], "nonreversible"),
+    (["-te", TREE, "-m", "UNREST+E"], "with a nonreversible model"),
     # +E runs on DNA models; beside a mixture the JAX package ignores it
     (["-te", TREE, "-m", "MIX{HKY,GTR}+E"], "sequencing-error"),
 ])

@@ -1,9 +1,13 @@
 """The Hopper kernels (H1-H3) against their plain PyTorch versions on a card,
 also at the partitioned path's and the mixtures' shapes (C = 80, 240 and
-LG4X's four eigensystems) and the model families' (61-state codon
-models, +E tips, 2 and 7 states), and the search path on the card (fused
+LG4X's four eigensystems), the model families' (61-state codon
+models, +E tips, 2 and 7 states) and the nonreversible and per-class
+ones (UNREST and 12.12 with complex eigenvalues, PoMo's 52 states, +H's
+per-class lengths, the root test's __ROOT__ leaf), and the search path on
+the card (fused
 NNI round, NNI hill-climb, joint fit), the partition engine, a mixture's
-search, the PMSF engine and the codon and partitioned-mixture fits against
+search, the PMSF engine, the codon and partitioned-mixture fits, and the
+nonreversible Newton, NNI scoring, per-class fit and root test against
 the CPU's plain versions.
 
 This file imports nothing of JAX and nothing of the JAX package, so it runs
@@ -552,3 +556,65 @@ def test_model_family_fits_on_cuda_match_cpu(cuda, tmp_path, family):
     assert logl["cuda"] == pytest.approx(logl["cpu"], abs=1e-3)
     assert kernels.LAUNCHES["sitelp"] > 0 and \
         kernels.LAUNCHES["theta_pass"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["UNREST+G4", "12.12+G4", "GTR+P+G4",
+                                  "GTR+H4", "UNREST+G4 rooted"])
+def test_kernels_match_plain_nonrev_families(cuda, name, dtype):
+    """The kernels at the nonreversible and per-class shapes: a P without
+    detailed balance and the stationary vector of a nonreversible Q as
+    the root's frequencies, 52 states on k/N tips, per-(edge, class) P,
+    and an all-unknown leaf 0 on a zero-length edge."""
+    model_name = name.removesuffix(" rooted")
+    aln, tree, model, rates = kernelcheck.simulate(model_name, 24, 700,
+                                                   seed=2)
+    if model_name != name:
+        aln, tree = kernelcheck.rooted_problem(aln, tree)
+    eng = kernelcheck.make_engine(aln, model, rates, dtype=dtype,
+                                  device=cuda)
+    res = kernelcheck.check(eng, tree)
+    for r in res:
+        assert r["ok"], r
+        assert r["launches"] == 1, r
+    assert res[0]["sitelp_launches"] == 1
+
+
+@pytest.mark.cuda
+def test_nonrev_and_mixlen_on_cuda_match_cpu(cuda):
+    """float64, the card against the CPU: the nonreversible Newton and its
+    NNI5 scores with site logLs, the per-class (+H) fit with its EM
+    weights, and the root test."""
+    from iqtree2_tpu_torch import roottest
+    from iqtree2_tpu_torch.model.heterotachy import MixlenEngine
+    aln, tree, model, rates = kernelcheck.simulate("UNREST+G4", 12, 400,
+                                                   seed=3)
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                               device=dev)
+        t = Tree.from_newick(tree.to_newick(), aln.names)
+        logl = eng.optimize_branches(t)
+        sched = build_schedule(t)
+        c = build_nni_candidates(t, sched)
+        nni = eng.evaluate_nni_batch(
+            sched, np.stack([c.iu, c.iv, c.slot_c, c.edge_id]), nni5=True,
+            return_site_lp=True)
+        h_model, h_rates, _ = build_model("GTR+H3", aln)
+        heng = MixlenEngine(aln, h_model, h_rates, dtype=torch.float64,
+                            device=dev)
+        ht = Tree.from_newick(tree.to_newick(), aln.names)
+        hl = heng.optimize_mixlen(ht, n_outer=2)
+        rt = roottest.run_root_test(aln, tree, model, rates,
+                                    dtype=torch.float64, device=dev,
+                                    log=lambda m: None)
+        out[str(dev)] = (logl, nni, hl, h_rates.weights.copy(), rt)
+    (l0, n0, h0, w0, r0), (l1, n1, h1, w1, r1) = out.values()
+    assert l1 == pytest.approx(l0, rel=1e-10)
+    for a, b in zip(n1, n0):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)
+    assert h1 == pytest.approx(h0, rel=1e-10)
+    np.testing.assert_allclose(w1, w0, atol=1e-8)
+    np.testing.assert_allclose(r1.logL, r0.logL, rtol=1e-10)
+    assert r1.best == r0.best

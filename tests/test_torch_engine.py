@@ -118,20 +118,39 @@ class _Nonreversible(GTRModel):
     """A port model whose eigensystem carries a rate matrix Q, as the
     nonreversible models of the JAX package do."""
 
+    Q = None
+
     def get_eigensystem(self):
         eig = super().get_eigensystem()
-        eig.Q = np.zeros((1, self.num_states, self.num_states))
+        eig.Q = (np.zeros((self.num_states, self.num_states))
+                 if self.Q is None else self.Q)[None]
         return eig
 
 
 def test_nonreversible_model_is_refused():
-    aln, _, _, _, _ = _problem(seed=1, ntaxa=6, nsites=50)
-    with pytest.raises(SystemExit, match="nonreversible"):
-        build_model("UNREST", aln)
+    """A pack with Q takes the nonreversible path (the direct Newton); what
+    is still refused is +E beside UNREST, which the JAX package ignores
+    (its UNREST branch returns before the +E wrapper, ROADMAP C16)."""
+    aln, tree, _, _, _ = _problem(seed=1, ntaxa=6, nsites=50)
+    with pytest.raises(SystemExit, match="sequencing-error"):
+        build_model("UNREST+E", aln)
     model, rates, _ = build_model("GTR", aln)
-    with pytest.raises(NotImplementedError, match="nonreversible"):
-        LikelihoodEngine(aln, _Nonreversible(4, freqs=model.freqs), rates,
-                         dtype=torch.float64, device="cpu")
+    eig = model.get_eigensystem()
+    # the GTR's own rate matrix as Q: the direct path's logL and Newton
+    # give the eigenbasis path's
+    Q = (eig.U[0] * eig.eigvals[0]) @ eig.V[0]
+    nonrev = _Nonreversible(4, freqs=model.freqs)
+    nonrev.Q = Q
+    teng = LikelihoodEngine(aln, nonrev, rates, dtype=torch.float64,
+                            device="cpu")
+    reng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                            device="cpu")
+    assert teng.nonrev and not reng.nonrev
+    assert teng.loglik_tree(tree) == pytest.approx(reng.loglik_tree(tree),
+                                                   rel=1e-12)
+    t1, t2 = tree.copy(), tree.copy()
+    assert teng.optimize_branches(t1) == pytest.approx(
+        reng.optimize_branches(t2), abs=1e-6)
 
 
 def test_optimize_rate_scalar_matches_jax():

@@ -193,9 +193,13 @@ def test_ufboot_matches_jax():
         juf.consensus_tree().to_newick()
 
 
-@pytest.mark.parametrize("model_name", ["GTR+G4", "HKY+I", "LG+G4"])
+@pytest.mark.parametrize("model_name", ["GTR+G4", "HKY+I", "LG+G4",
+                                        "UNREST+G4"])
 def test_simulate_alignment_matches_jax(model_name):
-    """kernelcheck's problems come from the port's simulator copy."""
+    """kernelcheck's problems come from the port's simulator copy. Under a
+    nonreversible model its default P keeps the JAX form, the real parts
+    of a complex eigensystem (ROADMAP C18), for parity; kernelcheck
+    simulates such a model through expm (simulate_nonrev)."""
     seqtype, alphabet, model_str = kernelcheck.MODELS[model_name]
     names = [f"t{i}" for i in range(7)]
     out = []
@@ -640,3 +644,70 @@ def test_yaml_datatypes_and_models_match_jax(tmp_path):
         np.testing.assert_array_equal(m.freqs, jm.freqs)
         np.testing.assert_array_equal(r.category_rates(),
                                       jr.category_rates())
+
+
+@pytest.mark.parametrize("spec", ["UNREST", "UNREST{" + ",".join(
+    str(r) for r in kernelcheck._UNREST_RATES) + "}", "12.12", "RY3.3b",
+    "WS6.7a{0.1,-0.2,0.3,0.4,-0.5}", "STRSYM", "GTR+P", "HKY+P5{0.02}"])
+def test_nonreversible_models_match_jax(spec):
+    """model/nonrev.py, model/liemarkov.py and model/pomo.py: names,
+    parameters, bounds, the rate matrix, the stationary frequencies and
+    the eigensystem (real parts of a complex one, ROADMAP C18, kept as
+    the JAX package has them: the simulator's default P reads them), and
+    PoMo's sampled-read tips, after setting moved parameters."""
+    aln, jaln = _both_alignments("example.phy", None)
+    m, _, ex = build_model(spec, aln)
+    jm, _, jex = jbuild_model(spec, jaln)
+    assert (type(m).__name__, m.name, ex) == (type(jm).__name__, jm.name,
+                                              jex)
+    x = m.get_params()
+    np.testing.assert_array_equal(x, jm.get_params())
+    for a, b in zip(m.param_bounds(), jm.param_bounds()):
+        np.testing.assert_array_equal(a, b)
+    lo, hi = m.param_bounds()
+    x = lo + (hi - lo) * np.linspace(0.2, 0.7, len(x))
+    m.set_params(x)
+    jm.set_params(x)
+    e, je = m.get_eigensystem(), jm.get_eigensystem()
+    for f in ("eigvals", "U", "V", "freqs", "Q"):
+        np.testing.assert_array_equal(getattr(e, f), getattr(je, f))
+    assert m.num_free_params() == jm.num_free_params()
+    assert m.is_reversible() is jm.is_reversible() is False
+    if hasattr(m, "transform_tip_table"):
+        table = aln.seqtype.tip_table
+        np.testing.assert_array_equal(m.transform_tip_table(table),
+                                      jm.transform_tip_table(table))
+
+
+def test_roottest_helpers_match_jax(tmp_path):
+    """roottest.py: the rooted alignment, every rooting's tree and Newick,
+    the clade labels, and the .roottest.csv of one result."""
+    from iqtree2_tpu import roottest as jroottest
+    from iqtree2_tpu_torch import roottest
+    aln, jaln = _both_alignments("example.phy", None)
+    nwk = (Path(__file__).parent / "golden" / "ref_tree.nwk").read_text()
+    tree, jtree = Tree.from_newick(nwk, aln.names), JTree.from_newick(
+        nwk, jaln.names)
+    ra, jra = roottest.root_alignment(aln), jroottest.root_alignment(jaln)
+    assert ra.names == jra.names and ra.names[0] == "__ROOT__"
+    np.testing.assert_array_equal(ra.patterns, jra.patterns)
+    for a, b in sorted(tree.edges())[:6]:
+        assert roottest.rooted_tree_on_branch(tree, a, b, 0.3).to_newick() \
+            == jroottest.rooted_tree_on_branch(jtree, a, b, 0.3).to_newick()
+        assert roottest.rooted_newick(tree, a, b) == \
+            jroottest.rooted_newick(jtree, a, b)
+        assert roottest._branch_label(tree, a, b) == \
+            jroottest._branch_label(jtree, a, b)
+    rng = np.random.default_rng(1)
+    L = rng.normal(-3.0, 0.5, (5, 40))
+    w = rng.integers(1, 4, 40).astype(float)
+    res = [mod.RootTestResult(
+        branches=[(0, 1)] * 5, labels=[f"{{t{i}}}" for i in range(5)],
+        logL=L @ w, site_lp=L, rootstrap=np.full(5, 0.2),
+        tests=ev(L, w, nboot=1000, rng=np.random.default_rng(2)), best=0)
+        for mod, ev in ((roottest, treetesting.evaluate_trees),
+                        (jroottest, jtreetesting.evaluate_trees))]
+    roottest.write_roottest_csv(tmp_path / "a.csv", res[0])
+    jroottest.write_roottest_csv(tmp_path / "b.csv", res[1])
+    assert (tmp_path / "a.csv").read_text() == \
+        (tmp_path / "b.csv").read_text()

@@ -183,12 +183,20 @@ def test_ml_distances_match_jax(data):
 
 
 def test_ml_distances_refuse_a_nonreversible_model():
+    """A model with Q takes its distances from expm(Q t) (C18): with the
+    GTR's own rate matrix as Q they are the eigenbasis ones; a model whose
+    states are not the alignment's (PoMo) is still refused."""
     (aln, _, model, _), _ = simulate_both("GTR+G4", 6, 100, seed=1)
+    want = tdist.ml_distances(aln, model, device="cpu")
     eig = model.get_eigensystem()
-    eig.Q = np.zeros((1, 4, 4))
+    eig.Q = ((eig.U[0] * eig.eigvals[0]) @ eig.V[0])[None]
     model.get_eigensystem = lambda: eig
-    with pytest.raises(NotImplementedError, match="reversible"):
-        tdist.ml_distances(aln, model, device="cpu")
+    got = tdist.ml_distances(aln, model, device="cpu")
+    off = ~np.eye(aln.ntaxa, dtype=bool)
+    assert _rel(got[off], want[off]) < 1e-8
+    pomo, _, _ = build_model("GTR+P", aln)
+    with pytest.raises(NotImplementedError, match="alignment's"):
+        tdist.ml_distances(aln, pomo, device="cpu")
 
 
 def test_nni5_predicted_logl_matches_applied():

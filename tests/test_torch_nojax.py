@@ -91,6 +91,22 @@ with tempfile.TemporaryDirectory() as d:
                      "-pre", d + "/y", "--quiet"]) == 0
     for ext in ("c", "e", "y"):
         assert "Log-likelihood" in open(d + "/" + ext + ".iqtree").read()
+    aln, tree, _, _ = kernelcheck.simulate("UNREST+G4", 6, 80, seed=1)
+    phy, nwk = kernelcheck.write_problem(aln, tree, d + "/nr")
+    assert cli.main(["-s", phy, "-m", "UNREST+G", "-te", nwk, "--root-test",
+                     "--device", "cpu", "-pre", d + "/nr", "--quiet"]) == 0
+    assert len(open(d + "/nr.roottest.csv").read().splitlines()) == 10
+    other, _ = kernelcheck.perturbed(tree, seed=1, strength=0.3)
+    open(d + "/two.nwk", "w").write(open(nwk).read() + other.to_newick())
+    open(d + "/nr.yml", "w").write(
+        "- model: MYNR\n  datatype: DNA\n  reversible: false\n"
+        "  matrix: [[0, 1, 2, 1], [1, 0, 1, 2], [2, 1, 0, 1], [1, 2, 1, 0]]\n")
+    for argv in (["-m", "GTR+H2", "-te", nwk], ["-m", "GTR+G+T", "-te",
+                                                 d + "/two.nwk"],
+                 ["-m", "MYNR+G", "--mdef", d + "/nr.yml", "-te", nwk]):
+        assert cli.main(["-s", phy, "--device", "cpu", "-pre", d + "/n",
+                         "--quiet"] + argv) == 0
+        assert "Log-likelihood" in open(d + "/n.iqtree").read()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu", "yaml")
             and sys.modules[m] is not None]

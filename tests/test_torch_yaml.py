@@ -233,11 +233,23 @@ def test_yaml_model_loglik_matches_jax(tmp_path):
 
 
 def test_nonreversible_yaml_model_refused(tmp_path):
+    """reversible: false builds an UnrestModel of its matrix, as the JAX
+    package does, equal to -m UNREST{...} of the same rates; what is still
+    refused is +E beside it (C16) and +H (C18)."""
     _define_both(tmp_path, JAX_DOC)
     aln = Alignment.from_sequences(["a", "b", "c"], ["ACGT"] * 3,
                                    seqtype="DNA")
-    with pytest.raises(SystemExit, match="nonreversible.*Queue A item 2"):
-        build_model("MYUNREST", aln)
+    model, _, _ = build_model("MYUNREST", aln)
+    jmodel, _, _ = jbuild_model("MYUNREST", jax_alignment(aln))
+    np.testing.assert_array_equal(model.rates, jmodel.rates)
+    assert model.name == jmodel.name == "MYUNREST"
+    same, _, _ = build_model("UNREST{1,2,1,1,1,2,2,1,1,1,2,1}", aln)
+    np.testing.assert_array_equal(model.get_eigensystem().Q,
+                                  same.get_eigensystem().Q)
+    with pytest.raises(SystemExit, match="sequencing-error"):
+        build_model("MYUNREST+E", aln)
+    with pytest.raises(SystemExit, match="nonreversible"):
+        build_model("MYUNREST+H2", aln)
 
 
 def test_mdef_through_the_cli(tmp_path):

@@ -117,12 +117,21 @@ def main() -> int:
                                     ("KOSI07+G4", 12, 60),
                                     ("HKY+E+G4", 40, 300),
                                     ("JC2+G4", 40, 300),
-                                    ("MK7+G4", 30, 200)):
-            aln, tree, model, rates = kernelcheck.simulate(name, ntaxa,
+                                    ("MK7+G4", 30, 200),
+                                    ("UNREST+G4", 30, 200),
+                                    ("12.12+G4", 30, 200),
+                                    ("GTR+P+G4", 9, 150),
+                                    ("GTR+H4", 30, 200),
+                                    ("UNREST+G4 rooted", 30, 200)):
+            model_name = name.removesuffix(" rooted")
+            aln, tree, model, rates = kernelcheck.simulate(model_name, ntaxa,
                                                            nsites, seed=3)
+            if name != model_name:
+                aln, tree = kernelcheck.rooted_problem(aln, tree)
             for dtype in (torch.float32, torch.float64):
-                check(lib, LikelihoodEngine(aln, model, rates, dtype=dtype,
-                                            device="cpu"), tree, name)
+                check(lib, kernelcheck.make_engine(aln, model, rates,
+                                                   dtype=dtype, device="cpu"),
+                      tree, name)
         for name in kernelcheck.PARTITIONS:
             sa, tree, models, rates = kernelcheck.simulate_partitioned(
                 name, 30, seed=3)
