@@ -200,7 +200,26 @@ ending in torch.cuda.synchronize():
    false against -m UNREST{...} of the same matrix, -te in float64, equal
    within 1e-6 relative.
 
-A "[time]" line gives the start of each phase and the end of phase 15.
+16. the standalone tools and dating, through the CLI where a flag
+   exists: (a) --alisim on tests/golden/ref_tree.nwk under GTR+G, LG+G,
+   LG+C10 (each site's class drawn by the weights), mimicking example.phy
+   (-s) and with --indel 0.05,0.05, each output read back with the
+   tree's taxa, its sites and sequence type; (b) tip dates of a strict
+   clock at rate 0.01 on the golden tree rooted at its midpoint, 1998
+   sites simulated under GTR+G on it, then -m GTR+G -B 1000 -n 3 -ninit
+   10 -ntop 3 -nbest 2 --date --date-ci 100 in float32, launch counts
+   reset just before and read just after, one launch per pass, the
+   .timetree files parsed, the rate within 25% of 0.01 (0.0091847 on the
+   CPU), the failed replicates printed; (c) likelihood mapping of 1000
+   quartets of example.phy under a fixed GTR+G4 on a float32 card engine
+   (the mapping runs on its float64 view), the weights within 1e-3 of a
+   CPU float64 engine's (run beside phases 2-15), regions moved only near
+   a boundary; (d) Sankoff parsimony of
+   example.phy on the card equal to the host's under a unit and a
+   transition/transversion cost matrix; (e) -r 100, -con and -rf_all on
+   (b)'s replicate trees, -pd 5 and -bud 4, each file checked.
+
+A "[time]" line gives the start of each phase and the end of phase 16.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
@@ -209,7 +228,8 @@ from phase 10's first command line, the supports' path,
 partition_launches from phase 12's partitioned default command and
 mixture_launches from phase 13c's mixture search,
 model_family_launches from phase 14b-f's command lines, nonrev_launches
-from phase 15c's UNREST search with the root test; times,
+from phase 15c's UNREST search with the root test, dating_launches from
+phase 16b's search with --date; times,
 back-to-back times
 and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
 single PyTorch call computes a pruning pass, so library_ms is null); the
@@ -396,6 +416,27 @@ CARD_CPU_TOL = 1e-3                    # 15e: card against the CPU, float64
 MDEF_NONREV_TOL = 1e-6                 # 15g: relative, float64
 MDEF_NONREV_MATRIX = ((0, 1.5, 3.0, 0.6), (0.9, 0, 1.1, 2.8),
                       (2.5, 0.7, 0, 1.3), (0.8, 3.3, 1.2, 0))
+# phase 16: the standalone tools and dating. 16a's AliSim runs on the
+# golden tree: (name, flags, suffix, sequence type, sites; None where
+# indels make it vary)
+ALISIM_CASES = (
+    ("GTR+G", ["-m", "GTR+G", "--length", "1998"], ".phy", "DNA", 1998),
+    ("LG+G", ["-m", "LG+G", "--length", "600"], ".phy", "AA", 600),
+    ("LG+C10", ["-m", "LG+C10", "--length", "600"], ".phy", "AA", 600),
+    ("mimic", ["-m", "GTR+G", "-s", str(GOLDEN / "example.phy")], ".phy",
+     "DNA", 1998),
+    ("indel", ["-m", "GTR+G", "--length", "600", "--indel", "0.05,0.05"],
+     ".fa", "DNA", None))
+DATE_RATE = 0.01           # 16b: the strict clock of the tip dates
+DATE_RATE_TOL = 0.25       # 16b: relative; the CPU run gives 0.0091847465
+DATE_CI_REPS = 100
+DATE_DEPTH = ["-n", "3", "-ninit", "10", "-ntop", "3", "-nbest", "2"]
+LMAP_QUARTETS = 1000       # 16c
+LMAP_TOL = 1e-3            # 16c: card float32 against the CPU's float64
+SANKOFF_COSTS = {          # 16d
+    "unit": ((0, 1, 1, 1), (1, 0, 1, 1), (1, 1, 0, 1), (1, 1, 1, 0)),
+    "ts/tv": ((0, 2, 1, 2), (2, 0, 2, 1), (1, 2, 0, 2), (2, 1, 2, 0))}
+RANDOM_TAXA, RF_TREES, PD_K, PD_BUDGET = 100, 100, 5, 4   # 16e
 
 
 def fail(msg: str) -> int:
@@ -1889,6 +1930,234 @@ def nonrev_families(errors: dict, parts: str = "abcdefg"
     return launches, rows, search
 
 
+def tools_alisim() -> None:
+    """16a: --alisim on the golden tree under each of ALISIM_CASES, every
+    output read back by the port's reader with the tree's taxa, the sites
+    and the sequence type."""
+    from iqtree2_tpu_torch.io.alignment_io import read_alignment
+    names = set(Path(GOLDEN / "ref_tree.nwk").read_text()
+                .replace("(", ",").replace(")", ",").split(","))
+    for i, (name, flags, suffix, seqtype, nsites) in enumerate(ALISIM_CASES):
+        pre = OUT / f"alisim_{i}"
+        wall = run_cli(["--alisim", str(pre), "-t",
+                        str(GOLDEN / "ref_tree.nwk")] + flags)
+        aln = read_alignment(f"{pre}{suffix}", seqtype=seqtype)
+        taxa = {n.split(":")[0] for n in names} & set(aln.names)
+        print(f"[phase 16a] --alisim {name}: {aln.ntaxa} x {aln.nsites} "
+              f"{aln.seqtype.name} ({aln.num_patterns} patterns) in "
+              f"{wall:.2f} s", flush=True)
+        if len(taxa) != 17 or aln.ntaxa != 17 or \
+                aln.seqtype.name != seqtype or \
+                (nsites is not None and aln.nsites != nsites):
+            raise RuntimeError(f"[phase 16a] {name}: {aln.ntaxa} taxa, "
+                               f"{aln.nsites} sites, {aln.seqtype.name}")
+
+
+def tools_dating() -> dict:
+    """16b: tip dates of a strict clock at DATE_RATE on the golden tree
+    rooted at its midpoint (kernelcheck.clock_dates), 1998 sites simulated
+    under GTR+G on it, then the search with UFBoot and --date --date-ci
+    in float32, launches counted (one per pass): every kernel launched,
+    the three .timetree files parsed, the rate within DATE_RATE_TOL of
+    DATE_RATE, the failed replicates printed. Returns the launches."""
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.tree.topology import Tree
+    tag = "[phase 16b]"
+    ref = GOLDEN / "ref_tree.nwk"
+    dates = kernelcheck.clock_dates(Tree.from_newick(ref.read_text()),
+                                    DATE_RATE)
+    dfile = OUT / "dates.txt"
+    dfile.write_text("".join(f"{n} {d!r}\n" for n, d in dates.items()))
+    sim = OUT / "date_sim"
+    run_cli(["--alisim", str(sim), "-t", str(ref), "-m", "GTR+G",
+             "--length", "1998"])
+    pre = OUT / "dating"
+    got = counted(["-s", f"{sim}.phy", "-m", "GTR+G", "-B",
+                   str(FLAGSHIP_REPLICATES)] + DATE_DEPTH
+                  + ["--date", str(dfile), "--date-ci", str(DATE_CI_REPS),
+                     "-pre", str(pre)], tag)
+    if not all(got[k] > 0 for k in ("down_pass", "sitelp", "up_pass",
+                                    "theta_pass")):
+        raise RuntimeError(f"{tag} a kernel was never launched: {got}")
+    names = list(dates)
+    timed = Tree.from_newick(Path(f"{pre}.timetree.nwk").read_text(), names)
+    nex = Path(f"{pre}.timetree.nex").read_text()
+    lsd = Path(f"{pre}.timetree.lsd").read_text()
+    rate = float(re.search(r"^rate (\S+?),", lsd, re.M).group(1))
+    failed = re.search(r"^failed replicates: (\d+) of (\d+)$", lsd, re.M)
+    root = re.search(r"^tMRCA (\S+?),", lsd, re.M).group(1)
+    print(f"{tag} rate {rate!r} (clock {DATE_RATE}), root date {root}, "
+          f"{lsd.splitlines()[1]}; failed replicates {failed.group(1)} of "
+          f"{failed.group(2)}; time tree {timed.ntaxa} taxa, "
+          f"{nex.count('[&date=')} dated nodes in the NEXUS; wall seconds: "
+          f"{wall_split(pre)}", flush=True)
+    if timed.ntaxa != 17 or nex.count("[&date=") != 2 * 17 - 1 or \
+            int(failed.group(2)) != DATE_CI_REPS:
+        raise RuntimeError(f"{tag} the time tree files are incomplete")
+    if not (math.isfinite(rate) and rate > 0
+            and abs(rate - DATE_RATE) <= DATE_RATE_TOL * DATE_RATE):
+        raise RuntimeError(f"{tag} rate {rate} against {DATE_RATE}")
+    return got
+
+
+def lmap_problem(device: str, dtype: str):
+    """16c's engine: example.phy under GTR+G4 with every parameter fixed
+    (kernelcheck.MODELS), so both sides share them."""
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.io.alignment_io import read_alignment
+    from iqtree2_tpu_torch.model.factory import build_model
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    model, rates, _ = build_model(kernelcheck.MODELS["GTR+G4"][2], aln)
+    return LikelihoodEngine(aln, model, rates,
+                            dtype=getattr(torch, dtype), device=device)
+
+
+def lmap_weights(device: str, dtype: str) -> dict:
+    """16c's likelihood mapping of LMAP_QUARTETS quartets (seed 1) on
+    ``device``: the weights and its wall seconds."""
+    import numpy as np
+    from iqtree2_tpu_torch.ops import quartet
+    eng = lmap_problem(device, dtype)
+    t0 = time.perf_counter()
+    res = quartet.likelihood_mapping(eng, LMAP_QUARTETS,
+                                     np.random.default_rng(1))
+    return {"weights": res["weights"].tolist(),
+            "regions": res["regions"].tolist(),
+            "seconds": time.perf_counter() - t0}
+
+
+def start_cpu_lmap(threads: int = 2) -> subprocess.Popen:
+    """16c's CPU side (float64) in a process of its own on ``threads`` CPU
+    threads, beside phases 2-15 (it takes minutes there)."""
+    import os
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+    return subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke, torch; "
+         f"torch.set_num_threads({threads}); "
+         "print(json.dumps(chip_smoke.lmap_weights('cpu', 'float64')))"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def tools_lmap(cpu: subprocess.Popen) -> None:
+    """16c: likelihood mapping on a float32 card engine (its float64 view)
+    against a CPU float64 engine at the same parameters: weights within
+    LMAP_TOL; a quartet's region may differ only where the CPU weights lie
+    within LMAP_TOL of a region boundary (a move of one weight by LMAP_TOL
+    changes the region)."""
+    import numpy as np
+    import torch
+    from iqtree2_tpu_torch.ops import quartet
+    tag = "[phase 16c]"
+    card = lmap_weights("cuda", "float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stdout, stderr = cpu.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    if cpu.returncode != 0:
+        raise RuntimeError(f"{tag} the CPU mapping failed: {stderr[-2000:]}")
+    host = json.loads(stdout.strip().splitlines()[-1])
+    w, hw = np.asarray(card["weights"]), np.asarray(host["weights"])
+    err = float(np.abs(w - hw).max())
+    moved = sum(quartet.region_of(a) != quartet.region_of(b)
+                for a, b in zip(w, hw))
+    steps = np.concatenate([np.eye(3), -np.eye(3)]) * LMAP_TOL
+    near = sum(any(quartet.region_of(v + d) != quartet.region_of(v)
+                   for d in steps) for v in hw)
+    print(f"{tag} {LMAP_QUARTETS} quartets: card {card['seconds']:.2f} s, "
+          f"regions {card['regions']}; CPU f64 {host['seconds']:.1f} s "
+          f"(waited {waited:.1f} s), regions {host['regions']}; max weight "
+          f"error {err:.3e} (tol {LMAP_TOL:g}); {moved} quartets in another "
+          f"region, {near} near a boundary", flush=True)
+    if not err <= LMAP_TOL or moved > near:
+        raise RuntimeError(f"{tag} the card's mapping disagrees")
+
+
+def tools_sankoff() -> None:
+    """16d: Sankoff parsimony of example.phy on the golden tree on the
+    card, equal to the host score under each of SANKOFF_COSTS."""
+    import numpy as np
+    import torch
+    from iqtree2_tpu_torch.io.alignment_io import read_alignment
+    from iqtree2_tpu_torch.ops import pars
+    from iqtree2_tpu_torch.tree.topology import Tree
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    tree = Tree.from_newick((GOLDEN / "ref_tree.nwk").read_text(), aln.names)
+    for name, cost in SANKOFF_COSTS.items():
+        args = (aln.tip_codes(), aln.pattern_weights,
+                np.asarray(cost, np.float64), aln.seqtype.tip_table)
+        t0 = time.perf_counter()
+        card = pars.sankoff_score_device(tree, *args, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = pars.sankoff_score(tree, *args)
+        t2 = time.perf_counter()
+        print(f"[phase 16d] Sankoff ({name}): card {card!r} in "
+              f"{t1 - t0:.3f} s, host {host!r} in {t2 - t1:.3f} s",
+              flush=True)
+        if card != host or not host < 2 ** 24:
+            raise RuntimeError(f"[phase 16d] {name}: {card} != {host}")
+
+
+def tools_cli() -> None:
+    """16e: -r, -con on 16b's replicate trees, -rf_all on RF_TREES of
+    them, -pd and -bud on the golden tree, each file checked."""
+    from iqtree2_tpu_torch.tree.topology import Tree
+    tag = "[phase 16e]"
+    ref = str(GOLDEN / "ref_tree.nwk")
+    boots = OUT / "rf_trees.nwk"
+    boots.write_text("\n".join(Path(f"{OUT / 'dating'}.ufboot").read_text()
+                               .splitlines()[:RF_TREES]) + "\n")
+    walls = {"-r": run_cli(["-r", str(RANDOM_TAXA), "-pre",
+                            str(OUT / "random")]),
+             "-con": run_cli(["-con", f"{OUT / 'dating'}.ufboot", "-pre",
+                              str(OUT / "con")]),
+             "-rf_all": run_cli(["-rf_all", "-t", str(boots), "-pre",
+                                 str(OUT / "rf")]),
+             "-pd": run_cli(["-pd", str(PD_K), "-t", ref, "-pre",
+                             str(OUT / "pd")]),
+             "-bud": run_cli(["-bud", str(PD_BUDGET), "-t", ref, "-pre",
+                              str(OUT / "bud")])}
+    rnd = Tree.from_newick((OUT / "random.treefile").read_text())
+    con = Tree.from_newick((OUT / "con.contree").read_text())
+    rf = (OUT / "rf.rfdist").read_text().splitlines()
+    D = [[int(x) for x in row.split()[1:]] for row in rf[1:]]
+    pd_text = (OUT / "pd.pda").read_text()
+    bud = (OUT / "bud.pda").read_text()
+    print(f"{tag} walls (s) { {k: round(v, 2) for k, v in walls.items()} }; "
+          f"random tree {rnd.ntaxa} taxa, consensus {con.ntaxa} taxa, RF "
+          f"matrix {len(D)} x {len(D[0])} (max {max(map(max, D))}), "
+          f"{pd_text.splitlines()[1]}, {bud.splitlines()[1]}", flush=True)
+    if rnd.ntaxa != RANDOM_TAXA or con.ntaxa != 17 or \
+            len(D) != RF_TREES or any(D[i][i] for i in range(len(D))) or \
+            any(D[i][j] != D[j][i] for i in range(len(D))
+                for j in range(i)) or f"k = {PD_K}" not in pd_text or \
+            f"budget = {PD_BUDGET}" not in bud:
+        raise RuntimeError(f"{tag} an output file is wrong")
+
+
+def standalone_tools(cpu_lmap: subprocess.Popen, parts: str = "abcde"
+                     ) -> dict:
+    """Phase 16's parts, each timed; returns 16b's launches."""
+    split = {}
+    launches: dict = {}
+    for part, fn in (("a", tools_alisim), ("b", tools_dating),
+                     ("c", lambda: tools_lmap(cpu_lmap)),
+                     ("d", tools_sankoff), ("e", tools_cli)):
+        if part not in parts:
+            continue
+        t0 = time.perf_counter()
+        got = fn()
+        if part == "b":
+            launches = got
+        split[part] = round(time.perf_counter() - t0, 1)
+    print(f"[phase 16] wall seconds by part {split}, in all "
+          f"{sum(split.values()):.1f}", flush=True)
+    return launches
+
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -1941,7 +2210,7 @@ def main() -> int:
 
 
 def run(started: list) -> int:
-    """Phases 1-15; each process it starts goes into ``started``."""
+    """Phases 1-16; each process it starts goes into ``started``."""
     if not (ROOT / "iqtree2_tpu_torch").is_dir() or not GOLDEN.is_dir():
         return fail("run from the root of a checkout of the repository "
                     "(iqtree2_tpu_torch/ and tests/golden/ are missing)")
@@ -1976,6 +2245,8 @@ def run(started: list) -> int:
     # runs beside phases 2-13 in a process of its own
     cpu_fit = start_cpu_weights_fit()
     started.append(cpu_fit)
+    cpu_lmap = start_cpu_lmap()
+    started.append(cpu_lmap)
 
     stamp(2)
     # 2. build
@@ -2324,7 +2595,11 @@ def run(started: list) -> int:
     stamp(15)
     # 15. nonreversible models, PoMo, +H, +T, the root test
     _, _, nonrev_launches = nonrev_families(errors)
-    print(f"[time] phases 1-15 in {time.perf_counter() - t_start:.1f} s",
+
+    stamp(16)
+    # 16. the standalone tools and dating
+    dating_launches = standalone_tools(cpu_lmap)
+    print(f"[time] phases 1-16 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": [
@@ -2335,6 +2610,7 @@ def run(started: list) -> int:
          "mixture_launches": mix_launches[k],
          "model_family_launches": family_launches[k],
          "nonrev_launches": nonrev_launches[k],
+         "dating_launches": dating_launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],

@@ -60,7 +60,7 @@ from pathlib import Path
 
 import numpy as np
 
-from iqtree2_tpu_torch import tests_branch
+from iqtree2_tpu_torch import tests_branch, timetree
 from iqtree2_tpu_torch.engine import LikelihoodEngine
 from iqtree2_tpu_torch.io import report as report_io
 from iqtree2_tpu_torch.io.alignment_io import read_alignment, write_phylip
@@ -125,7 +125,7 @@ TREEMIX_IGNORED = (("alrt_replicates", "-alrt"), ("abayes", "-abayes"),
                    ("write_ml_dist", "-mldist"), ("outgroup", "-o"),
                    ("root_test", "--root-test"),
                    ("fix_branch_lengths", "-blfix"), ("num_runs", "--runs"),
-                   ("pmsf", "--pmsf"))
+                   ("pmsf", "--pmsf"), ("date_file", "--date"))
 # the branch tests and -bnni score NNIs with per-pattern logLs and reweighted
 # views, which the JAX package's MixlenEngine does not give (it fails)
 MIXLEN_REFUSED = (("alrt_replicates", "-alrt"), ("abayes", "-abayes"),
@@ -357,6 +357,65 @@ def root_test(params: Params, eng, tree: Tree, aln, search_info: dict,
         f"{rres.rootstrap[rres.best]:.3f}")
     log(f"Root test -> {params.prefix}.roottest.csv; rooted tree -> "
         f"{params.prefix}.rooted.nwk")
+
+
+def date_final_tree(params: Params, tree: Tree, aln, search_info: dict,
+                    log) -> None:
+    """--date: least-squares dating of the final tree (iqtree2_tpu/
+    analysis.py:505-552): tip dates from the file or the taxon names
+    (TAXNAME), the root on the -o outgroup's edge (with
+    --date-no-outgroup its tips out of the fit) or at the midpoint,
+    --date-rate and --date-root pinned, and with --date-ci N the
+    branch-resampling intervals (--clock-sd), whose failed replicates are
+    counted and reported (ROADMAP C5); writes .timetree.nwk/.nex/.lsd."""
+    prefix = params.prefix
+    if params.date_file == "TAXNAME":
+        dates = timetree.dates_from_names(aln.names)
+    else:
+        dates = timetree.parse_date_file(Path(params.date_file).read_text(),
+                                         aln.names)
+    root_edge = None
+    if params.outgroup:
+        outgroup = params.outgroup.split(",")
+        root_edge = timetree.outgroup_root_edge(tree, outgroup, aln.names)
+        if params.date_no_outgroup:
+            # LSD -G: root on the outgroup edge but keep outgroup tips out
+            # of the WLS fit
+            og = {aln.names.index(n) for n in outgroup}
+            dates = {k: v for k, v in dates.items() if k not in og}
+    fixed_rate = float(params.date_rate) if params.date_rate else None
+    root_date = float(params.date_root) if params.date_root else None
+    log(f"Least-squares dating with {len(dates)} tip dates "
+        f"(LSD2 analog)...")
+    nd, rate, parent, tt, root = timetree.date_tree(
+        tree, dates, root_edge=root_edge, fixed_rate=fixed_rate,
+        root_date=root_date)
+    with open(f"{prefix}.timetree.nwk", "w") as f:
+        f.write(timetree.timetree_newick(tt, nd, parent, root) + "\n")
+    dci = rci = None
+    n_failed = 0
+    if params.date_ci > 0:
+        log(f"Dating confidence intervals: {params.date_ci} "
+            f"branch-resampling replicates (clock sd "
+            f"{params.clock_sd})...")
+        dci, rci, n_failed = timetree.date_tree_ci(
+            tree, dates, seq_len=aln.nsites, n_reps=params.date_ci,
+            clock_sd=params.clock_sd, root_edge=root_edge,
+            fixed_rate=fixed_rate, root_date=root_date, seed=params.seed)
+        search_info["Rate 95% CI"] = f"[{rci[0]:.6g}, {rci[1]:.6g}]"
+        search_info["Failed dating replicates"] = \
+            f"{n_failed} of {params.date_ci}"
+        log(f"Dating replicates failed: {n_failed} of {params.date_ci}")
+    with open(f"{prefix}.timetree.nex", "w") as f:
+        f.write(timetree.timetree_nexus(tt.copy(), nd, parent, root,
+                                        aln.names, ci=dci))
+    timetree.write_lsd_report(f"{prefix}.timetree.lsd", nd, rate, root, tt,
+                              aln.names, rate_ci=rci, date_ci=dci,
+                              n_reps=params.date_ci, n_failed=n_failed)
+    search_info["Clock rate (subst/site/time)"] = f"{rate:.6g}"
+    search_info["Root date"] = f"{nd[root]:.6g}"
+    log(f"Time tree -> {prefix}.timetree.nwk/.nex/.lsd  "
+        f"rate {rate:.6g}  root date {nd[root]:.6g}")
 
 
 def pmsf_engine(params: Params, eng: LikelihoodEngine, aln, rng,
@@ -726,6 +785,8 @@ def run_analysis(params: Params, device="cuda") -> dict:
         _write_site_outputs(params, eng, tree, aln, log)
         if params.root_test:
             root_test(params, eng, tree, aln, search_info, log)
+        if params.date_file:
+            date_final_tree(params, tree, aln, search_info, log)
         elapsed = time.time() - t_start
         report_io.write_iqtree_report(
             f"{prefix}.iqtree", params=params, aln=aln, model=model,

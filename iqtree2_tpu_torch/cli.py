@@ -11,12 +11,24 @@
                               [--root-test] [--pmsf [-t TREE]] [-n N]
                               [-nstop N] [-ninit N] [-ntop N] [-nbest N]
                               [-pers X] [--f64] [--device cuda|cpu]
+                              [--date FILE|TAXNAME [--date-ci N]
+                               [--clock-sd X] [--date-root D]
+                               [--date-rate R] [--date-no-outgroup]]
   python -m iqtree2_tpu_torch [-s ALN] -p|-q|-Q|-S PARTITIONS
                               [-m MODEL|MFP|MF|TEST|TESTONLY|MF+MERGE|
                                MFP+MERGE|TESTMERGE] [--merge greedy|kmeans]
                               [-te TREE] [-bb N [-bsam SITE|GENE|GENESITE]]
                               [-alrt N] [-abayes] [--symtest]
                               [--symtest-remove-bad [--symtest-pval P]] ...
+  python -m iqtree2_tpu_torch --alisim PREFIX -t TREE [-m MODEL] [-st TYPE]
+                              [--length N] [--num-alignments N]
+                              [--indel INS,DEL [--indel-size X]] [-s ALN]
+                              [-p PARTITIONS] [--alisim-nprocs N
+                               --alisim-rank R] [-seed N]
+  python -m iqtree2_tpu_torch -r N [-rtype MODEL] | -con TREES |
+                              -t TREES (-rf TREES2 | -rf_all) |
+                              -t TREE (-pd K | -bud B [-cost FILE] |
+                              -pdsets FILE [-pd K] [-endem] [-comp AREAS])
 
 The flags are the JAX package's: build_parser and params_from_args are
 copied from iqtree2_tpu/cli.py, the whole parser, so that refuse_unported
@@ -34,15 +46,20 @@ tests (--symtest), under any model of the factory (mixtures included,
 with -wspm; the nonreversible, Lie-Markov and PoMo models; +H per-class
 branch lengths; +T tree mixtures over the -te trees) and under PMSF
 (--pmsf, -t naming its guide tree), and the root position test
-(--root-test); and the
+(--root-test), and least-squares dating of the final tree (--date); the
 partitioned analysis (-p edge-proportional, -q edge-equal, -Q unlinked
 branch lengths, -S one tree per locus) with per-partition ModelFinder and
-merging, -bsam and --symtest-remove-bad.
+merging, -bsam and --symtest-remove-bad; and the standalone tools
+(standalone.py): AliSim (--alisim), random trees (-r), consensus (-con),
+Robinson-Foulds distances (-rf, -rf_all) and phylogenetic diversity (-pd,
+-bud, -pdsets). -lmap, --gcf and --scf, which the JAX package parses and
+never reads (ROADMAP C23), stop with a SystemExit naming the port's
+function that computes each.
 Any flag whose path is not yet ported stops the run with a SystemExit that
 names it, and so does each flag the JAX package's partition path accepts
 and ignores (-g, -b, --runs, -bnni, --tbe, -z, -wsl, -wsr, -wsp*,
---mlrate, -asr, -mldist, -o, -blfix, --pmsf, --mdef, --root-test; and the
-model families of ROADMAP C19), and with --pmsf each output
+--mlrate, -asr, -mldist, -o, -blfix, --pmsf, --mdef, --root-test, --date;
+and the model families of ROADMAP C19), and with --pmsf each output
 the JAX package's site-specific-frequency engine cannot give (PMSF_REFUSED),
 so nothing is silently ignored.
 """
@@ -70,14 +87,30 @@ PORTED_DESTS = frozenset({
     "symtest", "symtest_remove_bad", "symtest_pval", "partition_edge_prop",
     "partition_edge_equal", "partition_unlinked", "partition_topo_unlinked",
     "merge_algorithm", "boot_spec", "pmsf", "start_tree", "mdef_file",
-    "root_test"})
+    "root_test", "date_file", "date_ci", "clock_sd", "date_root",
+    "date_rate", "date_no_outgroup"} | {
+    # the standalone tools (main's dispatch)
+    "alisim", "sim_length", "sim_num_alignments", "indel", "indel_size",
+    "sim_nprocs", "sim_rank", "random_tree_n", "random_tree_model",
+    "consensus_of", "rf_tree_file", "rf_all", "pd_k", "pd_budget", "pd_cost",
+    "pd_sets", "pd_endem", "pd_comp"})
+# destinations the JAX package parses and never reads (ROADMAP C23), and the
+# port's function that computes what each asks for
+PARSED_AND_IGNORED = {
+    "lmap_quartets": "ops/quartet.likelihood_mapping",
+    "gcf_tree_file": "treeutils.gene_concordance",
+    "scf_quartets": "treeutils.site_concordance"}
+# the dating flags that act only beside --date
+DATE_OPTIONS = ("date_ci", "clock_sd", "date_root", "date_rate",
+                "date_no_outgroup")
 # destinations the JAX package's partition path (-p/-q/-Q) accepts and never
 # reads: the port refuses them there
 PARTITION_IGNORED = ("constraint_tree", "standard_bootstrap", "num_runs",
                      "bnni", "tbe", "user_trees_file", "write_site_lh",
                      "write_site_rate", "write_site_prob", "write_ml_rate",
                      "do_asr", "write_ml_dist", "outgroup",
-                     "fix_branch_lengths", "pmsf", "mdef_file", "root_test")
+                     "fix_branch_lengths", "pmsf", "mdef_file", "root_test",
+                     "date_file")
 # destinations whose path needs what the PMSF site-specific-frequency engine
 # lacks (rate posteriors, ASR, a model, NNI site log-likelihoods, reweighted
 # views): each raises AttributeError in the JAX package (ROADMAP C12)
@@ -330,8 +363,21 @@ def refuse_unported(args: argparse.Namespace,
             continue
         default = parser.get_default(action.dest)
         if getattr(args, action.dest, default) != default:
-            raise SystemExit(f"{'/'.join(action.option_strings)}: not yet "
-                             f"ported to iqtree2_tpu_torch")
+            flag = '/'.join(action.option_strings)
+            if action.dest in PARSED_AND_IGNORED:
+                raise SystemExit(
+                    f"{flag}: not yet ported to iqtree2_tpu_torch as a flag: "
+                    f"parsed and ignored by the JAX package (ROADMAP C23); "
+                    f"the function is {PARSED_AND_IGNORED[action.dest]}")
+            raise SystemExit(f"{flag}: not yet ported to iqtree2_tpu_torch")
+    if not args.date_file:
+        _refuse_with(args, parser, "no --date", DATE_OPTIONS,
+                     "acts on the dating of --date FILE|TAXNAME")
+    if tool_mode(args):
+        return
+    if args.date_file and args.model.upper() in ("MF", "TESTONLY"):
+        raise SystemExit(f"--date: dates the analysis' tree; -m {args.model} "
+                         f"builds none")
     if args.user_tree and args.ufboot_replicates:
         raise SystemExit("-bb/-B: the ultrafast bootstrap samples the trees "
                          "of a search; drop -te or -bb")
@@ -394,6 +440,21 @@ def refuse_unported(args: argparse.Namespace,
                              "-p/-q/-Q")
 
 
+def tool_mode(args) -> str:
+    """The function of standalone.py that runs the standalone tool the flags
+    ask for, in the JAX CLI's order of dispatch ("" for an analysis)."""
+    for dest, tool in (("alisim", "alisim"), ("random_tree_n", "random_tree"),
+                       ("consensus_of", "consensus"),
+                       ("pd_k", "phylogenetic_diversity"),
+                       ("pd_budget", "phylogenetic_diversity"),
+                       ("pd_sets", "phylogenetic_diversity"),
+                       ("rf_tree_file", "rf_distances"),
+                       ("rf_all", "rf_distances")):
+        if getattr(args, dest):
+            return tool
+    return ""
+
+
 def _refuse_with(args, parser, mode: str, dests, why: str) -> None:
     """SystemExit naming the first flag of ``dests`` given with ``mode``
     (of flags sharing a destination, the one whose constant it holds)."""
@@ -410,6 +471,10 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     refuse_unported(args, parser)
     pr = params_from_args(args)
+    tool = tool_mode(args)
+    if tool:
+        from iqtree2_tpu_torch import standalone
+        return getattr(standalone, tool)(pr, args)
     if not pr.aln_file and not pr.partition_file:
         print("error: -s ALIGNMENT is required", file=sys.stderr)
         return 2

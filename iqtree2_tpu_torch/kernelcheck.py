@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from iqtree2_tpu_torch import simulator, timetree
 from iqtree2_tpu_torch.data.alignment import Alignment
 from iqtree2_tpu_torch.data.superalignment import (SuperAlignment,
                                                    build_superalignment)
@@ -49,7 +50,6 @@ from iqtree2_tpu_torch.model.codon import sense_codons
 from iqtree2_tpu_torch.model.factory import build_model
 from iqtree2_tpu_torch.model.heterotachy import MixlenEngine, RateHeterotachy
 from iqtree2_tpu_torch.model.mixture import MixtureModel
-from iqtree2_tpu_torch.model.rates import RateModel
 from iqtree2_tpu_torch.ops import kernels, pruning
 from iqtree2_tpu_torch.ops.pruning import DownPass
 from iqtree2_tpu_torch.roottest import root_alignment, rooted_tree_on_branch
@@ -173,37 +173,20 @@ def class_sites(weights, nsites: int) -> np.ndarray:
 def simulate_mixture(tree: Tree, model: MixtureModel, rates, nsites: int,
                      rng) -> dict[str, str]:
     """{taxon: sequence} under a mixture, one class at a time: a block of
-    sites per class (class_sites) simulated under that class alone, its
-    exchangeabilities and profile and the rate model (a fused class with
-    its own rate category alone), the blocks concatenated. The simulator
-    itself draws every site from class 0 (ROADMAP C11)."""
-    blocks = []
-    r_fused = rates.category_rates()
-    for m, (comp, n) in enumerate(zip(model.components,
-                                      class_sites(model.weights, nsites))):
-        exch, freqs, mult = comp
-        cls_rates = rates
-        if model.fused_rates:
-            mult, cls_rates = mult * r_fused[m], RateModel()
-        one = MixtureModel([(exch, freqs, mult)], [1.0], name=model.name,
-                           num_states=model.num_states)
-        blocks.append(simulate_alignment(tree, one, cls_rates, int(n), rng))
-    return {k: "".join(b[k] for b in blocks) for k in blocks[0]}
+    sites per class (class_sites) simulated under that class alone
+    (simulator.simulate_mixture), the blocks concatenated. The JAX
+    simulator draws every site from class 0 (ROADMAP C11)."""
+    counts = class_sites(model.weights, nsites)
+    return simulator.simulate_mixture(
+        tree, model, rates, nsites, rng,
+        site_class=np.repeat(np.arange(len(counts)), counts))
 
 
 def simulate_nonrev(tree: Tree, model, rates, nsites: int,
                     rng) -> dict[str, str]:
-    """{taxon: sequence} under a nonreversible model, P(t) = expm(Q t) in
-    float64 (ops/pruning.expm_ss): the simulator's own P comes from the
-    eigensystem, which for such a model keeps a complex one's real parts
-    (ROADMAP C18)."""
-    Q = torch.as_tensor(np.asarray(model.get_eigensystem().Q)[0],
-                        dtype=torch.float64)
-
-    def pmatrix(t: float) -> np.ndarray:
-        return pruning.expm_ss(Q * t).numpy()
-    return simulate_alignment(tree, model, rates, nsites, rng,
-                              pmatrix=pmatrix)
+    """{taxon: sequence} under a nonreversible model, P(t) = expm(Q t)
+    (simulator.simulate_nonrev; ROADMAP C18)."""
+    return simulator.simulate_nonrev(tree, model, rates, nsites, rng)
 
 
 def simulate(model_name: str, ntaxa: int, nsites: int, seed: int):
@@ -335,6 +318,29 @@ def load_problem(aln_path, tree_path, model_name: str):
     model, rates, _ = build_model(MODELS[model_name][2], aln)
     tree = Tree.from_newick(Path(tree_path).read_text(), aln.names)
     return aln, tree, model, rates
+
+
+def clock_dates(tree: Tree, rate: float, origin: float = 2000.0
+                ) -> dict[str, float]:
+    """{taxon: date} under a strict clock of ``rate`` on ``tree`` rooted at
+    its midpoint (timetree.midpoint_root, where date_tree roots it without
+    an outgroup): origin plus each tip's distance from that root over the
+    rate, so that the tree fits the dates exactly."""
+    a, b, frac = timetree.midpoint_root(tree)
+    ln = tree.get_blen(a, b)
+    dates = {}
+    for start, away, d0 in ((a, b, frac * ln), (b, a, (1 - frac) * ln)):
+        seen, stack = {start: d0, away: None}, [start]
+        while stack:
+            v = stack.pop()
+            for u in tree.adj[v]:
+                if u not in seen:
+                    seen[u] = seen[v] + tree.get_blen(u, v)
+                    stack.append(u)
+        dates.update({tree.taxon_names[v]: origin + d / rate
+                      for v, d in seen.items()
+                      if d is not None and tree.is_leaf(v)})
+    return dates
 
 
 def perturbed(tree: Tree, seed: int, strength: float) -> tuple[Tree, int]:

@@ -7,9 +7,11 @@ pll/fastDNAparsimony.c (randomized stepwise addition used for start trees).
 The pattern axis is vectorized with numpy; edge-candidate scoring during
 stepwise addition is batched as one [n_edges, patterns] operation.
 
-Copied from iqtree2_tpu/ops/pars.py, the host half the search runs (no
-Sankoff scores): the port keeps its own host modules and
-imports nothing of the JAX package.
+Copied from iqtree2_tpu/ops/pars.py: the port keeps its own host modules and
+imports nothing of the JAX package. The Sankoff score runs on the host
+(sankoff_score, the copy) and on a device (sankoff_score_device, in plain
+torch where the JAX function is XLA: a min-plus pass over the tree
+schedule's level steps).
 """
 
 from __future__ import annotations
@@ -89,6 +91,78 @@ def fitch_score(tree: Tree, masks: np.ndarray,
             cost += extra
         sets[v] = acc
     return float((cost * weights).sum())
+
+
+def sankoff_score(tree: Tree, codes: np.ndarray, weights: np.ndarray,
+                  cost: np.ndarray, tip_table: np.ndarray) -> float:
+    """Weighted Sankoff parsimony with an arbitrary state-change cost
+    matrix (reference: the Sankoff kernel, tree/phylotreepars.cpp:636).
+
+    codes: [L, P] tip codes; cost: [S, S]; tip_table: [ncodes, S]
+    indicator rows (ambiguity = 0-cost for every compatible state).
+    Vectorized over patterns: S_v(x, p) = sum_children min_y (c(x,y) +
+    S_u(y, p)).
+    """
+    BIG = 1e30
+    # tip state costs: 0 for compatible states, BIG otherwise
+    tip_cost = np.where(tip_table > 0, 0.0, BIG)      # [ncodes, S]
+    root = tree._default_root()
+    dp: dict[int, np.ndarray] = {}
+    for v, p in tree.postorder(root):
+        if tree.is_leaf(v):
+            dp[v] = tip_cost[codes[v]].T              # [S, P]
+            continue
+        acc = None
+        for u in tree.adj[v]:
+            if u == p:
+                continue
+            # min over child state y of cost[x, y] + dp[u][y]
+            m = (cost[:, :, None] + dp[u][None, :, :]).min(axis=1)
+            acc = m if acc is None else acc + m
+        dp[v] = acc
+    return float((dp[root].min(axis=0) * weights).sum())
+
+
+def sankoff_score_device(tree: Tree, codes: np.ndarray,
+                         weights: np.ndarray, cost: np.ndarray,
+                         tip_table: np.ndarray, device="cuda") -> float:
+    """Sankoff on a device (counterpart of the JAX package's XLA
+    sankoff_score_device): the min-plus analog of the down pass over the
+    same TreeSchedule arrays, in float32 — each level step one batched
+    [G, 2, S, S, P] min-reduction instead of a sum-product contraction,
+    leaf 0 folded into the root. Reference: the Sankoff kernel of
+    tree/phylotreepars.cpp:636 (computePartialParsimonySankoff). A tree
+    that is not binary runs on the host (sankoff_score), as the schedule
+    takes two children per node.
+    """
+    import torch
+
+    from iqtree2_tpu_torch.tree.schedule import build_schedule
+
+    if not tree.check_binary_unrooted():
+        return sankoff_score(tree, codes, weights, cost, tip_table)
+    BIG = 1e9
+    sched = build_schedule(tree)
+    L, n_int = sched.ntaxa, sched.n_int
+    f32 = dict(dtype=torch.float32, device=device)
+    tip_cost = np.where(tip_table > 0, 0.0, BIG)        # [ncodes, S]
+    tipC = torch.as_tensor(np.transpose(tip_cost[codes], (0, 2, 1)), **f32)
+    C = torch.as_tensor(cost, **f32)
+    child_src = torch.as_tensor(sched.child_src, dtype=torch.long,
+                                device=device)
+    DP = torch.full((L + n_int,) + tipC.shape[1:], BIG, **f32)
+    DP[:L] = tipC
+    for nid in sched.step_node:
+        nid = nid[nid < n_int]
+        if not len(nid):
+            continue
+        rows = torch.as_tensor(nid, dtype=torch.long, device=device)
+        src = DP[child_src[rows]]                        # [G, 2, S, P]
+        m = (C[None, None, :, :, None] + src[:, :, None]).amin(dim=3)
+        DP[L + rows] = m.sum(dim=1).clamp(max=BIG)       # [G, S, P]
+    m0 = (C[:, :, None] + tipC[0][None]).amin(dim=1)
+    total = (DP[L + n_int - 1] + m0).amin(dim=0)        # [P]
+    return float((total * torch.as_tensor(weights, **f32)).sum())
 
 
 def random_stepwise_addition(aln: Alignment, rng: np.random.Generator,

@@ -355,7 +355,10 @@ def run_unlinked_topology_analysis(params: Params, device="cuda") -> dict:
                 log(f"===> locus {name}: {p.nsites} sites, model "
                     f"{sub.model}")
                 res = run_analysis(sub, device=device)
-            if "tree" not in res:
+            # as in the JAX package, a mode without one tree stops -S:
+            # model selection alone, or a tree mixture (+T), whose JAX
+            # result holds its trees and no "tree"
+            if "tree" not in res or "trees" in res:
                 raise SystemExit(
                     f"ERROR: model '{sub.model}' is not supported with -S "
                     f"(locus {name}: the analysis mode returns no single "

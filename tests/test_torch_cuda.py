@@ -20,6 +20,9 @@ Without a CUDA device every test skips. Inputs are simulated problems; the
 comparison and its tolerances are iqtree2_tpu_torch/kernelcheck.py's.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -618,3 +621,70 @@ def test_nonrev_and_mixlen_on_cuda_match_cpu(cuda):
     np.testing.assert_allclose(w1, w0, atol=1e-8)
     np.testing.assert_allclose(r1.logL, r0.logL, rtol=1e-10)
     assert r1.best == r0.best
+
+
+@pytest.mark.cuda
+def test_quartet_newton_on_cuda_matches_cpu(cuda):
+    """Likelihood mapping's batched quartet Newton (plain torch on the
+    engine's device), float64: the card's topology logLs within 1e-9 of
+    the CPU's, the regions equal."""
+    from iqtree2_tpu_torch.ops import quartet
+    aln, _, model, rates = kernelcheck.simulate("GTR+G4", 12, 600, seed=3)
+    out = []
+    for dev in ("cpu", cuda):
+        eng = LikelihoodEngine(aln, model, rates, dtype=torch.float64,
+                               device=dev)
+        out.append(quartet.likelihood_mapping(eng, 64,
+                                              np.random.default_rng(2)))
+    np.testing.assert_allclose(out[1]["logls"], out[0]["logls"], rtol=1e-9)
+    np.testing.assert_array_equal(out[1]["regions"], out[0]["regions"])
+
+
+@pytest.mark.cuda
+def test_sankoff_on_cuda_matches_host(cuda):
+    """The min-plus Sankoff pass on the card equals the host score under a
+    unit and a transition/transversion cost matrix."""
+    from iqtree2_tpu_torch.ops import pars
+    aln, tree, _, _ = kernelcheck.simulate("GTR+G4", 40, 2000, seed=5)
+    for cost in (1.0 - np.eye(4),
+                 np.array([[0, 2, 1, 2], [2, 0, 2, 1], [1, 2, 0, 2],
+                           [2, 1, 2, 0]], np.float64)):
+        args = (aln.tip_codes(), aln.pattern_weights, cost,
+                aln.seqtype.tip_table)
+        assert pars.sankoff_score_device(tree, *args, device=cuda) == \
+            pars.sankoff_score(tree, *args)
+
+
+@pytest.mark.cuda
+def test_dating_search_on_cuda_matches_cpu(cuda, tmp_path):
+    """A 12-taxon search with --date and intervals, float64 through the
+    CLI: the card's tree and logL as the CPU's, and its rate, root date
+    and their intervals within 1e-4 (the searches' branch lengths agree to
+    their Newton's tolerance, 6e-6 relative in the rate on an H100)."""
+    from iqtree2_tpu_torch import cli
+    aln, tree, _, _ = kernelcheck.simulate("GTR+G4", 12, 500, seed=3)
+    phy, nwk = kernelcheck.write_problem(aln, tree, str(tmp_path / "p"))
+    dates = tmp_path / "dates.txt"
+    dates.write_text("".join(f"{n} {d}\n" for n, d in
+                             kernelcheck.clock_dates(tree, 0.01).items()))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pre = tmp_path / dev
+        assert cli.main(["-s", phy, "-m", "GTR+G", "-n", "2", "-ninit", "5",
+                         "-ntop", "2", "-nbest", "2", "--f64", "--date",
+                         str(dates), "--date-ci", "20", "--device", dev,
+                         "-pre", str(pre), "--quiet"]) == 0
+        lsd = Path(f"{pre}.timetree.lsd").read_text().splitlines()
+        # the rate and root date lines with their intervals
+        report = Path(f"{pre}.iqtree").read_text()
+        out[dev] = (Path(f"{pre}.treefile").read_text(),
+                    [float(x) for x in re.findall(r"\d+\.?\d*(?:e-?\d+)?",
+                                                  " ".join(lsd[1:3]))],
+                    float(report.split("Log-likelihood of the tree:")[1]
+                          .split()[0]))
+    (tree_cpu, cpu, logl_cpu), (tree_card, card, logl_card) = out.values()
+    assert Tree.from_newick(tree_card, aln.names).topology_id() == \
+        Tree.from_newick(tree_cpu, aln.names).topology_id()
+    assert logl_card == pytest.approx(logl_cpu, abs=1e-6)
+    assert len(card) == len(cpu) == 6
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)

@@ -5,8 +5,9 @@ iqtree2_tpu_torch keeps copies of the alignment, model (mixtures, codon
 models, the +E error model and their data files included), --mdef YAML
 definition, tree-schedule,
 parsimony, BIONJ, UFBoot, simulation, optimizer, WH-test, transfer-support,
-tree-test, constraint-tree, supermatrix, terrace and symmetry-test modules
-and of the partition analysis' host helpers so that
+tree-test, constraint-tree, supermatrix, terrace and symmetry-test modules,
+of the partition analysis' host helpers and of the standalone tools'
+modules (AliSim's simulator, treeutils, pd, timetree, Sankoff) so that
 it imports nothing of iqtree2_tpu; each case builds its inputs twice, once
 per package, and the outputs must be equal, bit for bit.
 """
@@ -711,3 +712,59 @@ def test_roottest_helpers_match_jax(tmp_path):
     jroottest.write_roottest_csv(tmp_path / "b.csv", res[1])
     assert (tmp_path / "a.csv").read_text() == \
         (tmp_path / "b.csv").read_text()
+
+
+def _standalone_case(module: str, tmp_path) -> tuple:
+    """(port's output, JAX package's output) of one copied standalone-tool
+    module on the same plain inputs."""
+    import iqtree2_tpu.pd as jpd
+    import iqtree2_tpu.simulator as jsim
+    import iqtree2_tpu.timetree as jtimetree
+    import iqtree2_tpu.treeutils as jtreeutils
+    from iqtree2_tpu_torch import pd, simulator, timetree, treeutils
+    nwk = (GOLDEN / "ref_tree.nwk").read_text()
+    t, jt = Tree.from_newick(nwk), JTree.from_newick(nwk)
+    if module == "simulator":
+        out = []
+        for T, A, bm, sim in ((Tree, Alignment, build_model, simulator),
+                              (JTree, JAlignment, jbuild_model, jsim)):
+            tree = T.from_newick(nwk)
+            dummy = A.from_sequences(tree.taxon_names,
+                                     ["ACGT"] * tree.ntaxa, seqtype="DNA")
+            model, rates, _ = bm("HKY+G", dummy)
+            seqs = sim.simulate_alignment_indel(
+                tree, model, rates, 80, np.random.default_rng(3), 0.1, 0.1)
+            path = tmp_path / f"{len(out)}.fa"
+            sim.write_fasta(path, seqs)
+            out.append(path.read_text())
+        return tuple(out)
+    if module == "treeutils":
+        return tuple((m.random_tree(9, "uniform", np.random.default_rng(2))
+                      .to_newick(), m.rf_distance(x, x), m.max_rf(x))
+                     for m, x in ((treeutils, t), (jtreeutils, jt)))
+    if module == "pd":
+        return tuple((m.greedy_pd(x, 4), m.budget_pd(x, 3.0, {}))
+                     for m, x in ((pd, t), (jpd, jt)))
+    if module == "timetree":
+        tips = {i: 2000.0 + 3 * i for i in range(t.ntaxa)}
+        return tuple((m.date_tree(x, tips)[:2], m.midpoint_root(x))
+                     for m, x in ((timetree, t), (jtimetree, jt)))
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    jaln = jread_alignment(str(GOLDEN / "example.phy"))
+    cost = 1.0 - np.eye(4)
+    return (pars.sankoff_score(Tree.from_newick(nwk, aln.names),
+                               aln.tip_codes(), aln.pattern_weights, cost,
+                               aln.seqtype.tip_table),
+            jpars.sankoff_score(JTree.from_newick(nwk, jaln.names),
+                                jaln.tip_codes(), jaln.pattern_weights, cost,
+                                jaln.seqtype.tip_table))
+
+
+@pytest.mark.parametrize("module", ["simulator", "treeutils", "pd",
+                                    "timetree", "pars"])
+def test_standalone_tool_modules_match_jax(module, tmp_path):
+    """The copies the standalone tools run (tests/test_torch_alisim.py,
+    test_torch_treetools.py, test_torch_pd.py, test_torch_timetree.py and
+    test_torch_quartet.py hold them through the command lines)."""
+    port, jax = _standalone_case(module, tmp_path)
+    assert port == jax

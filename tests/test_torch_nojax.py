@@ -10,9 +10,10 @@ two-iteration tree search with UFBoot, a small ModelFinder run
 (every support, the site outputs, -asr, -mldist, -o), a partitioned fit
 (-p example.nex -te) and, on a small simulated protein alignment, a
 profile mixture's -te fit with -wspm and a --pmsf -te run, then a codon
--te fit, +E and a --mdef model. A source scan fails on any import of
-iqtree2_tpu itself in the port, in chip_smoke.py and in the card-only
-tests/test_torch_cuda.py.
+-te fit, +E and a --mdef model, then the standalone tools (--alisim
+under a mixture, -r, -pd) and a --date run with intervals. A source scan
+fails on any import of iqtree2_tpu itself in the port, in chip_smoke.py
+and in the card-only tests/test_torch_cuda.py.
 """
 
 import ast
@@ -107,6 +108,25 @@ with tempfile.TemporaryDirectory() as d:
         assert cli.main(["-s", phy, "--device", "cpu", "-pre", d + "/n",
                          "--quiet"] + argv) == 0
         assert "Log-likelihood" in open(d + "/n.iqtree").read()
+    import contextlib, io
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["--alisim", d + "/sim", "-t", sys.argv[2], "-m",
+                         "LG+C10+G", "--length", "40", "--device",
+                         "cpu"]) == 0
+        assert cli.main(["-r", "8", "-pre", d + "/rt"]) == 0
+        assert cli.main(["-pd", "4", "-t", sys.argv[2], "-pre",
+                         d + "/pd"]) == 0
+    assert open(d + "/sim.phy").readline() == "17 40\n"
+    assert open(d + "/rt.treefile").read().count(",") == 7
+    assert "PD = " in open(d + "/pd.pda").read()
+    names = [ln.split()[0] for ln in open(sys.argv[1]).read().splitlines()[1:]
+             if ln.strip()]
+    open(d + "/dates.txt", "w").write(
+        "".join(f"{n} {2000 + i}\n" for i, n in enumerate(names)))
+    assert cli.main(["-s", sys.argv[1], "-te", sys.argv[2], "-m", "JC",
+                     "-blfix", "--date", d + "/dates.txt", "--date-ci", "5",
+                     "--device", "cpu", "-pre", d + "/dt", "--quiet"]) == 0
+    assert "failed replicates: " in open(d + "/dt.timetree.lsd").read()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "optax", "iqtree2_tpu", "yaml")
             and sys.modules[m] is not None]
