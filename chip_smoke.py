@@ -119,7 +119,7 @@ ending in torch.cuda.synchronize():
    within 5% of 1 and not all at their start, the peak device memory
    and the wall split into model fits, partition rates and branch
    lengths;
-   (d) a supermatrix of 20 loci x 1000 sites over 100 taxa, each locus
+   (d) a supermatrix of 10 loci x 1000 sites over 100 taxa, each locus
    simulated under GTR+G4, HKY+G4, TN+I+G4 or K2P+R3 at a rate in 0.25-4
    without a tenth of the taxa, one PHYLIP file per locus, searched with
    -p -m GTR+G -B 1000 -n 2 -ninit 10 -nbest 1 (iterations and start
@@ -219,7 +219,28 @@ ending in torch.cuda.synchronize():
    transition/transversion cost matrix; (e) -r 100, -con and -rf_all on
    (b)'s replicate trees, -pd 5 and -bud 4, each file checked.
 
-A "[time]" line gives the start of each phase and the end of phase 16.
+17. the distributed search and the pattern-sharded likelihood
+   (parallel/): (a) dryrun_multichip on phase 5's 1000 x 16384 GTR+G4
+   problem in float32, 2 ranks over gloo on the one card and 1 over NCCL:
+   the sharded logL, optimize step, RELL and NNI batch against the
+   unsharded engine to the JAX dry run's tolerances, one gossip round,
+   each rank's launches one per pass, its peak memory and the sharded
+   Newton round's ms beside the unsharded one's, then the kernels against
+   their plain versions at a rank's shapes (1000 x 8192); (b) -m GTR+G -B
+   1000 on example.phy, two processes on the card (depth cut to
+   DIST_DEPTH), first with --dist-nranks 2 --dist-dir (FileGossip), then
+   under torchrun's environment (WORLD_SIZE=2, TorchGossip over gloo;
+   beside (c), whose walls it shares), launches reset just before and read just after in each, one per pass,
+   both ranks writing the same tree under phase 6's checks; (c) DistributedSearch at 1 rank and at 2 over
+   gloo at the flagship's shapes: the same topology, logL within 1e-6
+   relative.
+
+A "[time]" line gives the start of each phase and the end of phase 17.
+Phase 9 runs in a process of its own beside phases 10 and 11, and 12a
+beside 12b-e (start_part; their lines print when they are joined, after
+11 and after 12e): each is host-paced, and the script's wall must stay
+inside its limit on slow hosts. The walls of phases 9-12 are therefore
+taken with two processes sharing the card and the host.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
@@ -229,7 +250,8 @@ partition_launches from phase 12's partitioned default command and
 mixture_launches from phase 13c's mixture search,
 model_family_launches from phase 14b-f's command lines, nonrev_launches
 from phase 15c's UNREST search with the root test, dating_launches from
-phase 16b's search with --date; times,
+phase 16b's search with --date, distributed_launches summed over 17b's
+two ranks on both routes; times,
 back-to-back times
 and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
 single PyTorch call computes a pruning pass, so library_ms is null); the
@@ -241,7 +263,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -304,7 +328,8 @@ WIDE_MODEL = "GTR+FQ+G"
 MAX_RATE_DEV = 0.05         # 12c: every locus has the same rate
 # 12d: the loci's simulating models (every parameter fixed) and the model
 # the charpartition names for each
-LOCI, LOCUS_SITES, LOCUS_TAXA, LOCUS_GAPS = 20, 1000, 100, 0.1
+# (LOCI cut from 20 for phase 17's room)
+LOCI, LOCUS_SITES, LOCUS_TAXA, LOCUS_GAPS = 10, 1000, 100, 0.1
 # 12d's search depth, cut from the defaults (-ninit 100, -nbest 5) for the
 # script's time: each NNI polish of a start tree takes about 13 s there;
 # cut from -n 10 -ninit 20 -nbest 2 for phase 13, then from -n 5 and -ntop
@@ -437,6 +462,24 @@ SANKOFF_COSTS = {          # 16d
     "unit": ((0, 1, 1, 1), (1, 0, 1, 1), (1, 1, 0, 1), (1, 1, 1, 0)),
     "ts/tv": ((0, 2, 1, 2), (2, 0, 2, 1), (1, 2, 0, 2), (2, 1, 2, 0))}
 RANDOM_TAXA, RF_TREES, PD_K, PD_BUDGET = 100, 100, 5, 4   # 16e
+# phase 17: one rank's launches in 17a's sharded checks, one per pass
+DRYRUN_LAUNCHES = {
+    "loglik": {"down_pass": 1, "sitelp": 1, "up_pass": 0, "theta_pass": 0},
+    "step": {"down_pass": 2, "sitelp": 1, "up_pass": 0, "theta_pass": 1},
+    "nni passes": {"down_pass": 1, "sitelp": 0, "up_pass": 1,
+                   "theta_pass": 0}}
+# 17a's back-to-back timing repetitions at a rank's slice (kernelcheck's
+# default of 50 takes seconds at 1000 x 8192)
+SLICE_B2B_REPS = 10
+# 17b's depth, cut from the default -n 100 -ninit 100 for the phase's time
+DIST_DEPTH = ["-n", "12", "-ninit", "20"]
+# 17c: DistributedSearch's settings, and its 1- and 2-rank logLs' bound
+DIST_SEARCH = dict(seed=1, n_init_trees=10, n_rounds=2, round_size=4)
+DIST_SEARCH_REL = 1e-6
+# start_part's process: this script's function on JSON arguments
+PART_RUN = ("import json, sys, chip_smoke as cs; print('RESULT ' + "
+            "json.dumps(getattr(cs, sys.argv[1])(*json.loads(sys.argv[2]))))")
+PART_TIMEOUT = 900          # seconds a start_part process may take
 
 
 def fail(msg: str) -> int:
@@ -854,6 +897,69 @@ def counted(args: list[str], tag: str, split: bool = False,
           + (f"; fit split (s) {fits.seconds}" if split else ""),
           flush=True)
     return launches
+
+
+def wide_selection(aln_path: str) -> dict:
+    """Phase 9: WIDE_SELECTION through the CLI on phase 5's alignment,
+    launches reset just before and read just after, one per pass; raises
+    unless it picks a GTR model by both fit routes."""
+    import torch
+    from iqtree2_tpu_torch.ops import kernels
+    wide = OUT / "wide"
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes, ModelFinderSpy() as spy:
+        kernels.reset_launch_counts()
+        wall = run_cli(["-s", aln_path] + WIDE_SELECTION + ["-pre", str(wide)])
+        launches = dict(kernels.LAUNCHES)
+    mf = spy.result
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    top = [(e["name"], round(e["logL"], 3), e["df"], round(e["BIC"], 3))
+           for e in mf["table"][:4]]
+    print(f"[phase 9] {' '.join(WIDE_SELECTION)} on {BIG_TAXA} x "
+          f"{BIG_SITES} f32: winner {mf['best']} in {wall:.1f} s "
+          f"(ModelFinder wall seconds {mf['seconds']}); fits by route "
+          f"{spy.routes}; peak device memory {peak:.2f} GiB; top 4 (name, "
+          f"logL, df, BIC) {top}; launches {launches}; passes "
+          f"{passes.calls}", flush=True)
+    if not mf["best"].startswith("GTR"):
+        raise RuntimeError(f"phase 9 picked {mf['best']}; the data are "
+                           f"GTR+G4")
+    if not (spy.routes["joint fit"] and spy.routes["alternation"]):
+        raise RuntimeError(f"phase 9 did not take both routes: "
+                           f"{spy.routes}")
+    if not all(launches[k] > 0 for k in ("down_pass", "sitelp",
+                                         "theta_pass")):
+        raise RuntimeError(f"a kernel of the path was never launched: "
+                           f"{launches}")
+    passes.check(launches, "[phase 9]")
+    return launches
+
+
+def start_part(fn: str, *args, env: dict | None = None) -> subprocess.Popen:
+    """This script's function ``fn`` on ``args`` in a python process of its
+    own (from the checkout's root: the kernels built there are loaded;
+    ``env`` added to this process's environment), whose last line of
+    output is RESULT and fn's JSON result; join_part collects it. Its
+    launch counts are its own."""
+    return subprocess.Popen(
+        [sys.executable, "-c", PART_RUN, fn, json.dumps(args)], cwd=ROOT,
+        env=None if env is None else {**os.environ, **env},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def join_part(proc: subprocess.Popen, tag: str):
+    """Wait for a start_part process, print its output and return its
+    result; raises if it failed or outlasted PART_TIMEOUT."""
+    out, err = proc.communicate(timeout=PART_TIMEOUT)
+    lines = out.splitlines()
+    for ln in lines:
+        if not ln.startswith("RESULT "):
+            print(ln, flush=True)
+    results = [ln[7:] for ln in lines if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not results:
+        raise RuntimeError(f"{tag} exited {proc.returncode}: "
+                           f"{err[-3000:]}")
+    return json.loads(results[-1])
 
 
 def part_default() -> dict:
@@ -2158,6 +2264,183 @@ def standalone_tools(cpu_lmap: subprocess.Popen, parts: str = "abcde"
     return launches
 
 
+def dist_dryrun(problem, errors: dict) -> None:
+    """17a: dryrun_multichip on ``problem`` (phase 5's) over 2 gloo ranks
+    on the one card and 1 NCCL rank, then the kernels against their plain
+    versions at a rank's shapes."""
+    import numpy as np
+    import torch
+    from iqtree2_tpu_torch.engine import PATTERN_PAD, LikelihoodEngine
+    from iqtree2_tpu_torch.parallel import dryrun, shard
+    for n, backend in ((2, "gloo"), (1, "nccl")):
+        tag = f"[phase 17a] {n} rank{'s' * (n > 1)} over {backend}"
+        t0 = time.perf_counter()
+        reps = dryrun.dryrun_multichip(n, backend, "cuda", problem)
+        r0 = reps[0]
+        print(f"{tag} in {time.perf_counter() - t0:.1f} s, slices "
+              f"{[r['slice'] for r in reps]}: logL sharded / unsharded "
+              f"{r0['logL']} (|diff| {r0['logL_err']:.3e}); one step's "
+              f"lengths |diff| {r0['blen_err']:.3e}, logLs "
+              f"{r0['step_logL']}; RELL {r0['rell_err']:.3e} relative; NNI "
+              f"logLs |diff| {r0['nni_err']:.3e}, lengths "
+              f"{r0['nni_topt_err']:.3e}; sharded Newton round ms per rank "
+              f"{[round(r['step_ms'], 3) for r in reps]}, unsharded "
+              f"{r0['unsharded_step_ms']:.3f}; peak device memory GiB per "
+              f"rank {[round(r['peak_gib'], 2) for r in reps]}; launches "
+              f"per rank {[r['launches'] for r in reps]}", flush=True)
+        for r in reps:
+            if r["launches"] != DRYRUN_LAUNCHES:
+                raise RuntimeError(f"{tag} rank {r['rank']}: launches "
+                                   f"{r['launches']}, not one per pass")
+    aln, tree, model, rates = problem
+    Pp = -(-aln.num_patterns // PATTERN_PAD) * PATTERN_PAD
+    per = shard.rank_bounds(Pp, 0, 2)[1]
+    sub = aln.subset_sites(np.nonzero(aln.site_to_pattern < per)[0])
+    eng = LikelihoodEngine(sub, model, rates, dtype=torch.float32,
+                           device="cuda")
+    check_kernels(f"[phase 17a] a rank's slice {sub.ntaxa} x "
+                  f"{sub.num_patterns}", eng, tree, 1, errors,
+                  b2b_reps=SLICE_B2B_REPS)
+
+
+def cli_rank(args: list[str]) -> dict:
+    """One rank of 17b's command line in this process: launches reset just
+    before it and read just after, one per pass (PassCount)."""
+    import torch
+    from iqtree2_tpu_torch.ops import kernels
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        wall = run_cli(args)
+        launches = dict(kernels.LAUNCHES)
+    passes.check(launches, "[phase 17b]")
+    return {"wall": wall, "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def dist_cli_start(route: str, started: list) -> tuple:
+    """17b's command line as two processes on the card: over FileGossip
+    (``route`` "file": --dist-nranks 2 --dist-dir) or under torchrun's
+    environment ("torchrun": TorchGossip on a gloo group). Returns what
+    dist_cli_join reads."""
+    from iqtree2_tpu_torch.parallel.dryrun import free_port
+    gossip = OUT / "dist_gossip"
+    # a fresh directory: an earlier run's round files would be read
+    shutil.rmtree(gossip, ignore_errors=True)
+    prefix = OUT / f"dist_{route}"
+    args = (["-s", str(GOLDEN / "example.phy"), "-m", "GTR+G", "-B",
+             str(FLAGSHIP_REPLICATES)] + DIST_DEPTH + ["-pre", str(prefix)])
+    if route == "file":
+        runs = [(args + ["--dist-nranks", "2", "--dist-dir", str(gossip),
+                         "--dist-rank", str(k)], None) for k in range(2)]
+    else:
+        port = str(free_port())
+        runs = [(args, {"MASTER_ADDR": "localhost", "MASTER_PORT": port,
+                        "WORLD_SIZE": "2", "RANK": str(k)})
+                for k in range(2)]
+    procs = [start_part("cli_rank", a, env=e) for a, e in runs]
+    started.extend(procs)
+    return route, prefix, procs, time.perf_counter()
+
+
+def dist_cli_join(run: tuple, g4: float) -> dict:
+    """Join dist_cli_start's processes and check them: both ranks write
+    the same tree under phase 6's checks, gossip over the route's
+    transport and launch every kernel, one launch per pass (cli_rank).
+    Returns the launches summed over the ranks."""
+    from iqtree2_tpu_torch.tree.topology import Tree
+    route, prefix, procs, t0 = run
+    ranks = [join_part(p, f"[phase 17b {route}] rank {k}")
+             for k, p in enumerate(procs)]
+    wall = time.perf_counter() - t0
+    names = Tree.from_newick((GOLDEN / "ref_tree.nwk").read_text(),
+                             None).taxon_names
+    prefixes = [prefix, Path(f"{prefix}.rank1")]
+    logls = [check_flagship(pre, g4 - 0.5) for pre in prefixes]
+    splits = [set(Tree.from_newick(Path(f"{pre}.treefile").read_text(),
+                                   names).splits()) for pre in prefixes]
+    gossips = [re.search(r"Distributed search: rank .*", log_lines(pre))
+               for pre in prefixes]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    flags = "--dist-nranks 2" if route == "file" else "WORLD_SIZE=2"
+    print(f"[phase 17b] -m GTR+G -B {FLAGSHIP_REPLICATES} "
+          f"{' '.join(DIST_DEPTH)} {flags} f32: {wall:.1f} s for both "
+          f"processes, CLI walls {[round(r['wall'], 1) for r in ranks]} s; "
+          f"{[g and g.group(0) for g in gossips]}; logLs {logls} (bound "
+          f"{g4 - 0.5:.4f}); the same splits {splits[0] == splits[1]}; "
+          f"peak GiB {[round(r['peak_gib'], 2) for r in ranks]}; launches "
+          f"per rank {[r['launches'] for r in ranks]}; wall seconds: "
+          f"{[wall_split(pre) for pre in prefixes]}", flush=True)
+    want = "FileGossip" if route == "file" else "torch.distributed"
+    if not all(g and want in g.group(0) for g in gossips):
+        raise RuntimeError(f"[phase 17b {route}] the ranks did not gossip "
+                           f"over {want}: {gossips}")
+    if splits[0] != splits[1]:
+        raise RuntimeError(f"[phase 17b {route}] the ranks wrote different "
+                           f"trees")
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"[phase 17b {route}] a kernel of the path was "
+                           f"never launched: {launches}")
+    return launches
+
+
+def dist_search() -> None:
+    """17c: DistributedSearch at 1 rank (this process, FileGossip) and at 2
+    spawned ranks over gloo at the flagship's shapes (example.phy, GTR+G4
+    of kernelcheck.MODELS, float32): the same topology, logL within
+    DIST_SEARCH_REL relative."""
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.parallel import dryrun
+    from iqtree2_tpu_torch.parallel.multihost import (DistributedSearch,
+                                                      FileGossip)
+    problem = kernelcheck.load_problem(GOLDEN / "example.phy",
+                                       GOLDEN / "ref_tree.nwk", "GTR+G4")
+    aln, _, model, rates = problem
+    eng = LikelihoodEngine(aln, model, rates, device="cuda")
+    one = OUT / "dist_one"
+    shutil.rmtree(one, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree, logl = DistributedSearch(eng, aln, FileGossip(one, 0, 1), 0, 1,
+                                   **DIST_SEARCH).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reps = dryrun.search_multichip(2, "gloo", "cuda", problem,
+                                   **DIST_SEARCH)
+    diffs = [r["logL"] - logl for r in reps]
+    same = [r["tid"] == tree.topology_id() for r in reps]
+    split = [{k: round(v, 3) for k, v in r["seconds"].items()} for r in reps]
+    print(f"[phase 17c] DistributedSearch {DIST_SEARCH} f32: 1 rank logL "
+          f"{logl:.6f} in {wall:.2f} s; 2 ranks over gloo logL - 1 rank's "
+          f"{diffs}, the same topology {same}, walls "
+          f"{[round(r['wall'], 2) for r in reps]} s, split {split}, "
+          f"launches {[r['launches'] for r in reps]}", flush=True)
+    if not all(same) or max(map(abs, diffs)) > DIST_SEARCH_REL * abs(logl):
+        raise RuntimeError(f"[phase 17c] 2 ranks differ from 1: {same}, "
+                           f"{diffs}")
+
+
+def distributed(problem, g4: float, errors: dict, started: list,
+                parts: str = "abc") -> dict:
+    """Phase 17's parts (a, b, c); returns 17b's launches (empty without
+    b). 17b's torchrun pair runs beside 17c, for the phase's time."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    if "a" in parts:
+        dist_dryrun(problem, errors)
+    if "b" in parts:
+        add(launches, dist_cli_join(dist_cli_start("file", started), g4))
+        torchrun = dist_cli_start("torchrun", started)
+    if "c" in parts:
+        dist_search()
+    if "b" in parts:
+        add(launches, dist_cli_join(torchrun, g4))
+    print(f"[phase 17] {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -2210,7 +2493,7 @@ def main() -> int:
 
 
 def run(started: list) -> int:
-    """Phases 1-16; each process it starts goes into ``started``."""
+    """Phases 1-17; each process it starts goes into ``started``."""
     if not (ROOT / "iqtree2_tpu_torch").is_dir() or not GOLDEN.is_dir():
         return fail("run from the root of a checkout of the repository "
                     "(iqtree2_tpu_torch/ and tests/golden/ are missing)")
@@ -2444,31 +2727,10 @@ def run(started: list) -> int:
     passes.check(main_launches, "[phase 8]")
 
     stamp(9)
-    # 9. model selection at the realistic width
-    wide = OUT / "wide"
-    torch.cuda.reset_peak_memory_stats()
-    with PassCount() as passes, ModelFinderSpy() as spy:
-        kernels.reset_launch_counts()
-        wall = run_cli(["-s", aln_path] + WIDE_SELECTION + ["-pre", str(wide)])
-        launches = dict(kernels.LAUNCHES)
-    mf = spy.result
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    top = [(e["name"], round(e["logL"], 3), e["df"], round(e["BIC"], 3))
-           for e in mf["table"][:4]]
-    print(f"[phase 9] {' '.join(WIDE_SELECTION)} on {aln.ntaxa} x "
-          f"{aln.nsites} f32: winner {mf['best']} in {wall:.1f} s "
-          f"(ModelFinder wall seconds {mf['seconds']}); fits by route "
-          f"{spy.routes}; peak device memory {peak:.2f} GiB; top 4 (name, "
-          f"logL, df, BIC) {top}; launches {launches}; passes "
-          f"{passes.calls}", flush=True)
-    if not mf["best"].startswith("GTR"):
-        return fail(f"phase 9 picked {mf['best']}; the data are GTR+G4")
-    if not (spy.routes["joint fit"] and spy.routes["alternation"]):
-        return fail(f"phase 9 did not take both routes: {spy.routes}")
-    if not all(launches[k] > 0 for k in ("down_pass", "sitelp",
-                                         "theta_pass")):
-        return fail(f"a kernel of the path was never launched: {launches}")
-    passes.check(launches, "[phase 9]")
+    # 9. model selection at the realistic width, in a process of its own
+    # beside phases 10 and 11 (host-paced fits on both sides)
+    wide_proc = start_part("wide_selection", aln_path)
+    started.append(wide_proc)
 
     stamp(10)
     # 10. the branch supports, tree tests and per-site outputs via the CLI
@@ -2572,13 +2834,18 @@ def run(started: list) -> int:
             return fail(f"phase 11 disagrees with the plain versions: "
                         f"{held}")
 
+    join_part(wide_proc, "[phase 9]")
+
     stamp(12)
-    # 12. the partitioned path
-    part_launches = part_default()
+    # 12. the partitioned path; 12a (ModelFinder per partition, host-paced)
+    # in a process of its own beside 12b-e
+    part_proc = start_part("part_default")
+    started.append(part_proc)
     part_linkages()
     part_wide(aln_path, tree_path)
     part_loci(errors)
     part_flags()
+    part_launches = join_part(part_proc, "[phase 12a]")
 
     stamp(13)
     # 13. mixtures and PMSF
@@ -2599,7 +2866,12 @@ def run(started: list) -> int:
     stamp(16)
     # 16. the standalone tools and dating
     dating_launches = standalone_tools(cpu_lmap)
-    print(f"[time] phases 1-16 in {time.perf_counter() - t_start:.1f} s",
+
+    stamp(17)
+    # 17. the distributed search and the pattern-sharded likelihood
+    dist_launches = distributed((aln, tree, model, rates), g4, errors,
+                                started)
+    print(f"[time] phases 1-17 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": [
@@ -2611,6 +2883,7 @@ def run(started: list) -> int:
          "model_family_launches": family_launches[k],
          "nonrev_launches": nonrev_launches[k],
          "dating_launches": dating_launches[k],
+         "distributed_launches": dist_launches[k],
          "max_abs_err": errors[k], "ms": timed[k]["ms"],
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],

@@ -41,6 +41,14 @@ the rest of the analysis on the site-specific-frequency engine
 (model/pmsf.SSFEngine): its fixed-topology fit refits the branch lengths
 and the Gamma shape, its search climbs with NNI1.
 
+Under --dist-nranks N --dist-rank K --dist-dir D (N processes sharing D),
+or under torchrun's environment (WORLD_SIZE > 1), the search is
+parallel/multihost.DistributedSearch (iqtree2_tpu/analysis.py:261-353):
+BSP rounds whose merged state does not depend on N, over FileGossip or
+TorchGossip; every rank finishes the analysis on its own prefix (.rankK
+for K > 0) with the same tree. The per-class (+H), nonreversible and PMSF
+engines are refused there (not held to the JAX package's).
+
 -g constrains the search to trees that contain the splits of a constraint
 tree (tree/constraint.py: the parsimony start trees, the BIONJ tree, the
 random NNIs and every NNI swap); --symtest writes the matched-pairs
@@ -77,6 +85,10 @@ from iqtree2_tpu_torch.modelfinder import MODES, run_modelfinder
 from iqtree2_tpu_torch.ops.distances import ml_distances
 from iqtree2_tpu_torch.ops.pars import random_stepwise_addition
 from iqtree2_tpu_torch.ops.prec import compute_dtype
+from iqtree2_tpu_torch.parallel.multihost import (DistributedSearch,
+                                                  FileGossip, TorchGossip,
+                                                  init_distributed,
+                                                  torchrun_world)
 from iqtree2_tpu_torch.params import Params
 from iqtree2_tpu_torch.roottest import (rooted_newick, run_root_test,
                                         write_roottest_csv)
@@ -480,14 +492,132 @@ def optimize_model_only(eng: LikelihoodEngine, tree: Tree,
     obj(xb)
 
 
+def dist_gossip(params: Params, eng, log) -> tuple:
+    """(gossip, rank, ranks) of a distributed search: FileGossip under
+    --dist-nranks N > 1 (--dist-dir required), TorchGossip over a gloo
+    group under torchrun's environment, (None, 0, 1) otherwise. An engine
+    whose distributed search is not held to the JAX package's stops the
+    run first."""
+    world = torchrun_world()[1]
+    if params.dist_nranks <= 1 and world <= 1:
+        return None, 0, 1
+    if isinstance(eng, (SSFEngine, MixlenEngine)) or eng.nonrev:
+        what = ("--pmsf" if isinstance(eng, SSFEngine) else
+                f"-m {params.model}")
+        mode = ("--dist-nranks" if params.dist_nranks > 1 else
+                f"torchrun (WORLD_SIZE={world})")
+        raise SystemExit(f"{what} with {mode}: the distributed search is "
+                         f"not held to the JAX package's under "
+                         f"the site-specific-frequency, per-class-length "
+                         f"(+H) or nonreversible engines")
+    if params.dist_nranks > 1:
+        if not params.dist_dir:
+            raise SystemExit("--dist-nranks > 1 requires --dist-dir "
+                             "(shared gossip directory)")
+        log(f"Distributed search: rank {params.dist_rank}/"
+            f"{params.dist_nranks} (FileGossip at {params.dist_dir})")
+        return (FileGossip(params.dist_dir, params.dist_rank,
+                           params.dist_nranks),
+                params.dist_rank, params.dist_nranks)
+    rank, n = init_distributed("gloo")
+    log(f"Distributed search: rank {rank}/{n} (torch.distributed, gloo)")
+    return TorchGossip(rank, n), rank, n
+
+
+def _constraint(params: Params, aln, log):
+    """The -g TopologyConstraint, or None."""
+    if not params.constraint_tree:
+        return None
+    constraint = TopologyConstraint(
+        Path(params.constraint_tree).read_text(), aln.names)
+    log(f"Constraint tree (-g): {len(constraint.splits)} splits over "
+        f"{len(constraint.mask)} taxa will be enforced")
+    return constraint
+
+
+def _quick_fit(params: Params, eng, aln, log) -> float:
+    """The search's quick model fit on a stepwise-addition tree (none
+    under --pmsf, whose guide fit has fitted the model); returns its
+    wall seconds."""
+    if params.pmsf:
+        return 0.0
+    log("Performing quick initial model optimization...")
+    t0 = time.perf_counter()
+    start = random_stepwise_addition(aln, np.random.default_rng(params.seed))
+    optimize_model_parameters(eng, start,
+                              epsilon=max(params.model_eps, QUICK_FIT_EPS))
+    return time.perf_counter() - t0
+
+
+def _log_seconds(log, seconds: dict, note: str) -> None:
+    log("Wall seconds: " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in seconds.items())
+        + f" ({note})")
+
+
+def _run_distributed(params: Params, eng, aln, ckp, ufboot, log,
+                     search_info: dict, seconds: dict, gossip, rank: int,
+                     nranks: int) -> tuple[Tree, float]:
+    """The distributed branch of _run_search (iqtree2_tpu/analysis.py:
+    313-353): quick fit, DistributedSearch in ceil(iterations / K) rounds
+    of K = max(ranks, 4) iterations, its result checkpointed under
+    dist_search.finished (a resume reads it and runs neither the quick
+    fit nor the search), the final fit."""
+    min_it = (params.min_iterations if params.n_iterations is None
+              else params.n_iterations)
+    round_size = max(nranks, 4)
+    n_rounds = max(1, -(-min_it // round_size))
+    fin = ckp.get("dist_search.finished")
+    if fin and not params.redo:
+        tree = Tree.from_newick(fin["tree"], aln.names)
+        best_logL = fin["logL"]
+        log(f"Distributed search already finished per checkpoint (logL "
+            f"{best_logL:.4f})")
+        if ufboot is not None and ckp.get("search.ufboot") is not None:
+            ufboot.load_state_dict(ckp.get("search.ufboot"))
+    else:
+        seconds["quick fit"] = _quick_fit(params, eng, aln, log)
+        ds = DistributedSearch(
+            eng, aln, gossip, rank, nranks, seed=params.seed,
+            n_init_trees=params.n_init_trees,
+            n_nni_trees=params.n_nni_trees, pop_size=params.pop_size,
+            round_size=round_size, n_rounds=n_rounds,
+            pertub_strength=params.pertub_strength, ufboot=ufboot, log=log,
+            constraint=_constraint(params, aln, log))
+        t0 = time.perf_counter()
+        tree, best_logL = ds.run()
+        seconds["distributed search"] = time.perf_counter() - t0
+        seconds.update(ds.seconds)
+        ckp.put("dist_search.finished",
+                {"tree": tree.to_newick(digits=17), "logL": best_logL})
+        if ufboot is not None:
+            ckp.put("search.ufboot", ufboot.state_dict())
+        ckp.dump(force=True)
+    log(f"Distributed search done: best logL {best_logL:.4f}")
+    search_info["Number of iterations"] = round_size * n_rounds
+    search_info["Distributed ranks"] = nranks
+    t0 = time.perf_counter()
+    logL = fit_model(eng, tree, params.model_eps)
+    seconds["final fit"] = time.perf_counter() - t0
+    _log_seconds(log, seconds, "start trees, iterations and gossip are "
+                 "parts of distributed search")
+    return tree, logL
+
+
 def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
                 log, search_info: dict,
                 mf_seconds: float | None = None) -> tuple[Tree, float]:
     """Quick model fit, checkpointed stochastic search (under -g held to
-    the constraint tree), thorough refit. Returns (best tree, its logL
-    after the refit). mf_seconds: the wall of the ModelFinder run before
-    it, the first entry of the split."""
+    the constraint tree), thorough refit; the distributed search where
+    dist_gossip gives a transport. Returns (best tree, its logL after the
+    refit). mf_seconds: the wall of the ModelFinder run before it, the
+    first entry of the split."""
     seconds = {} if mf_seconds is None else {"ModelFinder": mf_seconds}
+    gossip, rank, nranks = dist_gossip(params, eng, log)
+    if gossip is not None:
+        seconds.update({"quick fit": 0.0, "distributed search": 0.0})
+        return _run_distributed(params, eng, aln, ckp, ufboot, log,
+                                search_info, seconds, gossip, rank, nranks)
     seconds.update({"quick fit": 0.0, "start trees": 0.0, "iterations": 0.0,
                     "RELL": 0.0})
     fin = ckp.get("search.finished")
@@ -501,16 +631,7 @@ def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
         # the model parameters moved during the search; refit them
         fit_model(eng, tree, max(params.model_eps, QUICK_FIT_EPS))
     else:
-        if not params.pmsf:
-            # (under --pmsf the guide fit has fitted the model)
-            log("Performing quick initial model optimization...")
-            t0 = time.perf_counter()
-            start = random_stepwise_addition(
-                aln, np.random.default_rng(params.seed))
-            optimize_model_parameters(eng, start,
-                                      epsilon=max(params.model_eps,
-                                                  QUICK_FIT_EPS))
-            seconds["quick fit"] = time.perf_counter() - t0
+        seconds["quick fit"] = _quick_fit(params, eng, aln, log)
         sp = SearchParams(
             n_init_trees=params.n_init_trees,
             n_nni_trees=params.n_nni_trees,
@@ -524,14 +645,8 @@ def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
             max_iterations=params.max_iterations,
             unsuccess_iteration=params.unsuccess_iteration,
             fixed_iterations=params.n_iterations)
-        constraint = None
-        if params.constraint_tree:
-            constraint = TopologyConstraint(
-                Path(params.constraint_tree).read_text(), aln.names)
-            log(f"Constraint tree (-g): {len(constraint.splits)} splits "
-                f"over {len(constraint.mask)} taxa will be enforced")
         search = TreeSearch(eng, aln, sp, ufboot=ufboot, log=log, ckp=ckp,
-                            constraint=constraint)
+                            constraint=_constraint(params, aln, log))
         res = search.run()
         tree = res.best_tree
         seconds.update({"start trees": search.seconds["start_trees"],
@@ -547,9 +662,7 @@ def _run_search(params: Params, eng: LikelihoodEngine, aln, ckp, ufboot,
     t0 = time.perf_counter()
     logL = fit_model(eng, tree, params.model_eps)
     seconds["final fit"] = time.perf_counter() - t0
-    log("Wall seconds: " + ", ".join(f"{k} {v:.3f}"
-                                     for k, v in seconds.items())
-        + " (RELL is part of start trees and iterations)")
+    _log_seconds(log, seconds, "RELL is part of start trees and iterations")
     return tree, logL
 
 

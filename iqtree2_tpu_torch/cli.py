@@ -14,6 +14,7 @@
                               [--date FILE|TAXNAME [--date-ci N]
                                [--clock-sd X] [--date-root D]
                                [--date-rate R] [--date-no-outgroup]]
+                              [--dist-nranks N --dist-rank K --dist-dir D]
   python -m iqtree2_tpu_torch [-s ALN] -p|-q|-Q|-S PARTITIONS
                               [-m MODEL|MFP|MF|TEST|TESTONLY|MF+MERGE|
                                MFP+MERGE|TESTMERGE] [--merge greedy|kmeans]
@@ -47,6 +48,9 @@ with -wspm; the nonreversible, Lie-Markov and PoMo models; +H per-class
 branch lengths; +T tree mixtures over the -te trees) and under PMSF
 (--pmsf, -t naming its guide tree), and the root position test
 (--root-test), and least-squares dating of the final tree (--date); the
+distributed search (--dist-nranks N --dist-rank K --dist-dir D, one process
+per rank, or under torchrun's environment: parallel/multihost.py; rank K >
+0 writes under PREFIX.rankK); the
 partitioned analysis (-p edge-proportional, -q edge-equal, -Q unlinked
 branch lengths, -S one tree per locus) with per-partition ModelFinder and
 merging, -bsam and --symtest-remove-bad; and the standalone tools
@@ -61,7 +65,10 @@ and ignores (-g, -b, --runs, -bnni, --tbe, -z, -wsl, -wsr, -wsp*,
 --mlrate, -asr, -mldist, -o, -blfix, --pmsf, --mdef, --root-test, --date;
 and the model families of ROADMAP C19), and with --pmsf each output
 the JAX package's site-specific-frequency engine cannot give (PMSF_REFUSED),
-so nothing is silently ignored.
+so nothing is silently ignored. The --dist-* flags, and torchrun's
+environment, stop the run beside each route the JAX package's distributed
+branch never reaches or reaches wrongly (DIST_REFUSED, ROADMAP C25), and
+beside a standalone tool.
 """
 
 from __future__ import annotations
@@ -88,7 +95,8 @@ PORTED_DESTS = frozenset({
     "partition_edge_equal", "partition_unlinked", "partition_topo_unlinked",
     "merge_algorithm", "boot_spec", "pmsf", "start_tree", "mdef_file",
     "root_test", "date_file", "date_ci", "clock_sd", "date_root",
-    "date_rate", "date_no_outgroup"} | {
+    "date_rate", "date_no_outgroup", "dist_nranks", "dist_rank",
+    "dist_dir"} | {
     # the standalone tools (main's dispatch)
     "alisim", "sim_length", "sim_num_alignments", "indel", "indel_size",
     "sim_nprocs", "sim_rank", "random_tree_n", "random_tree_model",
@@ -117,6 +125,22 @@ PARTITION_IGNORED = ("constraint_tree", "standard_bootstrap", "num_runs",
 PMSF_REFUSED = ("write_site_rate", "write_site_prob", "do_asr",
                 "write_ml_dist", "write_ml_rate", "alrt_replicates", "abayes",
                 "bnni", "fix_branch_lengths")
+# destinations a distributed search (--dist-*) refuses, and why: the JAX
+# package's partition path never reads --dist-*, its -te path builds the
+# gossip and never uses it (+T needs -te), -b and --runs rerun the analysis
+# in the same --dist-dir, whose round files the next run reads (ROADMAP
+# C25), and the PMSF search is not held to the JAX package's
+DIST_REFUSED = (
+    (("partition_edge_prop", "partition_edge_equal", "partition_unlinked",
+      "partition_topo_unlinked"),
+     "the JAX package's partition path never reads --dist-* (ROADMAP C8's "
+     "kind)"),
+    (("user_tree",), "a -te tree is fixed: the JAX package builds the gossip "
+     "and never uses it"),
+    (("standard_bootstrap", "num_runs"), "reruns the analysis in the same "
+     "--dist-dir, whose round files the next run reads (ROADMAP C25)"),
+    (("pmsf",), "the distributed search is not held to the JAX package's "
+     "under the site-specific-frequency engine"))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -190,8 +214,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="distributed search: this process's rank")
     p.add_argument("--dist-dir", dest="dist_dir", default="",
                    help="distributed search: shared gossip directory "
-                        "(FileGossip); omit under jax.distributed to use "
-                        "the collective transport")
+                        "(FileGossip); under torchrun the ranks gossip "
+                        "over torch.distributed instead")
     p.add_argument("--merge", dest="merge_algorithm", default="greedy",
                    choices=["greedy", "kmeans"],
                    help="partition merging algorithm for -m MF+MERGE "
@@ -335,8 +359,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def params_from_args(args) -> Params:
-    """Params of the parsed flags (iqtree2_tpu/cli.py's, without the
-    distributed-run branch: refuse_unported stops its flags first)."""
+    """Params of the parsed flags (iqtree2_tpu/cli.py's): a rank K > 0 of a
+    distributed search, by --dist-rank or by torchrun's RANK, writes under
+    PREFIX.rankK, so that the ranks' output files never collide (the JAX
+    package's ranks under jax.distributed all write PREFIX, ROADMAP
+    C25)."""
     pr = Params()
     for f in vars(pr):
         if hasattr(args, f):
@@ -352,6 +379,12 @@ def params_from_args(args) -> Params:
         pr.verbose = 0
     if not pr.out_prefix:
         pr.out_prefix = pr.aln_file or pr.partition_file
+    from iqtree2_tpu_torch.parallel.multihost import torchrun_world
+    rank, world = torchrun_world()
+    if pr.dist_nranks > 1:
+        rank = pr.dist_rank
+    if rank > 0 and (pr.dist_nranks > 1 or world > 1):
+        pr.out_prefix += f".rank{rank}"
     return pr
 
 
@@ -373,6 +406,7 @@ def refuse_unported(args: argparse.Namespace,
     if not args.date_file:
         _refuse_with(args, parser, "no --date", DATE_OPTIONS,
                      "acts on the dating of --date FILE|TAXNAME")
+    refuse_distributed(args, parser)
     if tool_mode(args):
         return
     if args.date_file and args.model.upper() in ("MF", "TESTONLY"):
@@ -438,6 +472,42 @@ def refuse_unported(args: argparse.Namespace,
         if args.symtest_remove_bad:
             raise SystemExit("--symtest-remove-bad: drops partitions; needs "
                              "-p/-q/-Q")
+
+
+def refuse_distributed(args: argparse.Namespace,
+                       parser: argparse.ArgumentParser) -> None:
+    """SystemExit for a distributed search that would not run as the JAX
+    package's: a rank outside 0..N-1, --dist-rank or --dist-dir without
+    --dist-nranks N > 1, --dist-nranks without --dist-dir, and, under
+    --dist-nranks N > 1 or torchrun's WORLD_SIZE > 1, each of
+    DIST_REFUSED's flags, MF/TESTONLY (no tree) and a standalone tool."""
+    from iqtree2_tpu_torch.parallel.multihost import torchrun_world
+    world = torchrun_world()[1]
+    if args.dist_nranks > 1:
+        if not 0 <= args.dist_rank < args.dist_nranks:
+            raise SystemExit(f"--dist-rank {args.dist_rank}: the ranks of "
+                             f"--dist-nranks {args.dist_nranks} are 0.."
+                             f"{args.dist_nranks - 1}")
+        if not args.dist_dir:
+            raise SystemExit("--dist-nranks > 1 requires --dist-dir (shared "
+                             "gossip directory)")
+        mode = "--dist-nranks"
+    elif args.dist_rank or args.dist_dir:
+        raise SystemExit("--dist-rank/--dist-dir: act in a distributed "
+                         "search; add --dist-nranks N (N > 1)")
+    elif world > 1:
+        mode = f"torchrun (WORLD_SIZE={world})"
+    else:
+        return
+    tool = tool_mode(args)
+    if tool:
+        raise SystemExit(f"{mode} with the standalone tool {tool}: it runs "
+                         f"no search")
+    if args.model.upper() in ("MF", "TESTONLY"):
+        raise SystemExit(f"{mode} with -m {args.model}: builds no tree, so "
+                         f"runs no search")
+    for dests, why in DIST_REFUSED:
+        _refuse_with(args, parser, mode, dests, why)
 
 
 def tool_mode(args) -> str:

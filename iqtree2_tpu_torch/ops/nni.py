@@ -113,12 +113,20 @@ def _cat(parts, n, tail, dtype, device):
 
 
 def _branch_fns(pack, log_inv, pattern_weights, t_min, t_max, n_newton: int,
-                nonrev: bool, mixlen: bool):
+                nonrev: bool, mixlen: bool, reduce=None):
     """(operand(out, down) -> x, newton(x, scale, t), score(x, scale, t,
     want_lp) -> (logl, site lp or None)) of a branch between an outside and
     a down partial: x is the eigenbasis theta for a reversible model (per
     category for mixlen, t then [..., C]), the two partials themselves for
-    a nonreversible one (the direct derivatives)."""
+    a nonreversible one (the direct derivatives). With ``reduce``
+    (pruning.summed) the partials hold a rank's slice of the patterns and
+    the Newton sums and logLs cross the ranks: a reversible model's
+    scalar-length path alone, as the JAX package's axis_name."""
+    if reduce is not None and (nonrev or mixlen):
+        raise NotImplementedError(
+            "NNI scoring over a rank group under a nonreversible or "
+            "per-class-length model: the JAX package sums no mesh axis "
+            "there either")
     if nonrev:
         def operand(out, down):
             return out, down
@@ -141,16 +149,19 @@ def _branch_fns(pack, log_inv, pattern_weights, t_min, t_max, n_newton: int,
     def operand(out, down):
         return _theta(out, down, pack)
 
+    kw = {} if mixlen else {"reduce": reduce}
+
     def newton(theta, sc, t):
         return step(theta, sc, t, pack, log_inv, pattern_weights, t_min,
-                    t_max, n_iter=n_newton)
+                    t_max, n_iter=n_newton, **kw)
 
     def score(theta, sc, t, want_lp):
         if mixlen:
             return pruning.branch_lh_derivs_mixlen(
                 theta, sc, t, pack, log_inv, pattern_weights)[0], None
         logl = pruning.branch_lh_derivs(theta, sc, t, pack, log_inv,
-                                        pattern_weights, order=0)[0]
+                                        pattern_weights, order=0,
+                                        reduce=reduce)[0]
         return logl, (pruning.branch_site_lp(theta, sc, t, pack, log_inv)
                       if want_lp else None)
     return operand, newton, score
@@ -166,13 +177,17 @@ def _refuse_mixlen_lp(mixlen: bool, return_site_lp: bool) -> None:
 def evaluate_nnis(cand_arrays, blens, dp: pruning.DownPass, up_in, up_scale,
                   sched, pack, pattern_weights, t_min, t_max,
                   n_newton: int = 4, return_site_lp: bool = False,
-                  nonrev: bool = False, mixlen: bool = False):
+                  nonrev: bool = False, mixlen: bool = False, reduce=None):
     """NNI1: both variants and the baseline with the central branch
     re-optimised, for every candidate. Returns (logl [n, 3], t_opt [n, 3])
     and with return_site_lp also per-pattern logLs [n, 3, Pp]. ``nonrev``
     scores through the direct derivatives (a model with pack["Q"]; the JAX
     package returns no per-pattern logLs there, this port does);
-    ``mixlen`` takes blens [E, C] and returns t_opt [n, 3, C]."""
+    ``mixlen`` takes blens [E, C] and returns t_opt [n, 3, C]. With
+    ``reduce`` the buffers hold a rank's slice of the patterns
+    (parallel/shard.sharded_nni_fn): every rank must give the same
+    candidates and an equal slice width, so that the chunks, and with
+    them the calls of ``reduce``, are the same on every rank."""
     _refuse_mixlen_lp(mixlen, return_site_lp)
     rows = candidate_rows(cand_arrays, dp.all.device)
     dtype = dp.all.dtype
@@ -182,7 +197,7 @@ def evaluate_nnis(cand_arrays, blens, dp: pruning.DownPass, up_in, up_scale,
     log_inv = pack["log_ptn_invar"]
     operand, newton, score = _branch_fns(pack, log_inv, pattern_weights,
                                          t_min, t_max, n_newton, nonrev,
-                                         mixlen)
+                                         mixlen, reduce)
     tail = tuple(blens.shape[1:])
     outs = ([], [], [])
     for a, b in _chunks(rows.shape[1], dp, SLABS_NNI1):

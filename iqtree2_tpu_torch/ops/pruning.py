@@ -252,25 +252,46 @@ def site_lp(dp: DownPass):
     return dp.lp
 
 
-def finalize_loglik(lp, pattern_weights, asc_mask=None, asc_nsites=None):
+def summed(reduce, *xs):
+    """The equally shaped tensors ``xs`` summed over a rank group by one
+    call of ``reduce`` (a callable that sums a tensor over the group in
+    place, parallel/shard.all_reduce_sum: the counterpart of the JAX
+    package's psum over ``axis_name``); ``xs`` themselves where reduce is
+    None, so an unsharded call computes exactly what it did without it."""
+    if reduce is None:
+        return xs
+    flat = torch.stack(xs)
+    reduce(flat)
+    return flat.unbind(0)
+
+
+def finalize_loglik(lp, pattern_weights, asc_mask=None, asc_nsites=None,
+                    reduce=None):
     """(logL, lp): weighted pattern sum, optional Lewis +ASC correction
-    logL -= N log(1 - sum_x L_x) (reference: tree/phylokernelnew.h:3275)."""
+    logL -= N log(1 - sum_x L_x) (reference: tree/phylokernelnew.h:3275).
+    With ``reduce`` (see summed) lp is a rank's slice of the patterns and
+    the pattern sums, sum_x L_x included, cross the ranks before the
+    correction's logarithm."""
     logL = (pattern_weights * lp).sum()
-    if asc_mask is not None:
-        prob_unobs = (asc_mask * torch.exp(lp)).sum()
-        logL = logL - asc_nsites * torch.log1p(
-            -prob_unobs.clamp(max=1.0 - 1e-10))
+    if asc_mask is None:
+        (logL,) = summed(reduce, logL)
+        return logL, lp
+    prob_unobs = (asc_mask * torch.exp(lp)).sum()
+    logL, prob_unobs = summed(reduce, logL, prob_unobs)
+    logL = logL - asc_nsites * torch.log1p(
+        -prob_unobs.clamp(max=1.0 - 1e-10))
     return logL, lp
 
 
-def tree_loglik(blens, tipP, sched, pack, pattern_weights):
+def tree_loglik(blens, tipP, sched, pack, pattern_weights, reduce=None):
     """(logL, lp) of one topology: transition tensors, the down pass with
-    its site-logL epilogue (no tip rows), the weighted sum."""
+    its site-logL epilogue (no tip rows), the weighted sum (over the rank
+    group with ``reduce``, finalize_loglik)."""
     P = transition_tensors(blens.to(tipP.dtype), pack)
     dp = down_pass(P, tipP, sched, pack=pack, tips=False)
     return finalize_loglik(site_lp(dp), pattern_weights,
                            asc_mask=pack.get("asc_mask"),
-                           asc_nsites=pack.get("asc_nsites"))
+                           asc_nsites=pack.get("asc_nsites"), reduce=reduce)
 
 
 # ------------------------------------------------------------- theta buffers
@@ -295,14 +316,16 @@ def edge_thetas(up: UpPass, dp: DownPass, edge_src, pack) -> Thetas:
 
 
 def branch_lh_derivs(theta, scale, t, pack, log_ptn_invar, pattern_weights,
-                     order: int = 2):
+                     order: int = 2, reduce=None):
     """logL(t) of branches from their theta buffers, with d/dt and d2/dt2.
 
     theta [..., C, K, Pp]; scale [..., Pp]; t [...] (one length per leading
     index, e.g. every edge at once). Returns (logL, d1, d2) of shape [...]
     (d1 = d2 = None for order 0). Includes the Lewis +ASC terms when the
-    pack carries asc_mask. Reference: computeLikelihoodDervSIMD
-    (tree/phylokernelnew.h:2235, :3196).
+    pack carries asc_mask. With ``reduce`` (see summed) the patterns are a
+    rank's slice: the pattern sums (logL, d1, d2 and the +ASC s, s1, s2)
+    cross the ranks in one call before they are used. Reference:
+    computeLikelihoodDervSIMD (tree/phylokernelnew.h:2235, :3196).
     """
     dtype = theta.dtype
     _, _, log_rescale = scaling_consts(dtype)
@@ -316,10 +339,13 @@ def branch_lh_derivs(theta, scale, t, pack, log_ptn_invar, pattern_weights,
         lp = torch.logaddexp(torch.log(site0.clamp(min=tiny)) - sc,
                              log_ptn_invar)
         logL = (pattern_weights * lp).sum(-1)
-        if asc_mask is not None:
-            prob_unobs = (asc_mask * torch.exp(lp)).sum(-1)
-            logL = logL - pack["asc_nsites"] * torch.log1p(
-                -prob_unobs.clamp(max=1.0 - 1e-10))
+        if asc_mask is None:
+            (logL,) = summed(reduce, logL)
+            return logL, None, None
+        prob_unobs = (asc_mask * torch.exp(lp)).sum(-1)
+        logL, prob_unobs = summed(reduce, logL, prob_unobs)
+        logL = logL - pack["asc_nsites"] * torch.log1p(
+            -prob_unobs.clamp(max=1.0 - 1e-10))
         return logL, None, None
     # one pass over theta (the large array) for all three t-derivative sums
     coef = torch.stack([wet, wet * lr, wet * lr * lr], dim=-1)  # [..., C, K, 3]
@@ -334,29 +360,34 @@ def branch_lh_derivs(theta, scale, t, pack, log_ptn_invar, pattern_weights,
     d2p = s012[..., 2, :] / denom - d1p * d1p
     d1 = (pattern_weights * d1p).sum(-1)
     d2 = (pattern_weights * d2p).sum(-1)
-    if asc_mask is not None:
-        # d/dt of -N log(1 - s), s = sum_x e^{lp_x}
-        sx = asc_mask * torch.exp(lp)
-        s = sx.sum(-1)
-        s1 = (sx * d1p).sum(-1)
-        s2 = (sx * (d2p + d1p * d1p)).sum(-1)
-        N = pack["asc_nsites"]
-        om = (1.0 - s).clamp(min=1e-10)
-        logL = logL - N * torch.log(om)
-        d1 = d1 + N * s1 / om
-        d2 = d2 + N * (s2 / om + (s1 / om) ** 2)
+    if asc_mask is None:
+        return summed(reduce, logL, d1, d2)
+    # d/dt of -N log(1 - s), s = sum_x e^{lp_x}
+    sx = asc_mask * torch.exp(lp)
+    s = sx.sum(-1)
+    s1 = (sx * d1p).sum(-1)
+    s2 = (sx * (d2p + d1p * d1p)).sum(-1)
+    logL, d1, d2, s, s1, s2 = summed(reduce, logL, d1, d2, s, s1, s2)
+    N = pack["asc_nsites"]
+    om = (1.0 - s).clamp(min=1e-10)
+    logL = logL - N * torch.log(om)
+    d1 = d1 + N * s1 / om
+    d2 = d2 + N * (s2 / om + (s1 / om) ** 2)
     return logL, d1, d2
 
 
 def newton_branch_step(theta, scale, t0, pack, log_ptn_invar,
-                       pattern_weights, t_min, t_max, n_iter: int = 4):
+                       pattern_weights, t_min, t_max, n_iter: int = 4,
+                       reduce=None):
     """A few bounded Newton iterations on every branch length of ``t0``
-    at once (leading axes as in branch_lh_derivs). Mirrors minimizeNewton
+    at once (leading axes as in branch_lh_derivs; with ``reduce`` each
+    iteration's d1 and d2 are summed over the rank group, so every rank
+    takes the same steps). Mirrors minimizeNewton
     (utils/optimization.cpp:422): with the wrong curvature, step
     geometrically toward the bound the gradient points at."""
     def derivs(t):
         return branch_lh_derivs(theta, scale, t, pack, log_ptn_invar,
-                                pattern_weights)[1:]
+                                pattern_weights, reduce=reduce)[1:]
     return _newton_iter(derivs, t0, t_min, t_max, n_iter)
 
 

@@ -9,12 +9,15 @@ kept with reservoir tie-breaking (:3620); convergence = split-support
 correlation between the two replicate halves (computeBootstrapCorrelation
 :4175); supports mapped onto the ML tree (summarizeBootstrap :3816).
 
-Copied from iqtree2_tpu/search/ufboot.py, with the RELL matvec on the host
-only (no device RELL, no replicate slices of a distributed run: neither is
-ported; -bsam GENE/GENESITE resample a SuperAlignment's partitions) and a -inf champion
-masked before it is subtracted (the JAX package's line 127 may make a NaN
-there): the port keeps its own host modules and imports nothing of the JAX
-package.
+Copied from iqtree2_tpu/search/ufboot.py (-bsam GENE/GENESITE resample a
+SuperAlignment's partitions), with a -inf champion masked before it is
+subtracted (the JAX package's line 127 may make a NaN there): the port
+keeps its own host modules and imports nothing of the JAX package. The
+replicate slices of a distributed run are the JAX package's
+(set_replicate_slice: a rank RELL-scores its slice alone, its logl_cutoff
+from that slice); enable_device_rell runs the matvec on the engine's
+device, where the JAX package's runs on a mesh, over a torch.distributed
+group's pattern slices summed by one all_reduce.
 """
 
 from __future__ import annotations
@@ -59,11 +62,62 @@ class UFBoot:
         self.n_scored = 0
         self.n_pruned = 0
         self._splits_cache: dict[str, set] = {}
+        self._slice: tuple[int, int] | None = None
+        self._rell = None   # (samples on the device, a, b, its matvec)
 
     # ---------------------------------------------------------------- core
+    def enable_device_rell(self, device, group=None) -> None:
+        """Run the [R, P] @ [P] RELL rescoring on ``device`` (the engine's),
+        in float32 as on the host, through parallel/shard.sharded_rell_fn.
+        With a torch.distributed ``group`` this rank holds one contiguous
+        slice of the patterns (shard.rank_bounds) and one all_reduce over
+        the group sums the slices' products into every replicate's score
+        (the JAX package's enable_device_rell(mesh), a psum over the
+        pattern axis): every rank of the group must then score the same
+        trees in the same order."""
+        import torch
+
+        from iqtree2_tpu_torch.parallel import shard
+        a, b = 0, self.samples.shape[1]
+        reduce = None
+        if group is not None:
+            import torch.distributed as dist
+            a, b = shard.rank_bounds(b, dist.get_rank(group),
+                                     dist.get_world_size(group), clip=True)
+            reduce = shard.all_reduce_sum(group)
+        samples = torch.as_tensor(self.samples[:, a:b], device=device)
+        self._rell = (samples.contiguous(), a, b,
+                      shard.sharded_rell_fn(reduce))
+
+    def set_replicate_slice(self, start: int, end: int) -> None:
+        """Distributed UFBoot: this collector RELL-updates only replicates
+        [start, end); each rank owns a slice and the gossip merge fills the
+        rest (reference analog: the per-process sample ranges of
+        saveCurrentTree / syncCurrentTree, tree/iqtree.cpp:352-362)."""
+        assert 0 <= start <= end <= self.n_replicates
+        self._slice = (start, end)
+
+    def _rell_scores(self, pattern_lp: np.ndarray) -> np.ndarray:
+        """RELL logL of every replicate [R]: on the device after
+        enable_device_rell, else on the host with -inf outside this
+        collector's replicate slice."""
+        if self._rell is not None:
+            import torch
+            samples, a, b, rell = self._rell
+            return rell(samples, torch.as_tensor(
+                pattern_lp[a:b].astype(np.float32),
+                device=samples.device)).cpu().numpy()
+        if self._slice is not None:
+            a, b = self._slice
+            out = np.full(self.n_replicates, -np.inf)
+            out[a:b] = self.samples[a:b] @ pattern_lp.astype(np.float32)
+            return out
+        return self.samples @ pattern_lp.astype(np.float32)
+
     def add_tree(self, tree: Tree, pattern_lp: np.ndarray,
                  tree_logL: float | None = None) -> None:
-        """RELL-rescore one candidate tree against all replicates.
+        """RELL-rescore one candidate tree against all replicates (those of
+        its slice after set_replicate_slice).
 
         tree_logL (the tree's logL on the ORIGINAL weights) enables the
         reference's logl_cutoff pruning (tree/iqtree.cpp:2295): once every
@@ -73,12 +127,15 @@ class UFBoot:
             self.n_pruned += 1
             return
         self.n_scored += 1
-        rell = self.samples @ pattern_lp.astype(np.float32)  # [R]
-        if self.n_scored % 100 == 0 and np.isfinite(self.boot_logl).all():
+        rell = self._rell_scores(pattern_lp)  # [R]
+        owned = (self.boot_logl if self._slice is None
+                 else self.boot_logl[self._slice[0]:self._slice[1]])
+        if self.n_scored % 100 == 0 and owned.size \
+                and np.isfinite(owned).all():
             # weakest replicate champion minus a generous slack: a tree
             # whose original-weights logL is this far behind cannot
             # plausibly beat any replicate's champion under resampling
-            self.logl_cutoff = float(self.boot_logl.min()) - 100.0
+            self.logl_cutoff = float(owned.min()) - 100.0
         tid = tree.topology_id()
         better = rell > self.boot_logl + self.epsilon
         # a replicate without a champion (-inf) has nothing to tie with:

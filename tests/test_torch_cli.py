@@ -111,7 +111,7 @@ def test_search_with_ufboot_through_the_module(tmp_path):
      "--root-test with -p/-q/-Q"),
     (["-lmap", "100"], "-lmap: not yet ported"),
     (["--gcf", TREE], "--gcf: not yet ported"),
-    (["--dist-rank", "1"], "--dist-rank: not yet ported"),
+    (["-blmax", "5"], "-blmax: not yet ported"),
 ])
 def test_unported_flag_is_refused(tmp_path, extra, message):
     argv = ["-s", ALN, "-m", "GTR+G", "-te", TREE, "--device", "cpu",
@@ -122,7 +122,7 @@ def test_unported_flag_is_refused(tmp_path, extra, message):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["-m", "GTR+G", "--dist-nranks", "2"], "--dist-nranks: not yet ported"),
+    (["-m", "GTR+G", "--gcf", TREE], "--gcf: not yet ported .*ROADMAP C23"),
     (["-m", "GTR+G", "-te", TREE, "-bb", "100"], "-bb/-B: the ultrafast"),
     (["-m", "GTR+G", "-blfix"], "-blfix: fixes the branch lengths"),
     (["-te", TREE, "-m", "GTR+G", "--scf", "10"],

@@ -688,3 +688,54 @@ def test_dating_search_on_cuda_matches_cpu(cuda, tmp_path):
     assert logl_card == pytest.approx(logl_cpu, abs=1e-6)
     assert len(card) == len(cpu) == 6
     np.testing.assert_allclose(card, cpu, rtol=1e-4)
+
+
+def _rank_problem(ntaxa: int, nsites: int):
+    """(names, site matrix, Newick) of a random DNA problem."""
+    from iqtree2_tpu_torch.data import seqtypes
+    rng = np.random.default_rng(5)
+    names = [f"t{i}" for i in range(ntaxa)]
+    sites = seqtypes.DNA_STATE_TO_CODE[rng.integers(0, 4, (nsites, ntaxa))]
+    return names, sites, Tree.random_topology(names, rng).to_newick(
+        digits=17)
+
+
+@pytest.mark.cuda
+def test_sharded_on_cuda_matches_unsharded(cuda):
+    """Two gloo ranks on the one card (parallel/shard.py, float64): the
+    sharded logL, Newton step, RELL and NNI batch equal the unsharded
+    engine's on the card within 1e-9 relative; the site lps of the slices
+    joined are the engine's."""
+    from tests.torch_ranks import (run_ranks, shard_outputs, shard_problem,
+                                   shard_rank)
+    model_str = kernelcheck.MODELS["GTR+G4"][2]
+    names, sites, newick = _rank_problem(24, 1500)
+    ranks = run_ranks(shard_rank, 2, names, sites, newick, model_str, False,
+                      "cuda", timeout=300)
+    eng, tree, sched = shard_problem(names, sites, newick, model_str, False,
+                                     "cuda")
+    want = shard_outputs(eng, tree, sched, 0, 1, None)
+    for k in ("logL", "step_blens", "step_logL", "nni_logl", "nni_topt"):
+        for r in ranks:
+            np.testing.assert_allclose(r[k], want[k], rtol=1e-9,
+                                       atol=1e-12, err_msg=k)
+    lp = np.concatenate([r["lp"] for r in ranks])[:eng.Pp]
+    np.testing.assert_allclose(lp, want["lp"], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_match_plain_at_a_rank_slice(cuda, dtype):
+    """The kernels at the shapes of one of two ranks' slices (the
+    patterns of rank 0's slice of a 64 x 4096 problem) against their
+    plain versions."""
+    from iqtree2_tpu_torch.parallel import shard
+    aln, tree, model, rates = kernelcheck.simulate("GTR+G4", 64, 4096,
+                                                   seed=3)
+    Pp = LikelihoodEngine(aln, model, rates, dtype=dtype, device=cuda).Pp
+    per = shard.rank_bounds(Pp, 0, 2)[1]
+    sub = aln.subset_sites(np.nonzero(aln.site_to_pattern < per)[0])
+    eng = LikelihoodEngine(sub, model, rates, dtype=dtype, device=cuda)
+    assert eng.Pp == per
+    for r in kernelcheck.check(eng, tree):
+        assert r["ok"], r

@@ -4,8 +4,9 @@ originals, on the same inputs (files of tests/golden, numpy seeds).
 iqtree2_tpu_torch keeps copies of the alignment, model (mixtures, codon
 models, the +E error model and their data files included), --mdef YAML
 definition, tree-schedule,
-parsimony, BIONJ, UFBoot, simulation, optimizer, WH-test, transfer-support,
-tree-test, constraint-tree, supermatrix, terrace and symmetry-test modules,
+parsimony, BIONJ, UFBoot (its replicate slices too), simulation,
+optimizer, WH-test, transfer-support, tree-test, constraint-tree,
+supermatrix, terrace and symmetry-test modules,
 of the partition analysis' host helpers and of the standalone tools'
 modules (AliSim's simulator, treeutils, pd, timetree, Sankoff) so that
 it imports nothing of iqtree2_tpu; each case builds its inputs twice, once
@@ -192,6 +193,39 @@ def test_ufboot_matches_jax():
     assert uf.supports_for(t) == juf.supports_for(jt)
     assert uf.consensus_tree().to_newick() == \
         juf.consensus_tree().to_newick()
+
+
+def test_ufboot_replicate_slices_match_jax():
+    """Two replicate slices per package (set_replicate_slice), the same
+    trees and site log-likelihoods into each: the same champions per
+    slice, -inf outside it."""
+    aln = read_alignment(str(GOLDEN / "example.phy"))
+    jaln = jread_alignment(str(GOLDEN / "example.phy"))
+    R = 50
+    ports, jaxes = [], []
+    for a, b in ((0, 20), (20, R)):
+        uf, juf = UFBoot(aln, n_replicates=R, seed=3), \
+            JUFBoot(jaln, n_replicates=R, seed=3)
+        uf.set_replicate_slice(a, b)
+        juf.set_replicate_slice(a, b)
+        ports.append(uf)
+        jaxes.append(juf)
+    rng = np.random.default_rng(6)
+    for i in range(6):
+        t, jt = both_trees(pars.random_stepwise_addition(aln, rng),
+                           aln.names)
+        lp = -rng.uniform(5.0, 15.0, aln.num_patterns)
+        logL = float(aln.pattern_weights @ lp)
+        for uf, juf in zip(ports, jaxes):
+            uf.add_tree(t, lp, tree_logL=logL)
+            with np.errstate(invalid="ignore"):
+                juf.add_tree(jt, lp, tree_logL=logL)
+    for uf, juf in zip(ports, jaxes):
+        np.testing.assert_array_equal(uf.boot_logl, juf.boot_logl)
+        assert uf.boot_trees == juf.boot_trees
+        assert uf.logl_cutoff == juf.logl_cutoff
+    assert np.isfinite(ports[0].boot_logl[:20]).all()
+    assert not np.isfinite(ports[0].boot_logl[20:]).any()
 
 
 @pytest.mark.parametrize("model_name", ["GTR+G4", "HKY+I", "LG+G4",

@@ -12,8 +12,10 @@ two-iteration tree search with UFBoot, a small ModelFinder run
 profile mixture's -te fit with -wspm and a --pmsf -te run, then a codon
 -te fit, +E and a --mdef model, then the standalone tools (--alisim
 under a mixture, -r, -pd) and a --date run with intervals. A source scan
-fails on any import of iqtree2_tpu itself in the port, in chip_smoke.py
-and in the card-only tests/test_torch_cuda.py.
+fails on any import of iqtree2_tpu itself in the port (parallel/
+included), in chip_smoke.py, tools/torch_phase17.py, the card-only
+tests/test_torch_cuda.py and the distributed tests' ranks
+(tests/torch_ranks.py).
 """
 
 import ast
@@ -170,9 +172,12 @@ def test_chip_smoke_imports_only_the_port():
 def test_no_source_file_imports_the_jax_package():
     """No import whose top-level name is exactly iqtree2_tpu, at any depth
     (functions included), in the port, chip_smoke.py or the card tests."""
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "test_torch_cuda.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+        ROOT / "tests" / "torch_ranks.py", ROOT / "tools" / "torch_phase17.py"]
     assert len(files) >= 40
+    assert {PKG / "parallel" / f"{m}.py"
+            for m in ("multihost", "shard", "dryrun")} <= set(files)
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if "iqtree2_tpu" in _imported(f)]
     assert not offenders, offenders
@@ -181,7 +186,9 @@ def test_no_source_file_imports_the_jax_package():
 def test_no_source_file_imports_jax():
     """Nor jax, optax or yaml (PyYAML: the machine with the card has none;
     io/yamlmodels.py reads --mdef files itself)."""
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ranks.py",
+        ROOT / "tools" / "torch_phase17.py"]
     assert len(files) >= 10
     for f in files:
         assert not {"jax", "optax", "yaml"} & _imported(f), f
