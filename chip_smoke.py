@@ -11,8 +11,10 @@ ending in torch.cuda.synchronize():
 1. the card's name and power limit (nvidia-smi);
 2. building the kernels of iqtree2_tpu_torch/csrc/pruning.cu with nvcc, and
    the resident blocks per SM and shared memory per block of each pass
-   instance at 16384 patterns (DNA and protein, 1, 4 and 10 categories,
-   float32 and float64);
+   instance at 16384 patterns (DNA, protein, and 112 and 454 states, the
+   wide instance with its columns staged in shared memory and, in
+   float64 at 454, read in place; 1, 4 and 10 categories, float32 and
+   float64);
 3. each kernel against its plain PyTorch version on the same inputs, on a
    simulated 64-taxon x 4096-site problem under GTR+G4, GTR+G8 (more
    categories than the DNA register column holds), LG+G4, and the shapes
@@ -55,8 +57,9 @@ ending in torch.cuda.synchronize():
    printed, and the final logL must be finite and no lower than the start
    tree's after optimize_branches;
 8. the program's default command, -s tests/golden/example.phy -bb 1000
-   with no -m, through the CLI in float32: ModelFinder (-m MFP) on the
-   parsimony tree, then the search with UFBoot under the winner, launch
+   with no -m (the search's depth cut to DEFAULT_DEPTH), through the CLI
+   in float32: ModelFinder (-m MFP) on the parsimony tree, then the search
+   with UFBoot under the winner, launch
    counts reset just before and read just after. The winner must be
    TIM2+I+G, the JAX package's on the same file; the .iqtree must hold the
    selection table; the search's files pass phase 6's checks, its logL at
@@ -140,7 +143,8 @@ ending in torch.cuda.synchronize():
    categories) at 64 x 4096, LG+C60+G4 (C = 240) at 64 x 5400 (4163
    patterns: the unified buffer holds 2.55 x 10^9 values, past 2^31), and
    LG+C20+G4 at 64 x 1024 in float64, with times (1 repetition),
-   bounds, shares, occupancy, launches and peak memory; (b) -m LG+C60+G --pmsf -te on 100 taxa x 2000 sites
+   bounds, shares, occupancy, launches and peak memory; (b) -m LG+C60+G
+   --pmsf -te on 100 taxa x 2000 sites
    simulated class by class (kernelcheck.simulate_mixture): the guide
    fit runs the kernels at C = 240, .sitefreq rows sum to 1 within 1e-4,
    the PMSF logL is at least the guide mixture's - 1, peak device memory
@@ -174,7 +178,7 @@ ending in torch.cuda.synchronize():
    of a 2-state RY datatype (phase 6's files),
    and MYGTR+G{0.6} -te on phase 5's alignment in float64 equal to the
    same GTR given in the -m string within 1e-6 relative; (f) a -q
-   supermatrix of 100 taxa, an LG+C20+G protein locus (1000 sites, C = 80)
+   supermatrix of 50 taxa, an LG+C20+G protein locus (1000 sites, C = 80)
    beside a GTR+G DNA locus (2000 sites): -te in float64 on the card, its
    fitted state evaluated on the CPU within 1e-3, then -B 1000
    (FAMILY_DEPTH);
@@ -226,7 +230,8 @@ ending in torch.cuda.synchronize():
    unsharded engine to the JAX dry run's tolerances, one gossip round,
    each rank's launches one per pass, its peak memory and the sharded
    Newton round's ms beside the unsharded one's, then the kernels against
-   their plain versions at a rank's shapes (1000 x 8192); (b) -m GTR+G -B
+   their plain versions at a rank's shapes (1000 x 8192), with their
+   bounds and shares; (b) -m GTR+G -B
    1000 on example.phy, two processes on the card (depth cut to
    DIST_DEPTH), first with --dist-nranks 2 --dist-dir (FileGossip), then
    under torchrun's environment (WORLD_SIZE=2, TorchGossip over gloo;
@@ -235,12 +240,36 @@ ending in torch.cuda.synchronize():
    gloo at the flagship's shapes: the same topology, logL within 1e-6
    relative.
 
-A "[time]" line gives the start of each phase and the end of phase 17.
+18. the kernels' wide instance (S > 64: a node's states split across the
+   block's threads): (a) each kernel against its plain version on
+   64 x 4096 problems simulated under GTR+G4 and fitted under GTR+P13+G4
+   and GTR+P19+G4 (PoMo, 76 and 112 states), float32 and float64, and
+   GTR+P23+G4 (136) at 64 x 1024 in float32, with times loaded and back
+   to back, bounds, shares, occupancy and one launch per pass; (b) the
+   realistic width, 100 x 16384 under GTR+P19+G4 in float32: one logL,
+   one nonreversible Newton round (ms, peak memory), NNI5 scores of 8
+   candidates (peak memory below 40 GiB), then each kernel against its
+   plain version there;
+   (c) -s example.phy -m GTR+P19+G4 -B 1000 (depth cut to POMO_DEPTH),
+   launches reset just before and read just after, one per pass, phase
+   6's files, logL at least the -te fit's (POMO_TE_LOGL) - 0.5, then the
+   kernels against their plain versions at its shapes (untimed); (d) -m
+   GTR+P19+G4 -te in float64, its fitted state evaluated on the CPU within
+   1e-3; (e) a 65-state --mdef datatype, 100 x 12288 under MK+G -te, whose
+   host alternation runs theta_pass (PoMo's nonreversible Newton does
+   not), then the kernels against their plain versions there (untimed)
+   with their bounds.
+
+A "[time]" line gives the start of each phase and the end of phase 18.
 Phase 9 runs in a process of its own beside phases 10 and 11, and 12a
 beside 12b-e (start_part; their lines print when they are joined, after
 11 and after 12e): each is host-paced, and the script's wall must stay
 inside its limit on slow hosts. The walls of phases 9-12 are therefore
-taken with two processes sharing the card and the host.
+taken with two processes sharing the card and the host. After phase 13
+the parts that time the device run first (14a, 15a-b, 17a, 18a-b), then
+14b-e and 14f in two processes of their own beside 15c-g, 16, 17b-c and
+18c-e (their lines print at the end), whose walls share the card and the
+host likewise: three processes.
 
 Outputs go to chip_smoke_out/. Any failure exits non-zero. Before the
 last line it prints one JSON object {"kernels": [...]} (launches from the
@@ -253,9 +282,11 @@ from phase 15c's UNREST search with the root test, dating_launches from
 phase 16b's search with --date, distributed_launches summed over 17b's
 two ranks on both routes; times,
 back-to-back times
-and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384; no
-single PyTorch call computes a pruning pass, so library_ms is null); the
-last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+and bounds (kernelcheck.bounds) from the phase-5 check at 1000 x 16384;
+then one entry per kernel for its wide instance, "down_pass (S > 64)"
+and so on, with launches summed over 18c and 18e and times, errors and
+bounds from phase 18b at 100 x 16384; no single PyTorch call computes a
+pruning pass, so library_ms is null); the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
 
@@ -297,6 +328,10 @@ FLAGSHIP_REPLICATES = 1000
 MAX_CLIMB_GIB = 40.0
 # the JAX package's ModelFinder winner on example.phy (BIC), run on the CPU
 DEFAULT_WINNER = "TIM2+I+G"
+# phase 8's search depth after ModelFinder, cut from the default (200
+# iterations) for the script's room on slow hosts: at -n 10 the port on
+# the CPU reaches the default depth's logL, -21152.4834
+DEFAULT_DEPTH = ["-n", "10"]
 WIDE_SELECTION = ["-m", "TESTONLY", "-mset", "HKY,GTR", "-mrate", "E,G,R",
                   "-cmax", "4"]
 # phase 10's first command line: every support and per-site output
@@ -392,8 +427,10 @@ CODON_DEPTH = ["-n", "2", "-ninit", "5", "-ntop", "2", "-nbest", "2"]
 FAMILY_DEPTH = ["-n", "1", "-ninit", "3", "-ntop", "1", "-nbest", "1"]
 ERROR_SHARE = 0.01                     # 14d: tip states replaced
 ERROR_RANGE = (0.003, 0.03)            # 14d: the fitted epsilon
-# 14d's search of example.phy, cut from the defaults: 24 s of iterations
-ERROR_DEPTH = ["-n", "10", "-ninit", "20", "-ntop", "5", "-nbest", "2"]
+# 14d's search of example.phy, cut from the defaults (24 s of iterations),
+# then from -n 10 -ninit 20 -ntop 5 for the script's room on slow hosts
+# (the port on the CPU reaches -21497.0352 at this depth, above the bound)
+ERROR_DEPTH = ["-n", "3", "-ninit", "10", "-ntop", "3", "-nbest", "2"]
 RY_TAXA, RY_SITES = 100, 4096          # 14e
 MDEF_TOL = 1e-6                        # 14e: relative, float64
 MDEF_YAML = """\
@@ -412,8 +449,9 @@ MDEF_YAML = """\
 """
 MDEF_GTR = "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}"
 # 14f: the supermatrix's loci (sequence type, simulating model, sites) and
-# the models its charpartition names
-PMIX_TAXA = 100
+# the models its charpartition names (taxa cut from 100 for phase 18's
+# room: -te, its CPU evaluation and -B took 19.8, 13.5 and 48.4 s there)
+PMIX_TAXA = 50
 PMIX_LOCI = (("AA", "LG+C20+G{0.6}", 1000),
              ("DNA", "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}+G{0.6}",
               2000))
@@ -476,6 +514,35 @@ DIST_DEPTH = ["-n", "12", "-ninit", "20"]
 # 17c: DistributedSearch's settings, and its 1- and 2-rank logLs' bound
 DIST_SEARCH = dict(seed=1, n_init_trees=10, n_rounds=2, round_size=4)
 DIST_SEARCH_REL = 1e-6
+# phase 18: the kernels' wide instance (S > 64). 18a's kernel checks
+# (kernelcheck.MODELS name, dtype, sites) at CHECK_TAXA taxa: PoMo at N =
+# 13 and 19 (76 and 112 states) and, at SLICE_SITES for the phase's time,
+# N = 23 (136)
+WIDE_CHECKS = (("GTR+P13+G4", "float32", CHECK_SITES),
+               ("GTR+P13+G4", "float64", CHECK_SITES),
+               ("GTR+P19+G4", "float32", CHECK_SITES),
+               ("GTR+P19+G4", "float64", CHECK_SITES),
+               ("GTR+P23+G4", "float32", SLICE_SITES))
+POMO_CHECK = "GTR+P19+G4"              # 18b's fixed parameters
+POMO_TAXA, POMO_SITES = 100, 16384     # 18b
+# 18b's NNI5 candidates, cut from all 97 for the phase's time (a chunk of
+# candidates holds what any chunk of a whole round holds)
+POMO_NNI_CANDIDATES = 8
+POMO_MODEL = "GTR+P19+G4"              # 18c's and 18d's -m
+# the -te fit whose logL less 0.5 bounds 18c's search, as the reference
+# fit bounds phase 6's: -m GTR+P19+G4 -te ref_tree.nwk on example.phy in
+# float32, as this script measured it on an H100 80GB HBM3
+POMO_TE_LOGL = -21809.3438
+# 18c's search depth, cut from the defaults for the phase's time: at the
+# defaults the iterations took 171 s (logL -21809.2734), at this depth
+# 1.5 s (-21809.4043); at -n 2 -ninit 5 -ntop 2 the search ended below
+# the bound (-21809.957)
+POMO_DEPTH = ["-n", "3", "-ninit", "10", "-ntop", "3", "-nbest", "2"]
+# 18e: a 65-state --mdef datatype under MK+G, -te at a size past the joint
+# fit's guard (torchfit.MAX_REVERSE_ELEMENTS: 98 x 4 x 65 x 10496 padded
+# patterns), so that the host alternation's Newton runs theta_pass; at
+# 8192 sites (6929 patterns) the joint fit took it, launching no kernel
+MDEF_WIDE_TAXA, MDEF_WIDE_SITES = 100, 12288
 # start_part's process: this script's function on JSON arguments
 PART_RUN = ("import json, sys, chip_smoke as cs; print('RESULT ' + "
             "json.dumps(getattr(cs, sys.argv[1])(*json.loads(sys.argv[2]))))")
@@ -1439,8 +1506,9 @@ def family_kernels(errors: dict) -> list:
 
 def kernel_rows(checks, phase: str, errors: dict,
                 not_indicators=()) -> list:
-    """Each (kernelcheck.MODELS name, dtype) of ``checks`` at CHECK_TAXA x
-    CHECK_SITES (a name ending in " rooted" as the root test's problem,
+    """Each (kernelcheck.MODELS name, dtype[, sites]) of ``checks`` at
+    CHECK_TAXA x sites (CHECK_SITES where none is given; a name ending in
+    " rooted" as the root test's problem,
     kernelcheck.rooted_problem), on the engine its model takes
     (kernelcheck.make_engine): the kernels against their plain versions,
     one launch per pass, times loaded and back to back, bounds, shares,
@@ -1451,11 +1519,12 @@ def kernel_rows(checks, phase: str, errors: dict,
     from iqtree2_tpu_torch import kernelcheck
     from iqtree2_tpu_torch.ops import kernels
     rows = []
-    for name, dt in checks:
+    for name, dt, *sites in checks:
+        sites = sites[0] if sites else CHECK_SITES
         dtype = getattr(torch, dt)
         model_name = name.removesuffix(" rooted")
         aln, tree, model, rates = kernelcheck.simulate(model_name, CHECK_TAXA,
-                                                       CHECK_SITES, seed=1)
+                                                       sites, seed=1)
         if model_name != name:
             aln, tree = kernelcheck.rooted_problem(aln, tree)
         eng = kernelcheck.make_engine(aln, model, rates, dtype=dtype,
@@ -1463,7 +1532,7 @@ def kernel_rows(checks, phase: str, errors: dict,
         C, S = int(eng._pack["cat_rate"].shape[0]), eng._tipP.shape[1]
         torch.cuda.reset_peak_memory_stats()
         window = kernelcheck.plain_window(eng)
-        tag = f"[phase {phase}] {name} {aln.ntaxa} x {CHECK_SITES}"
+        tag = f"[phase {phase}] {name} {aln.ntaxa} x {sites}"
         res = check_kernels(tag, eng, tree, FAMILY_TIME_REPS, errors,
                             window=window, b2b_reps=FAMILY_B2B_REPS)
         bnd = kernelcheck.bounds(eng, tree)
@@ -1736,6 +1805,12 @@ def family_partitions(launches: dict) -> None:
         raise RuntimeError(f"{tag} .ufboot holds {n_boot} trees")
     if not all(v > 0 for v in got.values()):
         raise RuntimeError(f"{tag} a kernel was never launched: {got}")
+
+
+def family_runs(aln_path: str, tree_path: str, parts: str) -> dict:
+    """Phase 14's ``parts`` (of b-f), in start_part's process; returns
+    their launches."""
+    return model_families({}, aln_path, tree_path, parts=parts)[0]
 
 
 def add(total: dict, launches: dict) -> None:
@@ -2267,9 +2342,10 @@ def standalone_tools(cpu_lmap: subprocess.Popen, parts: str = "abcde"
 def dist_dryrun(problem, errors: dict) -> None:
     """17a: dryrun_multichip on ``problem`` (phase 5's) over 2 gloo ranks
     on the one card and 1 NCCL rank, then the kernels against their plain
-    versions at a rank's shapes."""
+    versions at a rank's shapes, with their bounds and shares."""
     import numpy as np
     import torch
+    from iqtree2_tpu_torch import kernelcheck
     from iqtree2_tpu_torch.engine import PATTERN_PAD, LikelihoodEngine
     from iqtree2_tpu_torch.parallel import dryrun, shard
     for n, backend in ((2, "gloo"), (1, "nccl")):
@@ -2298,9 +2374,14 @@ def dist_dryrun(problem, errors: dict) -> None:
     sub = aln.subset_sites(np.nonzero(aln.site_to_pattern < per)[0])
     eng = LikelihoodEngine(sub, model, rates, dtype=torch.float32,
                            device="cuda")
-    check_kernels(f"[phase 17a] a rank's slice {sub.ntaxa} x "
-                  f"{sub.num_patterns}", eng, tree, 1, errors,
-                  b2b_reps=SLICE_B2B_REPS)
+    tag = f"[phase 17a] a rank's slice {sub.ntaxa} x {sub.num_patterns}"
+    res = check_kernels(tag, eng, tree, 1, errors, b2b_reps=SLICE_B2B_REPS)
+    bnd = kernelcheck.bounds(eng, tree)
+    shares = {r["name"]: (round(bnd[r["name"]]["bound_ms"], 6),
+                          round(bnd[r["name"]]["bound_ms"] / r["b2b_ms"], 4))
+              for r in res}
+    print(f"{tag} (bound ms, share of the back-to-back time): {shares}",
+          flush=True)
 
 
 def cli_rank(args: list[str]) -> dict:
@@ -2441,6 +2522,207 @@ def distributed(problem, g4: float, errors: dict, started: list,
     return launches
 
 
+def pomo_wide(errors: dict) -> dict:
+    """18b: POMO_TAXA x POMO_SITES simulated under GTR+G4 and fitted under
+    POMO_CHECK (kernelcheck.MODELS' fixed parameters, 112 states) in
+    float32: one logL, one nonreversible Newton round (both passes and the
+    direct derivatives per edge) with its ms and peak device memory, the
+    NNI5 scores of POMO_NNI_CANDIDATES candidates (each chunk of candidates
+    takes what a whole round's chunks take) with the peak device memory
+    below MAX_CLIMB_GIB, one launch per pass; then each kernel against its
+    plain version at those shapes. Returns kernelcheck.check's rows by
+    name, each with its bound."""
+    import numpy as np
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.ops import kernels
+    from iqtree2_tpu_torch.ops.nni import build_nni_candidates
+    from iqtree2_tpu_torch.tree.schedule import build_schedule
+    tag = "[phase 18b]"
+    t0 = time.perf_counter()
+    aln, tree, model, rates = kernelcheck.simulate(POMO_CHECK, POMO_TAXA,
+                                                   POMO_SITES, seed=1)
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
+                           device="cuda")
+    print(f"{tag} simulated {POMO_TAXA} x {POMO_SITES} under GTR+G4, "
+          f"{eng.Pp} patterns under {POMO_CHECK} (S = "
+          f"{eng._tipP.shape[1]}), in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    eng.loglik_tree(tree)                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logl0 = eng.loglik_tree(tree)
+    lg_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logl = eng.optimize_branches(tree, n_rounds=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+    passes.check(got, tag)
+    round_ms = (wall - passes.calls["sitelp"] * lg_s) * 1e3
+    print(f"{tag} f32 logL {logl0:.4f} ({lg_s * 1e3:.2f} ms) -> {logl:.4f} "
+          f"after one nonreversible Newton round in {wall:.3f} s "
+          f"({passes.calls['sitelp']} logLs): {round_ms:.2f} ms without its "
+          f"logLs; launches {got}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not (math.isfinite(logl) and logl >= logl0 - 1e-3
+            and got["up_pass"] == 1):
+        raise RuntimeError(f"{tag} logL {logl0} -> {logl}, launches {got}")
+    sched = build_schedule(tree)
+    cand = build_nni_candidates(tree, sched)
+    ca = np.stack([cand.iu, cand.iv, cand.slot_c, cand.edge_id]
+                  )[:, :POMO_NNI_CANDIDATES]
+    torch.cuda.reset_peak_memory_stats()
+    with PassCount() as passes:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        scores = eng.evaluate_nni_batch(sched, ca, nni5=True)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+    passes.check(got, tag)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag} NNI5 scores of {ca.shape[1]} candidates in {wall:.2f} s "
+          f"(both passes, then the candidates in chunks of "
+          f"ops/nni.CHUNK_BYTES): launches {got}; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    if not (np.isfinite(scores).all() and peak < MAX_CLIMB_GIB):
+        raise RuntimeError(f"{tag} NNI5 scores {scores}, peak {peak}")
+    res = check_kernels(f"{tag} {POMO_CHECK}", eng, tree, 1, errors,
+                        window=kernelcheck.plain_window(eng), b2b_reps=2)
+    bnd = kernelcheck.bounds(eng, tree)
+    print(f"{tag} bounds (ms): "
+          f"{ {k: round(v['bound_ms'], 6) for k, v in bnd.items()} }",
+          flush=True)
+    return {r["name"]: {**r, **bnd[r["name"]]} for r in res}
+
+
+def pomo_search(bound: float, errors: dict) -> dict:
+    """18c: example.phy -m POMO_MODEL -B 1000 (POMO_DEPTH) in float32:
+    phase 6's files, logL at least ``bound``, down_pass with and without
+    its epilogue and up_pass launched (PoMo takes the nonreversible Newton:
+    both passes, no theta), one launch per pass; then the kernels against
+    their plain versions at its shapes (the search's tree, POMO_CHECK's
+    fixed parameters; untimed: it runs beside 14b-f). Returns the
+    launches."""
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    pre = OUT / "pomo_search"
+    tag = "[phase 18c]"
+    got = counted(["-s", str(GOLDEN / "example.phy"), "-m", POMO_MODEL,
+                   "-B", str(FLAGSHIP_REPLICATES)] + POMO_DEPTH
+                  + ["-pre", str(pre)], tag)
+    logl = check_flagship(pre, bound)
+    print(f"{tag} logL {logl:.4f} (bound {bound:.4f}); wall seconds: "
+          f"{wall_split(pre)}", flush=True)
+    if not all(got[k] > 0 for k in ("down_pass", "sitelp", "up_pass")):
+        raise RuntimeError(f"{tag} a kernel was never launched: {got}")
+    p_aln, p_tree, p_model, p_rates = kernelcheck.load_problem(
+        GOLDEN / "example.phy", f"{pre}.treefile", POMO_CHECK)
+    check_kernels(f"{tag} {POMO_CHECK} search's tree",
+                  LikelihoodEngine(p_aln, p_model, p_rates,
+                                   dtype=torch.float32, device="cuda"),
+                  p_tree, 0, errors)
+    return got
+
+
+def pomo_te(dtype: str) -> float:
+    """18d: -m POMO_MODEL -te on the golden tree on the card, its logL
+    (float64: within CARD_CPU_TOL of the port's CPU evaluation of the same
+    tree and parameters; no fit runs on the CPU). Returns the logL."""
+    import torch
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    keep: dict = {}
+    tag = f"[phase 18d {dtype}]"
+    pre = OUT / f"pomo_te_{dtype}"
+    counted(["-s", str(GOLDEN / "example.phy"), "-m", POMO_MODEL, "-te",
+             str(GOLDEN / "ref_tree.nwk"), "-pre", str(pre)]
+            + (["--f64"] if dtype == "float64" else []), tag,
+            runner=lambda a: run_analysis(a, keep))
+    if dtype != "float64":
+        print(f"{tag} card logL {keep['logL']:.4f}", flush=True)
+        return keep["logL"]
+    t0 = time.perf_counter()
+    cpu = LikelihoodEngine(keep["aln"], keep["model"], keep["rates"],
+                           dtype=torch.float64, device="cpu"
+                           ).loglik_tree(keep["tree"])
+    print(f"{tag} card logL {keep['logL']:.6f}, the CPU's at the same tree "
+          f"and parameters {cpu:.6f} in {time.perf_counter() - t0:.1f} s "
+          f"(tol {CARD_CPU_TOL:g})", flush=True)
+    if not abs(keep["logL"] - cpu) <= CARD_CPU_TOL:
+        raise RuntimeError(f"{tag} card {keep['logL']} != CPU {cpu}")
+    return keep["logL"]
+
+
+def mdef_wide(errors: dict) -> dict:
+    """18e: MDEF_WIDE_TAXA x MDEF_WIDE_SITES simulated under MK65+G4 (a
+    65-state --mdef datatype), then --mdef ... -st STATES65 -m MK+G -te on
+    its tree in float32: past the joint fit's guard, so the host
+    alternation's Newton rounds run theta_pass; a finite logL, down_pass
+    with its epilogue and theta_pass launched, one launch per pass; then
+    the kernels against their plain versions at its shapes (untimed: it
+    runs beside 14b-f) and their bounds. Returns the launches."""
+    import torch
+    from iqtree2_tpu_torch import kernelcheck
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    tag = "[phase 18e]"
+    t0 = time.perf_counter()
+    aln, tree, model, rates = kernelcheck.simulate(
+        "MK65+G4", MDEF_WIDE_TAXA, MDEF_WIDE_SITES, seed=1)
+    phy, nwk = kernelcheck.write_problem(aln, tree, OUT / "states65")
+    defs = OUT / "states65.yml"
+    defs.write_text(kernelcheck.YAML_DATATYPES["STATES65"])
+    print(f"{tag} simulated {aln.ntaxa} x {aln.nsites} ({aln.num_patterns} "
+          f"patterns) in {time.perf_counter() - t0:.1f} s", flush=True)
+    pre = OUT / "states65_te"
+    got = counted(["--mdef", str(defs), "-s", phy, "-st", "STATES65", "-m",
+                   "MK+G", "-te", nwk, "-pre", str(pre)], tag)
+    logl = report_logl(pre)
+    print(f"{tag} logL {logl:.4f}", flush=True)
+    if not (math.isfinite(logl)
+            and all(got[k] > 0 for k in ("down_pass", "sitelp",
+                                         "theta_pass"))):
+        raise RuntimeError(f"{tag} logL {logl}, launches {got}")
+    eng = LikelihoodEngine(aln, model, rates, dtype=torch.float32,
+                           device="cuda")
+    check_kernels(f"{tag} MK65+G4", eng, tree, 0, errors,
+                  window=kernelcheck.plain_window(eng))
+    bound = kernelcheck.bounds(eng, tree)
+    print(f"{tag} MK65+G4 Pp={eng.Pp} bounds (ms): "
+          f"{ {k: (round(v['bound_ms'], 6), v['bound_by']) for k, v in bound.items()} }",
+          flush=True)
+    return got
+
+
+def wide_states(errors: dict, parts: str = "abcde",
+                te_bound: float | None = None) -> tuple[dict, dict]:
+    """Phase 18's parts: 18a, the wide instance against the plain versions
+    on WIDE_CHECKS (PoMo's sampled-read tips, not indicator rows), then
+    18b-e. Returns 18b's kernel rows and the launches of 18c and 18e (the
+    wide instance's paths), summed. 18c is bounded by POMO_TE_LOGL - 0.5,
+    or te_bound where given."""
+    t0 = time.perf_counter()
+    if "a" in parts:
+        kernel_rows(WIDE_CHECKS, "18a", errors,
+                    not_indicators=[name for name, *_ in WIDE_CHECKS])
+    timed = pomo_wide(errors) if "b" in parts else {}
+    launches: dict = {}
+    if "c" in parts:
+        add(launches, pomo_search(
+            (POMO_TE_LOGL if te_bound is None else te_bound) - 0.5, errors))
+    if "d" in parts:
+        pomo_te("float64")
+    if "e" in parts:
+        add(launches, mdef_wide(errors))
+    print(f"[phase 18] {time.perf_counter() - t0:.1f} s", flush=True)
+    return timed, launches
+
+
 def run_cli(args: list[str]) -> float:
     """One run of the port's command line; returns its wall seconds."""
     import torch
@@ -2456,25 +2738,28 @@ def run_cli(args: list[str]) -> float:
 def check_kernels(tag: str, eng, tree, time_reps: int, errors: dict,
                   **check_kw) -> list:
     """kernelcheck.check on one problem (check_kw: its window and
-    b2b_reps); prints one line per kernel, keeps the largest absolute
-    error per kernel in ``errors``, raises on a disagreement."""
+    b2b_reps; time_reps 0 times nothing); prints one line per kernel,
+    keeps the largest absolute error per kernel in ``errors``, raises on a
+    disagreement."""
     import torch
     from iqtree2_tpu_torch import kernelcheck
     res = kernelcheck.check(eng, tree, time_reps=time_reps, **check_kw)
     torch.cuda.synchronize()
     for r in res:
-        extra = ""
+        extra = times = ""
+        if time_reps:
+            times = (f" kernel {r['ms']:.4f} ms, back to back "
+                     f"{r['b2b_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
         if "lp_err" in r:
-            extra = (f" lp_err {r['lp_err']:.3e} (tol {r['lp_tol']:g}); "
-                     f"with the epilogue kernel {r['sitelp_ms']:.4f} ms, "
-                     f"back to back {r['sitelp_b2b_ms']:.4f} ms, plain "
-                     f"{r['sitelp_plain_ms']:.4f} ms")
+            extra = f" lp_err {r['lp_err']:.3e} (tol {r['lp_tol']:g})"
+            if time_reps:
+                extra += (f"; with the epilogue kernel {r['sitelp_ms']:.4f} "
+                          f"ms, back to back {r['sitelp_b2b_ms']:.4f} ms, "
+                          f"plain {r['sitelp_plain_ms']:.4f} ms")
         print(f"{tag} {str(eng.dtype)[6:]} Pp={eng.Pp} {r['name']}: "
               f"max_abs_err {r['max_abs_err']:.3e} max_rel_err "
               f"{r['max_rel_err']:.3e} (tol {r['tol']:g}) scales_equal "
-              f"{r['scales_equal']} kernel {r['ms']:.4f} ms, back to back "
-              f"{r['b2b_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{extra}",
-              flush=True)
+              f"{r['scales_equal']}{times}{extra}", flush=True)
         if not r["ok"]:
             raise RuntimeError(f"{r['name']} disagrees with its plain "
                                f"version ({tag}, {eng.dtype}): {r}")
@@ -2493,7 +2778,7 @@ def main() -> int:
 
 
 def run(started: list) -> int:
-    """Phases 1-17; each process it starts goes into ``started``."""
+    """Phases 1-18; each process it starts goes into ``started``."""
     if not (ROOT / "iqtree2_tpu_torch").is_dir() or not GOLDEN.is_dir():
         return fail("run from the root of a checkout of the repository "
                     "(iqtree2_tpu_torch/ and tests/golden/ are missing)")
@@ -2512,7 +2797,7 @@ def run(started: list) -> int:
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
 
-    def stamp(phase: int) -> None:
+    def stamp(phase) -> None:
         print(f"[time] phase {phase} starts at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -2540,7 +2825,8 @@ def run(started: list) -> int:
     for C in (1, 4, 10):
         occ = {f"{kind} S={S} {str(dtype)[6:]}": kernels.pass_occupancy(
             kind, dtype, C, S, BIG_SITES)
-            for S in (4, 20) for dtype in (torch.float32, torch.float64)
+            for S in (4, 20, 112, 454)
+            for dtype in (torch.float32, torch.float64)
             for kind in kernels.PASS_KINDS}
         print(f"[phase 2] C={C}, {BIG_SITES} patterns: (blocks per SM, "
               f"shared bytes per block) {occ}", flush=True)
@@ -2691,7 +2977,8 @@ def run(started: list) -> int:
     with PassCount() as passes, ModelFinderSpy() as spy:
         kernels.reset_launch_counts()
         wall = run_cli(["-s", str(GOLDEN / "example.phy"),
-                        "-bb", str(FLAGSHIP_REPLICATES), "-pre", str(dflt)])
+                        "-bb", str(FLAGSHIP_REPLICATES)] + DEFAULT_DEPTH
+                       + ["-pre", str(dflt)])
         main_launches = dict(kernels.LAUNCHES)
     mf = spy.result
     top = [(e["name"], round(e["BIC"], 3)) for e in mf["table"][:8]]
@@ -2855,23 +3142,44 @@ def run(started: list) -> int:
     mix_pmsf_search(mix_phy)
     mix_weights(cpu_fit)
 
+    # 14-18: first the parts that time the device (14a, 15a-b, 17a,
+    # 18a-b), then the host-paced rest (15c-g, 16, 17b-c, 18c-e) with
+    # 14b-e's and 14f's command lines in two processes of their own
+    # beside them
     stamp(14)
     # 14. the model families: codon, +E, --mdef, partitioned mixtures
-    family_launches, _ = model_families(errors, aln_path, tree_path)
-
+    model_families(errors, aln_path, tree_path, parts="a")
     stamp(15)
     # 15. nonreversible models, PoMo, +H, +T, the root test
-    _, _, nonrev_launches = nonrev_families(errors)
-
+    nonrev_families(errors, parts="ab")
+    stamp(17)
+    # 17. the distributed search and the pattern-sharded likelihood
+    problem = (aln, tree, model, rates)
+    distributed(problem, g4, errors, started, parts="a")
+    stamp(18)
+    # 18. the kernels' wide instance (S > 64): PoMo at N = 13-23, a 65-state
+    # --mdef datatype
+    wide_errors = {k: 0.0 for k in REPLACES}
+    wide_timed, _ = wide_states(wide_errors, parts="ab")
+    stamp("14b-e and 14f (beside the rest), 15c")
+    family_procs = [start_part("family_runs", aln_path, tree_path, parts)
+                    for parts in ("bcde", "f")]
+    started.extend(family_procs)
+    _, _, nonrev_launches = nonrev_families(errors, parts="cdefg")
     stamp(16)
     # 16. the standalone tools and dating
     dating_launches = standalone_tools(cpu_lmap)
-
-    stamp(17)
-    # 17. the distributed search and the pattern-sharded likelihood
-    dist_launches = distributed((aln, tree, model, rates), g4, errors,
-                                started)
-    print(f"[time] phases 1-17 in {time.perf_counter() - t_start:.1f} s",
+    stamp("17b")
+    dist_launches = distributed(problem, g4, errors, started, parts="bc")
+    stamp("18c")
+    _, wide_launches = wide_states(wide_errors, parts="cde")
+    if not all(wide_launches.get(k, 0) > 0 for k in REPLACES):
+        return fail(f"a wide kernel was never launched on 18c and 18e: "
+                    f"{wide_launches}")
+    family_launches: dict = {}
+    for proc, tag in zip(family_procs, ("[phase 14b-e]", "[phase 14f]")):
+        add(family_launches, join_part(proc, tag))
+    print(f"[time] phases 1-18 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": [
@@ -2888,7 +3196,15 @@ def run(started: list) -> int:
          "b2b_ms": timed[k]["b2b_ms"], "plain_ms": timed[k]["plain_ms"],
          "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],
          # no single PyTorch call computes a pruning pass
-         "library_ms": None} for k in REPLACES]}))
+         "library_ms": None} for k in REPLACES] + [
+        {"name": f"{k} (S > 64)", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[k], "launches": wide_launches[k],
+         "max_abs_err": wide_errors[k], "ms": wide_timed[k]["ms"],
+         "b2b_ms": wide_timed[k]["b2b_ms"],
+         "plain_ms": wide_timed[k]["plain_ms"],
+         "bound_ms": wide_timed[k]["bound_ms"],
+         "bound_by": wide_timed[k]["bound_by"], "library_ms": None}
+        for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

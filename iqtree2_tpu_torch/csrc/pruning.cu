@@ -30,9 +30,11 @@
 //   theta [E, C, S, Pp]          theta rows by edge id
 //   step_node [n_steps, G] int32 level steps of tree/schedule.py, padded
 //                                with n_int
-// One thread owns one pattern of one node (or edge) and loops over the
-// node's C*S values itself, so the per-pattern rescale max over all C*S
-// values needs no cross-thread reduction.
+// Up to 64 states one thread owns one pattern of one node (or edge) and
+// loops over the node's C*S values itself, so the per-pattern rescale max
+// over all C*S values needs no cross-thread reduction. Above 64 states (PoMo
+// from N = 13, wide --mdef datatypes) the wide instance splits a node's
+// states across the block's threads instead (see "the wide instance" below).
 //
 // The passes walk the tree inside the launch, as every Pallas pass did.
 // Patterns are independent, so the grid cuts them into tiles of kTile = 32
@@ -855,6 +857,447 @@ __global__ void __launch_bounds__(kTile* kWarps, SMAX <= 4 ? kMinBlocks : kMinBl
   }
 }
 
+// ------------------------------------------------ the wide instance, S > 64
+// Past kMaxRegStates states a thread can no longer own a pattern's column:
+// at S = 112 and C = 4 it holds 448 values, and the thread alone would do
+// 2*C*S*S multiply-adds per node. So the block splits the states across
+// its threads. It takes one node (down_pass) or one (node, child slot) item
+// (the sweeps) at a time; the lane is still the pattern, so loads and
+// stores stay coalesced along Pp, and warp w computes the output states w,
+// w + kWarps, ... (kWideRows of them per chunk, so any S is covered in
+// chunks of kWarps * kWideRows). Per category, the [S, kTile] columns a
+// product contracts over (the children's, the sibling's, E, the child's own
+// for theta) are staged in shared memory, where every thread reads them.
+// Where they do not fit (past about 290 states in float64 for theta_pass),
+// they are read in place from device memory instead: the children's and
+// the sibling's rows, E from its edge's rows (up_pass) or from a [S, Pp]
+// workspace that the launcher allocates (theta_pass, which never writes E),
+// so no S is refused short of device memory. The matrices P, U and V are
+// read through the cache, every lane of a warp
+// the same value (a broadcast). U and V are staged in shared memory when
+// they fit beside the rest. The per-pattern max over all C*S values is a
+// block reduction in shared memory. Where the [C, S, kTile] tile of the
+// outputs (down: the partial; sweeps: E) fits beside the columns
+// (kWideShmBytes), the first sweep keeps it and the second stores it
+// rescaled; where it does not (C = 10 in float64), the second sweep
+// computes the products again, as the narrow wide columns do. UP is stored
+// as formed and multiplied by 2^B in place, by the thread that stored it,
+// when its max is low. The site log-likelihoods' root fold is a block sum.
+// A node moves 3*C*S values per pattern for 2*C*S*S multiply-adds, about
+// 37 flops per byte at S = 112 in float32, above the H100's ridge of about
+// 20: the wide passes are bound by operations, not bytes. Here they are
+// plain multiply-adds, each thread's rows sharing one staged value per
+// step of the contraction; tensor cores (wgmma, DMMA for float64) and TMA
+// are left for later, and TF32 is off by the precision policy.
+
+constexpr int kMaxRegStates = 64;  // widest S of the register-column instances
+constexpr int kWideRows = 8;       // output rows a wide thread holds per chunk
+constexpr size_t kWideShmBytes = 227 * 1024;  // shared memory one block may opt in to
+
+// The [S] vector a wide product contracts over, at one pattern: value i at
+// v[i * vs] (staged: a shared-memory column, vs = kTile; else rows of
+// device memory, vs = Pp). Plain loads: it is written in the same launch.
+template <typename T>
+struct WVec {
+  T* v;
+  size_t vs;
+};
+
+// acc[j] = sum_i M[r_j * rs + i * is] * v.v[i * v.vs] over i < S, for the
+// rows r_j = x0 + warp + kWarps * j. A row past S is computed on row S - 1
+// and left unused by the caller. LDG: M lies in device memory and is
+// read-only for the launch (P, U, V); else it is staged (plain loads).
+template <typename T, bool LDG>
+__device__ __forceinline__ void wide_rows(T (&acc)[kWideRows], const T* M, int rs, int is,
+                                          WVec<T> v, int x0, int warp, int S) {
+  int off[kWideRows];
+#pragma unroll
+  for (int j = 0; j < kWideRows; ++j) {
+    const int r = x0 + warp + kWarps * j;
+    off[j] = (r < S ? r : S - 1) * rs;
+    acc[j] = 0;
+  }
+  for (int i = 0; i < S; ++i) {
+    const T vi = v.v[i * v.vs];
+#pragma unroll
+    for (int j = 0; j < kWideRows; ++j) {
+      if constexpr (LDG)
+        acc[j] += __ldg(M + off[j] + i * is) * vi;
+      else
+        acc[j] += M[off[j] + i * is] * vi;
+    }
+  }
+}
+
+// dst[y * kTile + lane] = column value (c, y) for the rows y = warp, warp +
+// kWarps, ... (0 for a lane past Pp). Plain loads: rows of `all` and `up`
+// are written earlier in the same launch.
+template <typename T>
+__device__ __forceinline__ void wide_stage(T* dst, const Col<T>& col, int c, int S, bool live,
+                                           int warp, int lane) {
+  const T* b = col.base + c * col.cs;
+  for (int y = warp; y < S; y += kWarps) dst[y * kTile + lane] = live ? b[y * col.ys] : T(0);
+}
+
+// Category c of a child's column as a product reads it: staged into dst
+// (COLS; the caller syncs the block before reading it), else in place.
+template <typename T>
+__device__ __forceinline__ WVec<T> wide_col(T* dst, const Col<T>& col, int c, int S, bool cols,
+                                            bool live, int warp, int lane) {
+  if (!cols) return {const_cast<T*>(col.base + c * col.cs), col.ys};
+  wide_stage(dst, col, c, S, live, warp, lane);
+  return {dst + lane, (size_t)kTile};
+}
+
+// The max (SUM: the sum) over the block's warps of each lane's v.
+template <typename T, bool SUM>
+__device__ __forceinline__ T wide_reduce(T v, T* red, int warp, int lane) {
+  red[warp * kTile + lane] = v;
+  __syncthreads();
+  T r = red[lane];
+  for (int w = 1; w < kWarps; ++w) {
+    const T o = red[w * kTile + lane];
+    r = SUM ? r + o : (o > r ? o : r);
+  }
+  __syncthreads();  // red is free again
+  return r;
+}
+
+// Staged [S, kTile] columns of a wide block (down: the two children; up:
+// the sibling and E; theta: and the child's own).
+__host__ __device__ constexpr size_t wide_cols(bool theta) { return theta ? 3 : 2; }
+
+// What a wide block keeps in shared memory beyond its reduction row (the
+// kernels' `stage` argument): nothing, the columns, or the columns and the
+// [C, S, kTile] output tile.
+enum WideStage { kWideInPlace = 0, kWideCols = 1, kWideTile = 2 };
+
+// Row j of warp's rows in the chunk from x0 (callers skip rows past S).
+__device__ __forceinline__ int wide_row(int x0, int warp, int j) { return x0 + warp + kWarps * j; }
+
+// H1, S > 64: one node at a time, the whole block. `stage` (WideStage):
+// the columns are staged, and the [C, S, kTile] products kept in shared
+// memory between the sweeps.
+template <typename T>
+__global__ void __launch_bounds__(kTile* kWarps, 1)
+    down_wide_kernel(const T* __restrict__ P, const T* __restrict__ tip, T* all, int* sc,
+                     const int* __restrict__ child_src, const int* __restrict__ child_edge,
+                     const int* __restrict__ step_node, const T* __restrict__ root_freqs,
+                     const T* __restrict__ cat_weight, const T* __restrict__ log_inv, T* lp,
+                     int n_steps, int G, int n_int, int L, int C, int S, int Pp, int stage) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kTile + lane;
+  const bool live = p < Pp, cols = stage >= kWideCols, tile = stage == kWideTile;
+  const int q = live ? p : Pp - 1;  // the pattern whose columns a lane reads
+  const size_t SS = (size_t)S * S, CSS = (size_t)C * SS, CS = (size_t)C * S, P64 = (size_t)Pp;
+  constexpr int kChunk = kWarps * kWideRows;
+  T* red = reinterpret_cast<T*>(smem);
+  T* ca = red + kWarps * kTile;
+  T* cb = ca + (size_t)S * kTile;
+  T* out_tile = cb + (size_t)S * kTile;
+  for (int s = 0; s < n_steps; ++s) {
+    const int* row = step_node + (size_t)s * G;
+    for (int g = 0; g < G; ++g) {
+      const int nid = row[g];
+      if (nid >= n_int) continue;  // a pad slot (the same for every thread)
+      const int s0 = child_src[2 * nid], s1 = child_src[2 * nid + 1];
+      const T* Pa = P + (size_t)child_edge[2 * nid] * CSS;
+      const T* Pb = P + (size_t)child_edge[2 * nid + 1] * CSS;
+      const Col<T> a = child_col(tip, all, s0, L, S, CS, P64, q);
+      const Col<T> b = child_col(tip, all, s1, L, S, CS, P64, q);
+      const int count = live ? (s0 >= L ? sc[(size_t)s0 * P64 + p] : 0) +
+                                   (s1 >= L ? sc[(size_t)s1 * P64 + p] : 0)
+                             : 0;
+      T* out = all + (size_t)(L + nid) * CS * P64 + p;
+      // sweep 0: the products and their max, kept in the tile where it fits;
+      // sweep 1 (no tile): the same products again, stored rescaled
+      T mx = 0, f = 1;
+      bool low = false;
+      for (int sweep = 0; sweep < (tile ? 1 : 2); ++sweep) {
+        for (int c = 0; c < C; ++c) {
+          const WVec<T> va = wide_col(ca, a, c, S, cols, live, warp, lane);
+          const WVec<T> vb = wide_col(cb, b, c, S, cols, live, warp, lane);
+          __syncthreads();
+          for (int x0 = 0; x0 < S; x0 += kChunk) {
+            T ua[kWideRows], ub[kWideRows];
+            wide_rows<T, true>(ua, Pa + c * SS, S, 1, va, x0, warp, S);
+            wide_rows<T, true>(ub, Pb + c * SS, S, 1, vb, x0, warp, S);
+#pragma unroll
+            for (int j = 0; j < kWideRows; ++j) {
+              const int x = wide_row(x0, warp, j);
+              if (x >= S) continue;
+              const T v = ua[j] * ub[j];
+              if (sweep == 1) {
+                if (live) out[((size_t)c * S + x) * P64] = v * f;
+              } else {
+                mx = v > mx ? v : mx;
+                if (tile) out_tile[((size_t)c * S + x) * kTile + lane] = v;
+              }
+            }
+          }
+          __syncthreads();  // the columns are free again
+        }
+        if (sweep == 0) {
+          low = wide_reduce<T, false>(mx, red, warp, lane) < Scaling<T>::thresh;
+          f = low ? Scaling<T>::factor : T(1);
+        }
+      }
+      if (tile && live)  // the kept products, rescaled (each thread its own rows)
+        for (int c = 0; c < C; ++c)
+          for (int x = warp; x < S; x += kWarps)
+            out[((size_t)c * S + x) * P64] = out_tile[((size_t)c * S + x) * kTile + lane] * f;
+      if (warp == 0 && live) sc[(size_t)(L + nid) * P64 + p] = count + (low ? 1 : 0);
+    }
+    __syncthreads();  // this step's rows are visible to the next step
+  }
+  if (lp == nullptr) return;
+  // site log-likelihoods (T1/T4): leaf 0's message P_0 . tip_0 times the root
+  // row, weighted by root_freqs and cat_weight, summed over the block
+  const int root = L + n_int - 1;
+  const WVec<T> t0 = wide_col(ca, Col<T>{tip + q, 0, P64}, 0, S, cols, live, warp, lane);
+  __syncthreads();
+  const T* B = all + (size_t)root * CS * P64 + p;
+  T part = 0;
+  for (int c = 0; c < C; ++c) {
+    T lh = 0;
+    for (int x0 = 0; x0 < S; x0 += kChunk) {
+      T m[kWideRows];
+      wide_rows<T, true>(m, P + c * SS, S, 1, t0, x0, warp, S);
+#pragma unroll
+      for (int j = 0; j < kWideRows; ++j) {
+        const int x = wide_row(x0, warp, j);
+        if (x < S && live)
+          lh += __ldg(root_freqs + c * S + x) * (B[((size_t)c * S + x) * P64] * m[j]);
+      }
+    }
+    part += __ldg(cat_weight + c) * lh;
+  }
+  const T site = wide_reduce<T, true>(part, red, warp, lane);
+  if (warp == 0 && live) {
+    const T l = dlog(site > Scaling<T>::tiny ? site : Scaling<T>::tiny) -
+                (T)sc[(size_t)root * P64 + p] * Scaling<T>::log_factor;
+    lp[p] = logaddexp(l, log_inv[p]);
+  }
+}
+
+// H2/H3, S > 64: one (node, child slot) item at a time, the whole block, the
+// level steps in reverse. up_pass: UP of the root and E of edge 0 are set
+// before the launch. theta_pass (THETA): the block stages U and V when
+// uv_staged, runs the prologue (UP(root), theta of edge 0), and items write
+// theta and UP, never E; without staged columns its E argument is the [S,
+// Pp] workspace of one category's E. `stage` (WideStage): the columns are
+// staged, and E's [C, S, kTile] values kept in shared memory between the
+// sweeps.
+template <typename T, bool THETA>
+__global__ void __launch_bounds__(kTile* kWarps, 1)
+    up_wide_kernel(const T* __restrict__ P, const T* __restrict__ tip,
+                   const T* __restrict__ all, const int* __restrict__ dsc, T* up, int* upsc,
+                   T* E, int* esc, T* theta, int* tsc, const T* __restrict__ U,
+                   const T* __restrict__ V, const T* __restrict__ root_freqs,
+                   const int* __restrict__ child_src, const int* __restrict__ child_edge,
+                   const int* __restrict__ step_node, int n_steps, int G, int n_int, int L,
+                   int C, int S, int Pp, int stage, int uv_staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kTile + lane;
+  const bool live = p < Pp, cols = stage >= kWideCols, tile = stage == kWideTile;
+  const int q = live ? p : Pp - 1;  // the pattern whose columns a lane reads
+  const size_t SS = (size_t)S * S, CSS = (size_t)C * SS, CS = (size_t)C * S, P64 = (size_t)Pp;
+  constexpr int kChunk = kWarps * kWideRows;
+  T* red = reinterpret_cast<T*>(smem);
+  T* cb = red + kWarps * kTile;          // the sibling's column
+  T* es = cb + (size_t)S * kTile;        // one category's E (without the tile)
+  T* cd = es + (size_t)S * kTile;        // THETA: the child's own column
+  T* e_tile = cols ? cd + (THETA ? (size_t)S * kTile : 0) : cb;
+  const T* Ub = U;
+  const T* Vb = V;
+  // one category's E where a product reads it (and the second sweep or the
+  // prologue writes it): the tile's rows, the staged column, or in place,
+  // theta_pass's workspace or the edge's rows of E (dead lanes skip writes)
+  auto e_vec = [&](int c, int ek) -> WVec<T> {
+    if (tile) return {e_tile + (size_t)c * S * kTile + lane, (size_t)kTile};
+    if (cols) return {es + lane, (size_t)kTile};
+    if constexpr (THETA) return {E + q, P64};
+    return {E + ((size_t)ek * CS + (size_t)c * S) * P64 + q, P64};
+  };
+  // theta's two factors of one category's rows k: (U^T E)_k (V D)_k
+  auto theta_rows = [&](T (&a)[kWideRows], T (&b)[kWideRows], WVec<T> ec, WVec<T> d, int c,
+                        int x0) {
+    if (uv_staged) {
+      wide_rows<T, false>(a, Ub + c * SS, 1, S, ec, x0, warp, S);
+      wide_rows<T, false>(b, Vb + c * SS, S, 1, d, x0, warp, S);
+    } else {
+      wide_rows<T, true>(a, Ub + c * SS, 1, S, ec, x0, warp, S);
+      wide_rows<T, true>(b, Vb + c * SS, S, 1, d, x0, warp, S);
+    }
+  };
+  if constexpr (THETA) {
+    if (uv_staged) {
+      T* uv = e_tile + (tile ? CS * kTile : 0);
+      for (size_t i = threadIdx.x; i < CSS; i += blockDim.x) {
+        uv[i] = __ldg(U + i);
+        uv[CSS + i] = __ldg(V + i);
+      }
+      Ub = uv;
+      Vb = uv + CSS;
+    }
+    // prologue (T8's first grid step): UP(root) = pi x (P_0 . tip_0), summed
+    // as theta_prologue sums it, with scale 0; theta of edge 0 from E_0 = pi
+    // x down(root) (scale dsc[root]) and the child column tip_0
+    const int root = L + n_int - 1;
+    const T* B = all + (size_t)root * CS * P64 + p;
+    T* ur = up + (size_t)(n_int - 1) * CS * P64 + p;
+    const WVec<T> d0 = wide_col(cd, Col<T>{tip + q, 0, P64}, 0, S, cols, live, warp, lane);
+    const WVec<T> e0 = cols ? WVec<T>{es + lane, (size_t)kTile} : e_vec(0, 0);
+    for (int c = 0; c < C; ++c) {
+      for (int x = warp; x < S; x += kWarps)
+        if (cols || live)
+          e0.v[x * e0.vs] =
+              live ? __ldg(root_freqs + c * S + x) * B[((size_t)c * S + x) * P64] : T(0);
+      __syncthreads();  // E_0 and tip_0 (and U, V) are in place
+      const T* Pc = P + c * SS;
+      for (int x = warp; x < S; x += kWarps) {
+        T acc[4] = {0, 0, 0, 0};
+        for (int y = 0; y < S; ++y)
+          acc[y & 3] = add_rn(acc[y & 3], mul_rn(__ldg(Pc + x * S + y), d0.v[y * d0.vs]));
+        if (live)
+          ur[((size_t)c * S + x) * P64] = __ldg(root_freqs + c * S + x) *
+                                          add_rn(add_rn(add_rn(acc[0], acc[1]), acc[2]), acc[3]);
+      }
+      for (int x0 = 0; x0 < S; x0 += kChunk) {
+        T ta[kWideRows], tb[kWideRows];
+        theta_rows(ta, tb, e0, d0, c, x0);
+#pragma unroll
+        for (int j = 0; j < kWideRows; ++j) {
+          const int k = wide_row(x0, warp, j);
+          if (k < S && live) theta[((size_t)c * S + k) * P64 + p] = ta[j] * tb[j];
+        }
+      }
+      __syncthreads();  // es is free again
+    }
+    if (warp == 0 && live) {
+      upsc[(size_t)(n_int - 1) * P64 + p] = 0;
+      tsc[p] = dsc[(size_t)root * P64 + p];
+    }
+    __syncthreads();  // UP(root) is visible to the first step
+  }
+  for (int s = n_steps - 1; s >= 0; --s) {
+    const int* row = step_node + (size_t)s * G;
+    for (int it = 0; it < 2 * G; ++it) {
+      const int nid = row[it >> 1];
+      if (nid >= n_int) continue;  // a pad slot (the same for every thread)
+      const int k = it & 1, j = 1 - k;
+      const int sk = child_src[2 * nid + k], sj = child_src[2 * nid + j];
+      const int ek = child_edge[2 * nid + k];
+      const T* Pj = P + (size_t)child_edge[2 * nid + j] * CSS;
+      const T* Pk = P + (size_t)ek * CSS;
+      const T* upn = up + (size_t)nid * CS * P64 + p;
+      const Col<T> bcol = child_col(tip, all, sj, L, S, CS, P64, q);
+      const Col<T> dcol = child_col(tip, all, sk, L, S, CS, P64, q);
+      const int e_base =
+          live ? upsc[(size_t)nid * P64 + p] + (sj >= L ? dsc[(size_t)sj * P64 + p] : 0) : 0;
+      const bool internal = sk >= L;
+      T* uc = internal ? up + (size_t)(sk - L) * CS * P64 + p : nullptr;
+      // E's values of one category's rows: UP(node) x (P_j . sibling), times f
+      auto e_rows = [&](T (&ev)[kWideRows], WVec<T> vb, int c, int x0, T f) {
+        wide_rows<T, true>(ev, Pj + c * SS, S, 1, vb, x0, warp, S);
+#pragma unroll
+        for (int r = 0; r < kWideRows; ++r) {
+          const int x = wide_row(x0, warp, r);
+          ev[r] = (x < S && live) ? upn[((size_t)c * S + x) * P64] * ev[r] * f : T(0);
+        }
+      };
+      T mx = 0;
+      for (int c = 0; c < C; ++c) {  // first sweep: E and its max
+        const WVec<T> vb = wide_col(cb, bcol, c, S, cols, live, warp, lane);
+        __syncthreads();
+        for (int x0 = 0; x0 < S; x0 += kChunk) {
+          T ev[kWideRows];
+          e_rows(ev, vb, c, x0, T(1));
+#pragma unroll
+          for (int r = 0; r < kWideRows; ++r) {
+            const int x = wide_row(x0, warp, r);
+            if (x < S) {
+              mx = ev[r] > mx ? ev[r] : mx;
+              if (tile) e_tile[((size_t)c * S + x) * kTile + lane] = ev[r];
+            }
+          }
+        }
+        __syncthreads();  // the sibling's column is free again
+      }
+      const bool low_e = wide_reduce<T, false>(mx, red, warp, lane) < Scaling<T>::thresh;
+      const T fe = low_e ? Scaling<T>::factor : T(1);
+      const int e_count = e_base + (low_e ? 1 : 0);
+      T mu = 0;
+      for (int c = 0; c < C; ++c) {  // second sweep: E rescaled, then E or theta, and UP
+        const WVec<T> ec = e_vec(c, ek);
+        if (tile) {
+          for (int x = warp; x < S; x += kWarps) ec.v[x * kTile] *= fe;
+        } else {
+          const WVec<T> vb = wide_col(cb, bcol, c, S, cols, live, warp, lane);
+          __syncthreads();
+          for (int x0 = 0; x0 < S; x0 += kChunk) {
+            T ev[kWideRows];
+            e_rows(ev, vb, c, x0, fe);
+#pragma unroll
+            for (int r = 0; r < kWideRows; ++r) {
+              const int x = wide_row(x0, warp, r);
+              if (x < S && (cols || live)) ec.v[x * ec.vs] = ev[r];
+            }
+          }
+        }
+        WVec<T> vd{};
+        if constexpr (THETA) vd = wide_col(cd, dcol, c, S, cols, live, warp, lane);
+        __syncthreads();  // this category's E (and the child's column) is in place
+        if constexpr (THETA) {
+          T* th = theta + (size_t)ek * CS * P64 + p;
+          for (int x0 = 0; x0 < S; x0 += kChunk) {
+            T ta[kWideRows], tb[kWideRows];
+            theta_rows(ta, tb, ec, vd, c, x0);
+#pragma unroll
+            for (int r = 0; r < kWideRows; ++r) {
+              const int kk = wide_row(x0, warp, r);
+              if (kk < S && live) th[((size_t)c * S + kk) * P64] = ta[r] * tb[r];
+            }
+          }
+        } else if (live && cols) {  // else E's rows are written in place
+          T* Ek = E + (size_t)ek * CS * P64 + p;
+          for (int x = warp; x < S; x += kWarps)
+            Ek[((size_t)c * S + x) * P64] = ec.v[x * kTile];
+        }
+        if (internal)  // UP(child) = P_k^T E, stored as formed
+          for (int x0 = 0; x0 < S; x0 += kChunk) {
+            T u[kWideRows];
+            wide_rows<T, true>(u, Pk + c * SS, 1, S, ec, x0, warp, S);
+#pragma unroll
+            for (int r = 0; r < kWideRows; ++r) {
+              const int y = wide_row(x0, warp, r);
+              if (y < S && live) {
+                uc[((size_t)c * S + y) * P64] = u[r];
+                mu = u[r] > mu ? u[r] : mu;
+              }
+            }
+          }
+        __syncthreads();  // E's buffer and the columns are free again
+      }
+      if (warp == 0 && live) {
+        if constexpr (THETA)
+          tsc[(size_t)ek * P64 + p] = e_count + (sk >= L ? dsc[(size_t)sk * P64 + p] : 0);
+        else
+          esc[(size_t)ek * P64 + p] = e_count;
+      }
+      if (!internal) continue;
+      const bool low_u = wide_reduce<T, false>(mu, red, warp, lane) < Scaling<T>::thresh;
+      if (low_u && live)  // the UP this thread has just stored, times 2^B
+        for (int c = 0; c < C; ++c)
+          for (int y = warp; y < S; y += kWarps) uc[((size_t)c * S + y) * P64] *= Scaling<T>::factor;
+      if (warp == 0 && live) upsc[(size_t)(sk - L) * P64 + p] = e_count + (low_u ? 1 : 0);
+    }
+    __syncthreads();  // this step's UP rows are visible to the next step
+  }
+}
+
 // Block shape and dynamic shared memory of the passes. The matrices are
 // staged when every warp's slice fits in the budget; the prefetch buffers
 // are added (float only, S <= 4) when they fit there too; theta_pass also
@@ -868,8 +1311,32 @@ struct PassShape {
   bool pf;
 };
 
+// The wide instance (S > kMaxRegStates): the reduction row always, then
+// the staged columns, the [C, S, kTile] output tile (staged, a WideStage)
+// and U and V (uv_staged), each where it fits in kWideShmBytes beside the
+// rest.
+template <typename T>
+PassShape wide_shape(int Pp, int C, int S, bool theta) {
+  PassShape ps;
+  ps.grid = dim3((unsigned)((Pp + kTile - 1) / kTile));
+  ps.block = dim3(kTile * kWarps);
+  ps.pf = false;
+  const size_t red = (size_t)kWarps * kTile * sizeof(T);
+  const size_t cols = wide_cols(theta) * (size_t)S * kTile * sizeof(T);
+  const size_t tile = (size_t)C * S * kTile * sizeof(T);
+  const size_t uv = theta ? 2 * (size_t)C * S * S * sizeof(T) : 0;
+  ps.staged = red + cols > kWideShmBytes          ? kWideInPlace
+              : red + cols + tile > kWideShmBytes ? kWideCols
+                                                  : kWideTile;
+  ps.shm = red + (ps.staged >= kWideCols ? cols : 0) + (ps.staged == kWideTile ? tile : 0);
+  ps.uv_staged = theta && ps.shm + uv <= kWideShmBytes;
+  ps.shm += ps.uv_staged ? uv : 0;
+  return ps;
+}
+
 template <typename T>
 PassShape pass_shape(int Pp, int C, int S, bool theta) {
+  if (S > kMaxRegStates) return wide_shape<T>(Pp, C, S, theta);
   PassShape ps;
   ps.grid = dim3((unsigned)((Pp + kTile - 1) / kTile));
   ps.block = dim3(kTile * kWarps);
@@ -886,10 +1353,10 @@ PassShape pass_shape(int Pp, int C, int S, bool theta) {
 }
 
 // The pass kernel instance for S states: the register column width is the
-// smallest of 4 (DNA), 20 (protein), 64 (codon) that holds S; larger S is
-// refused (nullptr; the wrapper raises before launching). Prefetch
-// instances exist for float at S <= 4 only. Trailing template arguments
-// (up_pass_kernel's THETA) follow KERNEL after an empty argument.
+// smallest of 4 (DNA), 20 (protein), 64 (codon) that holds S; larger S
+// takes the wide instance (the pick functions). Prefetch instances exist
+// for float at S <= 4 only. Trailing template arguments (up_pass_kernel's
+// THETA) follow KERNEL after an empty argument.
 #define IQ_PICK_PASS(KERNEL, ...)                                              \
   if constexpr (kRegCats > 0)                                                 \
     if (S <= 4 && C <= kRegCats) {                                            \
@@ -903,22 +1370,24 @@ PassShape pass_shape(int Pp, int C, int S, bool theta) {
     return KERNEL<T, 4, false, false __VA_ARGS__>;                            \
   }                                                                           \
   if (S <= 20) return KERNEL<T, 20, false, false __VA_ARGS__>;                \
-  if (S <= 64) return KERNEL<T, 64, false, false __VA_ARGS__>;                \
-  return nullptr;
+  return KERNEL<T, 64, false, false __VA_ARGS__>;
 
 template <typename T>
 auto pick_down_pass(int C, int S, const PassShape& ps) -> decltype(&down_pass_kernel<T, 4, true, false>) {
+  if (S > kMaxRegStates) return down_wide_kernel<T>;
   IQ_PICK_PASS(down_pass_kernel, )
 }
 
 template <typename T, bool THETA>
 auto pick_up_pass(int C, int S, const PassShape& ps)
     -> decltype(&up_pass_kernel<T, 4, true, false, THETA>) {
+  if (S > kMaxRegStates) return up_wide_kernel<T, THETA>;
   IQ_PICK_PASS(up_pass_kernel, , THETA)
 }
 
 // Lets a kernel take more than the default 48 KB of dynamic shared memory
-// (theta_pass with prefetch), from the SM's largest shared-memory carveout.
+// (theta_pass with prefetch, the wide instance), from the SM's largest
+// shared-memory carveout.
 template <typename K>
 cudaError_t allow_shm(K kernel, size_t shm) {
   if (shm <= 48 * 1024) return cudaSuccess;
@@ -932,7 +1401,6 @@ cudaError_t allow_shm(K kernel, size_t shm) {
 // Resident blocks per SM of a pass instance (negative: a CUDA error).
 template <typename K>
 int blocks_per_sm(K kernel, const PassShape& ps) {
-  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
   cudaError_t err = allow_shm(kernel, ps.shm);
   int n = 0;
   if (err == cudaSuccess)
@@ -947,7 +1415,8 @@ int launch_down_pass(const void* P, const void* tip, void* all, void* sc, const 
                      int n_int, int L, int C, int S, int Pp, cudaStream_t st) {
   const PassShape ps = pass_shape<T>(Pp, C, S, false);
   const auto kernel = pick_down_pass<T>(C, S, ps);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_shm(kernel, ps.shm);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<ps.grid, ps.block, ps.shm, st>>>(
       static_cast<const T*>(P), static_cast<const T*>(tip), static_cast<T*>(all),
       static_cast<int*>(sc), static_cast<const int*>(child_src),
@@ -965,7 +1434,8 @@ int launch_up_pass(const void* P, const void* tip, const void* all, const void* 
                    int Pp, cudaStream_t st) {
   const PassShape ps = pass_shape<T>(Pp, C, S, false);
   const auto kernel = pick_up_pass<T, false>(C, S, ps);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_shm(kernel, ps.shm);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<ps.grid, ps.block, ps.shm, st>>>(
       static_cast<const T*>(P), static_cast<const T*>(tip), static_cast<const T*>(all),
       static_cast<const int*>(dsc), static_cast<T*>(up), static_cast<int*>(upsc),
@@ -985,29 +1455,41 @@ int launch_theta_pass(const void* P, const void* tip, const void* all, const voi
                       int Pp, cudaStream_t st) {
   const PassShape ps = pass_shape<T>(Pp, C, S, true);
   const auto kernel = pick_up_pass<T, true>(C, S, ps);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allow_shm(kernel, ps.shm);
+  cudaError_t err = allow_shm(kernel, ps.shm);
   if (err != cudaSuccess) return (int)err;
+  // the wide instance without staged columns keeps one category's E of the
+  // item in a [S, Pp] workspace, stream-ordered around the launch
+  T* ws = nullptr;
+  if (S > kMaxRegStates && ps.staged == kWideInPlace) {
+    err = cudaMallocAsync(reinterpret_cast<void**>(&ws), (size_t)S * Pp * sizeof(T), st);
+    if (err != cudaSuccess) return (int)err;
+  }
   kernel<<<ps.grid, ps.block, ps.shm, st>>>(
       static_cast<const T*>(P), static_cast<const T*>(tip), static_cast<const T*>(all),
-      static_cast<const int*>(dsc), static_cast<T*>(up), static_cast<int*>(upsc),
-      static_cast<T*>(nullptr), static_cast<int*>(nullptr), static_cast<T*>(theta),
-      static_cast<int*>(tsc), static_cast<const T*>(U), static_cast<const T*>(V),
-      static_cast<const T*>(root_freqs), static_cast<const int*>(child_src),
-      static_cast<const int*>(child_edge), static_cast<const int*>(step_node), n_steps, G, n_int,
-      L, C, S, Pp, ps.staged, ps.uv_staged);
-  return (int)cudaGetLastError();
+      static_cast<const int*>(dsc), static_cast<T*>(up), static_cast<int*>(upsc), ws,
+      static_cast<int*>(nullptr), static_cast<T*>(theta), static_cast<int*>(tsc),
+      static_cast<const T*>(U), static_cast<const T*>(V), static_cast<const T*>(root_freqs),
+      static_cast<const int*>(child_src), static_cast<const int*>(child_edge),
+      static_cast<const int*>(step_node), n_steps, G, n_int, L, C, S, Pp, ps.staged,
+      ps.uv_staged);
+  err = cudaGetLastError();
+  if (ws != nullptr) {
+    const cudaError_t freed = cudaFreeAsync(ws, st);
+    if (err == cudaSuccess) err = freed;
+  }
+  return (int)err;
 }
 
-// kind 0 down_pass, 1 up_pass, 2 theta_pass: resident blocks per SM and
+// KIND 0 down_pass, 1 up_pass, 2 theta_pass: resident blocks per SM and
 // dynamic shared memory per block of the instance for (C, S, Pp).
-template <typename T>
-int pass_occupancy(int kind, int C, int S, int Pp, int* blocks, int* shm) {
-  const PassShape ps = pass_shape<T>(Pp, C, S, kind == 2);
+template <typename T, int KIND>
+int pass_occupancy(int C, int S, int Pp, int* blocks, int* shm) {
+  const PassShape ps = pass_shape<T>(Pp, C, S, KIND == 2);
   *shm = (int)ps.shm;
-  *blocks = kind == 0   ? blocks_per_sm(pick_down_pass<T>(C, S, ps), ps)
-            : kind == 1 ? blocks_per_sm(pick_up_pass<T, false>(C, S, ps), ps)
-                        : blocks_per_sm(pick_up_pass<T, true>(C, S, ps), ps);
+  if constexpr (KIND == 0)
+    *blocks = blocks_per_sm(pick_down_pass<T>(C, S, ps), ps);
+  else
+    *blocks = blocks_per_sm(pick_up_pass<T, KIND == 2>(C, S, ps), ps);
   return *blocks < 0 ? -*blocks : (int)cudaSuccess;
 }
 
@@ -1054,17 +1536,37 @@ int pass_occupancy(int kind, int C, int S, int Pp, int* blocks, int* shm) {
                                 n_int, L, C, S, Pp, static_cast<cudaStream_t>(stream));     \
   }
 
-#define IQ_PASS_OCCUPANCY(SUFFIX, T)                                                         \
-  extern "C" int iq_pass_occupancy_##SUFFIX(int kind, int C, int S, int Pp, int* blocks,     \
-                                            int* shm) {                                     \
-    return pass_occupancy<T>(kind, C, S, Pp, blocks, shm);                                  \
+#define IQ_PASS_OCCUPANCY(KIND_NAME, KIND, SUFFIX, T)                                        \
+  extern "C" int iq_pass_occupancy_##KIND_NAME##_##SUFFIX(int C, int S, int Pp, int* blocks, \
+                                                           int* shm) {                     \
+    return pass_occupancy<T, KIND>(C, S, Pp, blocks, shm);                                  \
   }
 
+// IQ_PART k (0-5) compiles one (pass, precision) pair's launcher and
+// occupancy query, and with them only that pair's kernel instances, so
+// that ops/kernels.build_library runs one nvcc for each part, all at once,
+// and links the parts; without IQ_PART the whole library is one unit.
+#if !defined(IQ_PART) || IQ_PART == 0
 IQ_DOWN_PASS(f32, float)
+IQ_PASS_OCCUPANCY(down_pass, 0, f32, float)
+#endif
+#if !defined(IQ_PART) || IQ_PART == 1
 IQ_DOWN_PASS(f64, double)
+IQ_PASS_OCCUPANCY(down_pass, 0, f64, double)
+#endif
+#if !defined(IQ_PART) || IQ_PART == 2
 IQ_UP_PASS(f32, float)
+IQ_PASS_OCCUPANCY(up_pass, 1, f32, float)
+#endif
+#if !defined(IQ_PART) || IQ_PART == 3
 IQ_UP_PASS(f64, double)
+IQ_PASS_OCCUPANCY(up_pass, 1, f64, double)
+#endif
+#if !defined(IQ_PART) || IQ_PART == 4
 IQ_THETA_PASS(f32, float)
+IQ_PASS_OCCUPANCY(theta_pass, 2, f32, float)
+#endif
+#if !defined(IQ_PART) || IQ_PART == 5
 IQ_THETA_PASS(f64, double)
-IQ_PASS_OCCUPANCY(f32, float)
-IQ_PASS_OCCUPANCY(f64, double)
+IQ_PASS_OCCUPANCY(theta_pass, 2, f64, double)
+#endif

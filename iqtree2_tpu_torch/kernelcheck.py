@@ -132,14 +132,38 @@ MODELS = {
     "GTR+P+G4": ("DNA", "ACGT", "GTR{1.5,4.0,1.2,0.8,5.0}+P{0.01}+G{0.6}"),
     "GTR+H4": ("DNA", "ACGT", "GTR{1.5,4.0,1.2,0.8,5.0}+F{0.3,0.2,0.2,0.3}"
                "+H4"),
+    # PoMo past 64 states, the kernels' wide instance: N = 13, 19 and 23
+    # (76, 112 and 136 states), simulated as DNA as GTR+P+G4 is
+    "GTR+P13+G4": ("DNA", "ACGT",
+                   "GTR{1.5,4.0,1.2,0.8,5.0}+P13{0.01}+G{0.6}"),
+    "GTR+P19+G4": ("DNA", "ACGT",
+                   "GTR{1.5,4.0,1.2,0.8,5.0}+P19{0.01}+G{0.6}"),
+    "GTR+P23+G4": ("DNA", "ACGT",
+                   "GTR{1.5,4.0,1.2,0.8,5.0}+P23{0.01}+G{0.6}"),
+    # N = 76 (454 states): past what a block's shared memory stages in
+    # float64, where the wide passes read their columns in place
+    "GTR+P76+G4": ("DNA", "ACGT",
+                   "GTR{1.5,4.0,1.2,0.8,5.0}+P76{0.01}+G{0.6}"),
 }
+# a 65-state --mdef datatype, the wide instance's narrowest width under a
+# reversible model (whose Newton runs theta_pass; PoMo's runs both passes):
+# every printable ASCII character but the lower case (sequences are read
+# upper-cased), ", \ and ?, which marks missing data
+STATES65 = "".join(chr(c) for c in range(33, 127)
+                   if not chr(c).islower() and chr(c) not in '"\\?')
+MODELS["MK65+G4"] = ("STATES65", STATES65, "MK+G{0.6}")
 # problems simulated under another model than the one they are fitted
 # under: PoMo's polymorphic states are not the alignment's
-SIMULATE_UNDER = {"GTR+P+G4": "GTR+G4"}
+SIMULATE_UNDER = {name: "GTR+G4" for name in ("GTR+P+G4", "GTR+P13+G4",
+                                               "GTR+P19+G4", "GTR+P23+G4",
+                                               "GTR+P76+G4")}
 # the datatypes of MODELS that --mdef defines: name -> its definition,
 # registered by simulate where it is first asked for
 YAML_DATATYPES = {"STATES7": "- datatype: STATES7\n"
-                             "  state: [A, B, C, D, E, F, G]\n"}
+                             "  state: [A, B, C, D, E, F, G]\n",
+                  "STATES65": "- datatype: STATES65\n  state: ["
+                              + ", ".join(f'"{c}"' for c in STATES65)
+                              + ']\n  missing: "?"\n'}
 # the partitioned path's shapes, one supermatrix each: per partition the
 # MODELS name, its sites and the share of taxa it lacks (all-gap rows on the
 # union taxon set)
@@ -694,9 +718,10 @@ def time_buffers(eng: LikelihoodEngine, tree: Tree, reps: int) -> dict:
 
 
 # NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s in float32
-# and 34 TFLOP/s in float64 outside the tensor cores
+# outside the tensor cores, and 67 TFLOP/s in float64 on them (DMMA), the
+# card's peak for each type
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def bounds(eng: LikelihoodEngine, tree: Tree) -> dict:

@@ -5,7 +5,8 @@ codons (standard code); substitutions only between codons differing at one
 position; rate = kappa^(is transition) * omega^(is nonsynonymous) * target
 factor (GY: codon frequency pi_j; MG: target-nucleotide frequency). Both are
 time-reversible, so the engine's symmetrized eigendecomposition applies; the
-61 states run in the kernels' S <= 64 instance (ops/kernels.MAX_STATES).
+61 states run in the kernels' widest register-column instance (S <= 64;
+csrc/pruning.cu).
 
 Codon frequency options: F (F61, counted codon frequencies), F1X4, F3X4
 (products of positional nucleotide frequencies), FQ (equal).

@@ -3,7 +3,8 @@
 Counterpart of iqtree2_tpu/ops/pallas_pruning.py and pallas_pruning2.py.
 The CUDA source is ``iqtree2_tpu_torch/csrc/pruning.cu``; it is compiled with
 ``nvcc`` for ``sm_90a`` at first use into ``iqtree2_tpu_torch/_build/``
-(keyed by a hash of the source and flags) and bound with ctypes.
+(one part per pass and precision, side by side, keyed by a hash of the
+source and flags) and bound with ctypes.
 
 Each kernel has, side by side here:
 
@@ -32,15 +33,18 @@ What the kernels replace (TPU kernel: file · ``pl.pallas_call`` line):
   the root set up in its first step (:651-659).
 
 What bounds them on the card is memory bandwidth: at S=4 a step does under
-2 flops per byte in float32. The TPU kernels packed categories into
-[128, 128] block-diagonal operators to feed the matrix unit (32x the useful
-work for DNA) and kept partials in a VMEM ring; here a block owns a tile of
-32 patterns and walks every level step of the schedule, a warp per node
-slot and a thread per pattern contracting each category's S x S block
-directly (csrc/pruning.cu says how). Each pass is one launch, as each
-Pallas pass was, so a pass costs one operand check and one launch on the
-host whatever the tree's depth; the site log-likelihoods and theta are
-computed inside the pass that produces their inputs, as on the TPU.
+2 flops per byte in float32 (past 64 states, about 37 at S = 112, the
+products' arithmetic bounds them instead). The TPU kernels packed
+categories into [128, 128] block-diagonal operators to feed the matrix
+unit (32x the useful work for DNA) and kept partials in a VMEM ring; here
+a block owns a tile of 32 patterns and walks every level step of the
+schedule, a warp per node slot and a thread per pattern contracting each
+category's S x S block directly; above 64 states the wide instance splits
+a node's states across the block's threads, the columns staged in shared
+memory (csrc/pruning.cu says how; any S, any C). Each pass is one launch,
+as each Pallas pass was, so a pass costs one operand check and one launch
+on the host whatever the tree's depth; the site log-likelihoods and theta
+are computed inside the pass that produces their inputs, as on the TPU.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -57,9 +62,6 @@ import torch
 from iqtree2_tpu_torch.ops.prec import scaling_consts
 
 LAUNCHES = {"down_pass": 0, "sitelp": 0, "up_pass": 0, "theta_pass": 0}
-
-# widest state space the kernels hold in registers (codon models: 61)
-MAX_STATES = 64
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "pruning.cu"
@@ -75,7 +77,7 @@ _SIGNATURES = {
     "theta_pass": [_P] * 14 + [_I] * 7,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# kinds of pass_occupancy, in the order of csrc/pruning.cu's pass_occupancy
+# kinds of pass_occupancy (csrc/pruning.cu's iq_pass_occupancy_KIND_SUFFIX)
 PASS_KINDS = ("down_pass", "up_pass", "theta_pass")
 
 _lib = None   # the loaded library, built on first use
@@ -96,35 +98,67 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list, logs: list) -> None:
+    """Run the commands side by side, each writing to its log; raise with
+    the log of the first that fails."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    codes = [p.wait() for p in procs]
+    for cmd, log, code in zip(cmds, logs, codes):
+        if code != 0:
+            raise RuntimeError(f"nvcc failed with code {code}:\n"
+                               f"{' '.join(cmd)}\n{Path(log).read_text()}")
+
+
+def build_parts(source: bytes) -> list[int]:
+    """The IQ_PART units of csrc/pruning.cu (its ``IQ_PART == k`` blocks,
+    one pass and precision each), which build_library compiles side by
+    side: one nvcc for the whole source took 40-53 s on the H100's host."""
+    return sorted({int(k) for k in re.findall(rb"IQ_PART == (\d+)", source)})
+
+
 def build_library() -> Path:
-    """Compile csrc/pruning.cu unless a build of this exact source exists."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Compile csrc/pruning.cu unless a build of this exact source exists:
+    one nvcc for each of its build_parts (a pass and a precision: its
+    launcher, its occupancy query and its kernel instances), all started
+    together, then one link."""
+    source = SOURCE.read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"pruning_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    parts = build_parts(source)
+    objs = [f"{tmp}.{k}.o" for k in parts]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
+    try:
+        _run_all([[nvcc, *compile_flags, f"-DIQ_PART={k}", "-o", obj,
+                   str(SOURCE)] for k, obj in zip(parts, objs)],
+                 [f"{obj}.log" for obj in objs])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *objs]], [f"{tmp}.log"])
+        os.replace(tmp, out)
+    finally:
+        for f in objs + [f"{o}.log" for o in objs] + [f"{tmp}.log"]:
+            Path(f).unlink(missing_ok=True)
     return out
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare argtypes/restype of every launcher of a loaded library."""
-    for name, args in _SIGNATURES.items():
-        for suffix in _SUFFIX.values():
+    for suffix in _SUFFIX.values():
+        for name, args in _SIGNATURES.items():
             fn = getattr(lib, f"iq_{name}_{suffix}")
             fn.argtypes = args + [_P]
             fn.restype = ctypes.c_int
-    for suffix in _SUFFIX.values():
-        fn = getattr(lib, f"iq_pass_occupancy_{suffix}")
-        fn.argtypes = [_I] * 4 + [ctypes.POINTER(_I)] * 2
-        fn.restype = ctypes.c_int
+        for kind in PASS_KINDS:
+            fn = getattr(lib, f"iq_pass_occupancy_{kind}_{suffix}")
+            fn.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 2
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -168,22 +202,16 @@ def _check_cuda(name: str, floats, ints) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _check_states(name: str, S: int) -> None:
-    if S > MAX_STATES:
-        raise NotImplementedError(
-            f"{name}: {S} states exceed the kernels' register column "
-            f"({MAX_STATES}); wider state spaces are not yet ported")
-
-
 def pass_occupancy(kind: str, dtype: torch.dtype, C: int, S: int,
                    Pp: int) -> tuple[int, int]:
     """(resident blocks per SM, dynamic shared memory bytes per block) of
     the kernel instance a pass of ``kind`` (PASS_KINDS) launches for C
-    categories of S states and Pp patterns, on the current card."""
+    categories of S states and Pp patterns, on the current card (S > 64:
+    the wide instance)."""
     blocks, shm = _I(), _I()
-    err = getattr(library(), f"iq_pass_occupancy_{_suffix(kind, dtype)}")(
-        PASS_KINDS.index(kind), C, S, Pp, ctypes.byref(blocks),
-        ctypes.byref(shm))
+    err = getattr(library(),
+                  f"iq_pass_occupancy_{kind}_{_suffix(kind, dtype)}")(
+        C, S, Pp, ctypes.byref(blocks), ctypes.byref(shm))
     if err != 0:
         raise RuntimeError(f"{kind} occupancy query failed: CUDA error {err}")
     return blocks.value, shm.value
@@ -265,7 +293,6 @@ def down_pass(P, tip, all_, sc, child_src, child_edge, step_node,
 def launch_down_pass(lib, stream, P, tip, all_, sc, child_src, child_edge,
                      step_node, sitelp=None) -> None:
     L, S, Pp = tip.shape
-    _check_states("down_pass", S)
     n_steps, G = step_node.shape
     if sitelp is not None and any(t.numel() != Pp for t in sitelp[2:]):
         raise ValueError(f"down_pass: log_ptn_invar and lp must hold {Pp} "
@@ -341,7 +368,6 @@ def up_pass(P, tip, all_, dsc, up, upsc, E, esc, child_src, child_edge,
 def launch_up_pass(lib, stream, P, tip, all_, dsc, up, upsc, E, esc,
                    child_src, child_edge, step_node) -> None:
     L, S, Pp = tip.shape
-    _check_states("up_pass", S)
     n_steps, G = step_node.shape
     _call(lib, "up_pass", up.dtype, stream,
           [t.data_ptr() for t in (P, tip, all_, dsc, up, upsc, E, esc,
@@ -423,7 +449,6 @@ def launch_theta_pass(lib, stream, P, tip, all_, dsc, up, upsc, theta, tsc,
                       root_freqs) -> None:
     L, S, Pp = tip.shape
     C = P.shape[1]
-    _check_states("theta_pass", S)
     n_steps, G = step_node.shape
     _call(lib, "theta_pass", up.dtype, stream,
           [t.data_ptr() for t in (P, tip, all_, dsc, up, upsc, theta, tsc,

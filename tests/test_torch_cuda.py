@@ -3,7 +3,9 @@ also at the partitioned path's and the mixtures' shapes (C = 80, 240 and
 LG4X's four eigensystems), the model families' (61-state codon
 models, +E tips, 2 and 7 states) and the nonreversible and per-class
 ones (UNREST and 12.12 with complex eigenvalues, PoMo's 52 states, +H's
-per-class lengths, the root test's __ROOT__ leaf), and the search path on
+per-class lengths, the root test's __ROOT__ leaf), the wide instance past
+64 states (PoMo at 76, 112, 136 and 454, a 65-state --mdef datatype), and the
+search path on
 the card (fused
 NNI round, NNI hill-climb, joint fit), the partition engine, a mixture's
 search, the PMSF engine, the codon and partitioned-mixture fits, and the
@@ -582,6 +584,53 @@ def test_kernels_match_plain_nonrev_families(cuda, name, dtype):
         assert r["ok"], r
         assert r["launches"] == 1, r
     assert res[0]["sitelp_launches"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,gamma", [
+    ("GTR+P13+G4", "+G{0.6}"), ("GTR+P19+G4", "+G{0.6}"),
+    ("GTR+P23+G4", "+G{0.6}"), ("MK65+G4", "+G{0.6}"),
+    ("GTR+P13+G4", ""), ("GTR+P19+G4", "+G10{0.6}"),
+    ("GTR+P76+G4", "+G{0.6}")],
+    ids=["S76", "S112", "S136", "S65", "S76-C1", "S112-C10", "S454"])
+def test_kernels_match_plain_wide(cuda, name, gamma, dtype):
+    """The kernels' wide instance (S > 64, a node's states split across
+    the block): PoMo at 76, 112 and 136 states on k/N tips, a 65-state
+    --mdef datatype under a reversible model, one category (theta_pass
+    stages U and V) and ten (in float64 the output tile does not fit and
+    the sweeps compute the products twice), and PoMo at 454 states, whose
+    columns float64 cannot stage (the passes read them in place, theta_pass
+    keeps E in its workspace); one launch per pass."""
+    aln, tree, _, _ = kernelcheck.simulate(name, 24, 300, seed=2)
+    model, rates, _ = build_model(
+        kernelcheck.MODELS[name][2].replace("+G{0.6}", gamma), aln)
+    eng = LikelihoodEngine(aln, model, rates, dtype=dtype, device=cuda)
+    assert eng._tipP.shape[1] > 64
+    res = kernelcheck.check(eng, tree)
+    for r in res:
+        assert r["ok"], r
+        assert r["launches"] == 1, r
+    assert res[0]["sitelp_launches"] == 1
+
+
+@pytest.mark.cuda
+def test_occupancy_of_the_wide_passes(cuda):
+    """At 112 states and four categories every pass keeps its [C, S, 32]
+    output tile in shared memory (float32 and float64) and fits a block
+    on an SM. Where the staged columns do not fit (454 states in float64,
+    1000 in float32) a block keeps only its reduction row, 8 warps x 32
+    lanes, and still fits: no state count is refused."""
+    for dtype in (torch.float32, torch.float64):
+        f = torch.finfo(dtype).bits // 8
+        tile = 4 * 112 * 32 * f
+        for kind in kernels.PASS_KINDS:
+            blocks, shm = kernels.pass_occupancy(kind, dtype, 4, 112, 16384)
+            assert blocks >= 1 and shm > tile, (kind, dtype, blocks, shm)
+            S = 454 if dtype == torch.float64 else 1000
+            blocks, shm = kernels.pass_occupancy(kind, dtype, 4, S, 16384)
+            assert blocks >= 1 and shm == 8 * 32 * f, (kind, dtype, S,
+                                                       blocks, shm)
 
 
 @pytest.mark.cuda

@@ -268,3 +268,26 @@ def test_bounds_count_the_state_space_of_the_tensors(model_name):
         *ops, pb.U, pb.V, pb.pack["root_freqs"], t.theta, t.scale)
     C, Pp = pb.P.shape[1], pb.tipP.shape[-1]
     assert bnd["down_pass"]["flops"] == pb.n_int * Pp * C * (4 * S * S + S)
+
+
+def test_build_parts_define_every_bound_symbol_once():
+    """kernels.build_parts finds each IQ_PART unit of csrc/pruning.cu, and
+    the units together define every launcher and occupancy query that
+    kernels.bind declares, each in one unit only."""
+    src = kernels.SOURCE.read_text()
+    blocks = re.findall(r"#if !defined\(IQ_PART\) \|\| IQ_PART == (\d+)\n"
+                        r"(.*?)#endif", src, re.S)
+    assert [int(k) for k, _ in blocks] == kernels.build_parts(src.encode())
+    defined = []
+    for _, body in blocks:
+        defined += [f"iq_{kind.lower()}_{sfx}" for kind, sfx in re.findall(
+            r"^IQ_(DOWN_PASS|UP_PASS|THETA_PASS)\((\w+),", body, re.M)]
+        defined += [f"iq_pass_occupancy_{kind}_{sfx}" for kind, sfx in
+                    re.findall(r"^IQ_PASS_OCCUPANCY\((\w+), \d, (\w+),",
+                               body, re.M)]
+    expected = [f"iq_{name}_{sfx}" for sfx in kernels._SUFFIX.values()
+                for name in kernels._SIGNATURES]
+    expected += [f"iq_pass_occupancy_{kind}_{sfx}"
+                 for sfx in kernels._SUFFIX.values()
+                 for kind in kernels.PASS_KINDS]
+    assert sorted(defined) == sorted(expected)

@@ -17,6 +17,10 @@ arrays.
   T7 stream_up_pass       -> up_pass                      E, UP
   T8 stream_theta_pass    -> theta_pass                   theta
 
+T4-T8 are also held at 76 states (PoMo at N = 13, which the port's kernels
+run in their wide instance on a card): the JAX package's streaming kernels
+cover every state count, its whole-tree ones (T1-T3) only C * S <= 32.
+
 Tolerances (test_pallas2._tol for float32): 2e-5 on site log-likelihoods;
 1e-4 relative on partials, E, UP and theta, measured per (row, pattern)
 column against the column's largest value; scale counts equal where a
@@ -24,6 +28,7 @@ kernel exports them per node, rescale-invariant values (partial x
 2^(-30 sc)) where the kernel reassembles them (T7, T8).
 """
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -74,15 +79,27 @@ def _eff(v, sc):
         -30.0 * np.asarray(sc, np.float64))[..., None, None, :]
 
 
-@pytest.fixture(scope="module", params=[8, 33])
-def prob(request):
-    ntaxa = request.param
-    _, (aln, tree, model, rates) = simulate_both("GTR+G4", ntaxa, 256,
-                                                 seed=ntaxa)
+@functools.lru_cache(maxsize=None)
+def _problem(case):
+    """The shared inputs of one case: GTR+G4 at ``case`` taxa (8, 33), or
+    "S76", PoMo at N = 13 (76 states, the port's wide kernel instance on a
+    card) on 8 taxa x 64 sites, with a random eigenbasis in both packs
+    (PoMo's own is empty, so theta would be 0)."""
+    if case == "S76":
+        model_name, ntaxa, nsites, seed = "GTR+P13+G4", 8, 64, 5
+    else:
+        model_name, ntaxa, nsites, seed = "GTR+G4", case, 256, case
+    _, (aln, tree, model, rates) = simulate_both(model_name, ntaxa, nsites,
+                                                 seed=seed)
     eng = JaxEngine(aln, model, rates, dtype=jnp.float32)
     sched = build_schedule(tree)
     sa = eng.schedule_arrays(sched)
     pack = eng._dev_pack
+    if case == "S76":
+        S = eng._dev_tipP.shape[1]
+        U, V = np.random.default_rng(3).normal(size=(2, 1, S, S))
+        pack = {**pack, "U": jnp.asarray(U, jnp.float32),
+                "V": jnp.asarray(V, jnp.float32)}
     tipP = eng._dev_tipP
     P = jpr.transition_tensors(jnp.asarray(sched.blens, jnp.float32), pack)
     t_pack = pack_to_torch({k: None if v is None else np.asarray(v)
@@ -121,6 +138,18 @@ def prob(request):
         flat_eid=jnp.asarray(sched.child_edge.reshape(-1)),
         t_pack=t_pack, t_sched=t_sched, t_tip=t_tip, t_P=t_P, dp=dp, up=up,
         dp_lp=dp_lp, lp=tpr.site_lp(dp_lp))
+
+
+@pytest.fixture(scope="module", params=[8, 33])
+def prob(request):
+    return _problem(request.param)
+
+
+@pytest.fixture(scope="module", params=[8, 33, "S76"])
+def stream_prob(request):
+    """T4-T8's cases: the JAX package's streaming kernels cover every
+    state count, so they are also held at 76 states."""
+    return _problem(request.param)
 
 
 def test_t1_down_sitelp_pallas(prob):
@@ -171,14 +200,14 @@ def _v2_lp(p, export):
                          interpret=True)
 
 
-def test_t4_stream_pass_sitelp(prob):
-    lp = _v2_lp(prob, export=False)
-    np.testing.assert_allclose(prob["lp"].numpy(), np.asarray(lp),
+def test_t4_stream_pass_sitelp(stream_prob):
+    lp = _v2_lp(stream_prob, export=False)
+    np.testing.assert_allclose(stream_prob["lp"].numpy(), np.asarray(lp),
                                rtol=LP_TOL, atol=LP_TOL)
 
 
-def test_t5_stream_pass_export(prob):
-    p = prob
+def test_t5_stream_pass_export(stream_prob):
+    p = stream_prob
     lp, parts, scs, *_ = _v2_lp(p, export=True)
     plan, L, CS, CSP = p["plan"], p["L"], p["CS"], p["CSP"]
     n_int = p["sched"].n_int
@@ -195,10 +224,10 @@ def test_t5_stream_pass_export(prob):
                                rtol=LP_TOL, atol=LP_TOL)
 
 
-def test_t6_stream_pass_slim(prob):
+def test_t6_stream_pass_slim(stream_prob):
     """Slim export: the child blocks each step reads, their scales, and the
     root partial -- the theta pass's inputs."""
-    p = prob
+    p = stream_prob
     plan, L, C, S, CS, CSP = (p[k] for k in ("plan", "L", "C", "S", "CS",
                                              "CSP"))
     Pp = p["eng"].Pp
@@ -237,8 +266,8 @@ def test_t6_stream_pass_slim(prob):
                                   np.asarray(root_sc).astype(np.int32))
 
 
-def test_t7_stream_up_pass(prob):
-    p = prob
+def test_t7_stream_up_pass(stream_prob):
+    p = stream_prob
     plan, Pp = p["plan"], p["eng"].Pp
     dp2, up2 = pp2.passes_v2(p["P"], p["tipP"], p["pa"],
                              p["pack"]["root_freqs"], CSP=p["CSP"],
@@ -253,8 +282,8 @@ def test_t7_stream_up_pass(prob):
                     _eff(up2.up_in, up2.up_scale)) <= REL_TOL
 
 
-def test_t8_stream_theta_pass(prob):
-    p = prob
+def test_t8_stream_theta_pass(stream_prob):
+    p = stream_prob
     plan, Pp, C, S, CS, CSP = (p["plan"], p["eng"].Pp, p["C"], p["S"],
                                p["CS"], p["CSP"])
     thA, thB, tscA, tscB, th0, tsc0 = pp2.thetas_v2(

@@ -29,6 +29,7 @@ from iqtree2_tpu_torch.io.alignment_io import write_phylip
 from iqtree2_tpu_torch.ops import pars
 from iqtree2_tpu_torch.params import Params
 from iqtree2_tpu_torch.utils.checkpoint import Checkpoint
+from tests.test_torch_partition_merge import check_selection
 from tests.torch_parity import jax_alignment
 
 # logL tolerance of every candidate, refit or screened. Measured on these
@@ -229,3 +230,15 @@ def test_whtest_statistic_matches_jax(dna, tmp_path):
     assert "simulations: 100" in text
     assert "Log-likelihood of the tree" in \
         Path(f"{prefix}.iqtree").read_text()
+
+
+@pytest.mark.parametrize("argv", [["-m", "MF+MERGE", "--merge", "kmeans"]],
+                         ids=["kmeans"])
+def test_selection_and_merging_match_jax(argv, tmp_path, monkeypatch):
+    """The kmeans merge (-m MF+MERGE --merge kmeans) against the JAX
+    package's partition_analysis: a case of
+    tests/test_torch_partition_merge.py's test, in this file of many tests so that xdist, which hands out whole
+    files under --dist loadfile and the files of most tests first, starts
+    it early beside the other cases."""
+    check_selection(argv, tmp_path, monkeypatch)
+

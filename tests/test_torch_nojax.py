@@ -13,7 +13,8 @@ profile mixture's -te fit with -wspm and a --pmsf -te run, then a codon
 -te fit, +E and a --mdef model, then the standalone tools (--alisim
 under a mixture, -r, -pd) and a --date run with intervals. A source scan
 fails on any import of iqtree2_tpu itself in the port (parallel/
-included), in chip_smoke.py, tools/torch_phase17.py, the card-only
+included), in chip_smoke.py, tools/torch_phase17.py, torch_phase18.py and
+torch_kernel_bits.py, the card-only
 tests/test_torch_cuda.py and the distributed tests' ranks
 (tests/torch_ranks.py).
 """
@@ -26,6 +27,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "iqtree2_tpu_torch"
+# the tools that run on the machine with the card, which has no jax
+CARD_TOOLS = [ROOT / "tools" / f for f in (
+    "torch_phase17.py", "torch_phase18.py", "torch_kernel_bits.py")]
 
 SCRIPT = r"""
 import importlib, pkgutil, sys, tempfile
@@ -174,7 +178,7 @@ def test_no_source_file_imports_the_jax_package():
     (functions included), in the port, chip_smoke.py or the card tests."""
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-        ROOT / "tests" / "torch_ranks.py", ROOT / "tools" / "torch_phase17.py"]
+        ROOT / "tests" / "torch_ranks.py"] + CARD_TOOLS
     assert len(files) >= 40
     assert {PKG / "parallel" / f"{m}.py"
             for m in ("multihost", "shard", "dryrun")} <= set(files)
@@ -187,8 +191,7 @@ def test_no_source_file_imports_jax():
     """Nor jax, optax or yaml (PyYAML: the machine with the card has none;
     io/yamlmodels.py reads --mdef files itself)."""
     files = sorted(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ranks.py",
-        ROOT / "tools" / "torch_phase17.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ranks.py"] + CARD_TOOLS
     assert len(files) >= 10
     for f in files:
         assert not {"jax", "optax", "yaml"} & _imported(f), f

@@ -41,6 +41,7 @@ from iqtree2_tpu_torch.ops.nni import build_nni_candidates
 from iqtree2_tpu_torch.partition.engine import PartitionEngine
 from iqtree2_tpu_torch.tree.schedule import build_schedule
 from iqtree2_tpu_torch.tree.topology import Tree
+from tests.test_torch_partition_merge import check_selection
 
 GOLDEN = Path(__file__).parent / "golden"
 MODES = ("edge-proportional", "edge-equal", "unlinked")
@@ -231,3 +232,15 @@ def test_branch_tests_on_partitions_match_jax(monkeypatch):
     assert br.keys() == jbr.keys() and len(br) == 14
     for k, (sh, ab) in br.items():
         assert sh == jbr[k][0] and abs(ab - jbr[k][1]) <= 1e-9
+
+
+@pytest.mark.parametrize("argv", [["-m", "MF+MERGE"]],
+                         ids=["greedy"])
+def test_selection_and_merging_match_jax(argv, tmp_path, monkeypatch):
+    """The greedy merge (-m MF+MERGE) against the JAX package's
+    partition_analysis: a case of tests/test_torch_partition_merge.py's
+    test, in this file of many tests so that xdist, which hands out whole
+    files under --dist loadfile and the files of most tests first, starts
+    it early beside the other cases."""
+    check_selection(argv, tmp_path, monkeypatch)
+

@@ -4,6 +4,12 @@ package's partition_analysis, float64 on the CPU, on example.nex with a
 small grid (-mset JC,HKY -mrate E,G): the same winners, the same merged
 scheme (.best_scheme.nex) and per-partition logLs within 0.5, the bar
 of tests/test_torch_modelfinder.py (ModelFinder screens in float32).
+
+This file holds the TESTONLY case and the check; the greedy and kmeans
+merges are cases of the same test in test_torch_partition.py and
+test_torch_modelfinder.py: xdist hands out whole files under --dist
+loadfile, the files of most tests first, so there they start early and
+run beside the other cases instead of one after another at the end.
 """
 
 from pathlib import Path
@@ -50,15 +56,17 @@ def _selections(argv, d: Path, monkeypatch):
             (Path(f"{d}/jax.best_scheme.nex").read_text(), jres["table"]))
 
 
-@pytest.mark.parametrize("argv", [["-m", "TESTONLY"],
-                                  ["-m", "MF+MERGE"],
-                                  ["-m", "MF+MERGE", "--merge", "kmeans"]],
-                         ids=["testonly", "greedy", "kmeans"])
-def test_selection_and_merging_match_jax(argv, tmp_path, monkeypatch):
-    (scheme, table), (jscheme, jtable) = _selections(argv, tmp_path,
-                                                     monkeypatch)
+def check_selection(argv, d: Path, monkeypatch) -> None:
+    """The port's selection on ``argv`` against the JAX package's: the same
+    scheme, the same winners and df, per-partition logLs within 0.5."""
+    (scheme, table), (jscheme, jtable) = _selections(argv, d, monkeypatch)
     assert scheme == jscheme
     assert [(r["partition"], r["name"], r["df"]) for r in table] == \
         [(r["partition"], r["name"], r["df"]) for r in jtable]
     for r, jr in zip(table, jtable):
         assert r["logL"] == pytest.approx(jr["logL"], abs=0.5)
+
+
+@pytest.mark.parametrize("argv", [["-m", "TESTONLY"]], ids=["testonly"])
+def test_selection_and_merging_match_jax(argv, tmp_path, monkeypatch):
+    check_selection(argv, tmp_path, monkeypatch)

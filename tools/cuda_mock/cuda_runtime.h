@@ -4,6 +4,7 @@
 #pragma once
 #include <barrier>
 #include <cstddef>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -39,6 +40,19 @@ template <typename K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribu
 template <typename K>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
   *n = 0;
+  return cudaSuccess;
+}
+
+// stream-ordered allocation: host memory, filled with NaN bytes so that a
+// read before a write shows
+inline cudaError_t cudaMallocAsync(void** ptr, size_t bytes, cudaStream_t) {
+  *ptr = std::malloc(bytes);
+  if (*ptr == nullptr) return cudaErrorInvalidValue;
+  std::memset(*ptr, 0xff, bytes);
+  return cudaSuccess;
+}
+inline cudaError_t cudaFreeAsync(void* ptr, cudaStream_t) {
+  std::free(ptr);
   return cudaSuccess;
 }
 

@@ -16,11 +16,18 @@ column, and C = 8 through the two-sweep column), protein and a 61-state
 GTR, float32 and float64, on trees deep enough to rescale; the shapes
 ModelFinder brings (one category, FreeRate weights with +I, ten
 categories, at 4 and 20 states); the codon models (GY+F3X4, KOSI07), +E
-tips, two states and seven; and every partition engine of the
+tips, two states and seven; every partition engine of the
 supermatrices of kernelcheck.PARTITIONS (a short partition, one lacking
-taxa, protein beside DNA). It checks
-indexing, the barriers and the rescale; it says nothing of speed or of
-what nvcc accepts.
+taxa, protein beside DNA); and the wide instance (S > 64: PoMo at 76, 112
+and 136 states, a 65-state --mdef datatype under a reversible model, and
+PoMo at 76 with one category, where theta_pass stages U and V, and PoMo
+at 454 states, past what shared memory stages in float64), which two more
+builds run again with smaller shared-memory budgets (kWideShmBytes): 48 KB
+stages the columns but not the output tile (the recomputing sweeps), 0
+stages nothing (the columns read in place, theta_pass's workspace of E).
+``--wide`` runs the wide shapes alone. It checks indexing, the barriers,
+the block reductions and the rescale; it says nothing of speed or of what
+nvcc accepts.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ sys.path.insert(0, str(ROOT))
 from iqtree2_tpu_torch import kernelcheck  # noqa: E402
 from iqtree2_tpu_torch.data.alignment import Alignment  # noqa: E402
 from iqtree2_tpu_torch.engine import LikelihoodEngine  # noqa: E402
+from iqtree2_tpu_torch.model.factory import build_model  # noqa: E402
 from iqtree2_tpu_torch.model.rates import RateGamma  # noqa: E402
 from iqtree2_tpu_torch.model.subst import GTRModel  # noqa: E402
 from iqtree2_tpu_torch.ops import kernels  # noqa: E402
@@ -50,18 +58,50 @@ from iqtree2_tpu_torch.partition.engine import PartitionEngine  # noqa: E402
 from iqtree2_tpu_torch.tree.topology import Tree  # noqa: E402
 
 
-def build(out_dir: Path) -> ctypes.CDLL:
+# the wide instance's shapes: (model, taxa, sites); "... C1" drops +G4; 30
+# taxa rescale the down pass in float32
+WIDE = (("GTR+P13+G4", 30, 60), ("GTR+P19+G4", 9, 100),
+        ("GTR+P23+G4", 9, 60), ("MK65+G4", 12, 100),
+        ("GTR+P13+G4 C1", 9, 60))
+# 454 states, past what shared memory stages in float64: the default
+# build's passes read their columns in place there
+WIDE_IN_PLACE = (("GTR+P76+G4", 6, 12),)
+# the wide instance's shared-memory budgets besides the card's: 48 KB stages
+# the columns but not the output tile (float32 at 76 states; float64 theta
+# reads in place), 0 stages nothing
+WIDE_BUDGETS = (("48 * 1024", " (columns staged)"), ("0", " (in place)"))
+
+
+def build(out_dir: Path, tag: str = "", replace=()) -> ctypes.CDLL:
     src = kernels.SOURCE.read_text()
+    for old, new in replace:
+        assert old in src, old
+        src = src.replace(old, new)
     src, n = re.subn(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\(",
                      r"mock_launch(\2, \1, ", src)
-    cpp = out_dir / "pruning_mock.cpp"
+    cpp = out_dir / f"pruning_mock{tag}.cpp"
     cpp.write_text(src)
-    so = out_dir / "libpruning_mock.so"
+    so = out_dir / f"libpruning_mock{tag}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
                     "-pthread", f"-I{HERE}", "-o", str(so), str(cpp)],
                    check=True)
     print(f"{n} launches rewritten; built {so}")
     return kernels.bind(ctypes.CDLL(str(so)))
+
+
+def check_wide(lib, tag: str, shapes=WIDE) -> None:
+    for name, ntaxa, nsites in shapes:
+        model_name = name.removesuffix(" C1")
+        aln, tree, model, rates = kernelcheck.simulate(model_name, ntaxa,
+                                                       nsites, seed=3)
+        if name != model_name:
+            model, rates, _ = build_model(
+                kernelcheck.MODELS[model_name][2].removesuffix("+G{0.6}"),
+                aln)
+        for dtype in (torch.float32, torch.float64):
+            check(lib, kernelcheck.make_engine(aln, model, rates,
+                                               dtype=dtype, device="cpu"),
+                  tree, f"{name}{tag}")
 
 
 def check(lib, eng: LikelihoodEngine, tree: Tree, tag: str) -> None:
@@ -104,10 +144,19 @@ def check(lib, eng: LikelihoodEngine, tree: Tree, tag: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build-dir", default="")
+    ap.add_argument("--wide", action="store_true",
+                    help="the wide instance's shapes alone")
     args = ap.parse_args()
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as d:
         lib = build(Path(args.build_dir or d))
+        check_wide(lib, "", WIDE + WIDE_IN_PLACE)
+        for k, (budget, tag) in enumerate(WIDE_BUDGETS):
+            check_wide(build(Path(args.build_dir or d), f"_budget{k}",
+                             [("kWideShmBytes = 227 * 1024",
+                               f"kWideShmBytes = {budget}")]), tag)
+        if args.wide:
+            return 0
         for name, ntaxa, nsites in (("GTR+G4", 40, 300), ("HKY+I", 9, 150),
                                     ("GTR+G8", 30, 200), ("LG+G4", 9, 150),
                                     ("JC", 30, 200), ("GTR+I+R3", 30, 200),
