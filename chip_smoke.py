@@ -240,8 +240,9 @@ ending in torch.cuda.synchronize():
    gloo at the flagship's shapes: the same topology, logL within 1e-6
    relative.
 
-18. the kernels' wide instance (S > 64: a node's states split across the
-   block's threads): (a) each kernel against its plain version on
+18. the kernels' wide instance (S > 64: the down pass's warp items over
+   staged K-chunks, the sweeps' states split across the block's
+   threads): (a) each kernel against its plain version on
    64 x 4096 problems simulated under GTR+G4 and fitted under GTR+P13+G4
    and GTR+P19+G4 (PoMo, 76 and 112 states), float32 and float64, and
    GTR+P23+G4 (136) at 64 x 1024 in float32, with times loaded and back
@@ -250,12 +251,13 @@ ending in torch.cuda.synchronize():
    one nonreversible Newton round (ms, peak memory), NNI5 scores of 8
    candidates (peak memory below 40 GiB), then each kernel against its
    plain version there;
-   (c) -s example.phy -m GTR+P19+G4 -B 1000 (depth cut to POMO_DEPTH),
-   launches reset just before and read just after, one per pass, phase
-   6's files, logL at least the -te fit's (POMO_TE_LOGL) - 0.5, then the
-   kernels against their plain versions at its shapes (untimed); (d) -m
-   GTR+P19+G4 -te in float64, its fitted state evaluated on the CPU within
-   1e-3; (e) a 65-state --mdef datatype, 100 x 12288 under MK+G -te, whose
+   (d) -m GTR+P19+G4 -te in float64, its fitted state evaluated on the
+   CPU within 1e-3; (c) -s example.phy -m GTR+P19+G4 -B 1000 in float32
+   (depth cut to POMO_DEPTH), launches reset just before and read just
+   after, one per pass, phase 6's files, a finite logL, its final tree and
+   parameters evaluated in float64 on the CPU at least (d)'s logL - 0.5,
+   then the kernels against their plain versions at its shapes (untimed);
+   (e) a 65-state --mdef datatype, 100 x 12288 under MK+G -te, whose
    host alternation runs theta_pass (PoMo's nonreversible Newton does
    not), then the kernels against their plain versions there (untimed)
    with their bounds.
@@ -529,14 +531,17 @@ POMO_TAXA, POMO_SITES = 100, 16384     # 18b
 # candidates holds what any chunk of a whole round holds)
 POMO_NNI_CANDIDATES = 8
 POMO_MODEL = "GTR+P19+G4"              # 18c's and 18d's -m
-# the -te fit whose logL less 0.5 bounds 18c's search, as the reference
-# fit bounds phase 6's: -m GTR+P19+G4 -te ref_tree.nwk on example.phy in
-# float32, as this script measured it on an H100 80GB HBM3
-POMO_TE_LOGL = -21809.3438
-# 18c's search depth, cut from the defaults for the phase's time: at the
-# defaults the iterations took 171 s (logL -21809.2734), at this depth
-# 1.5 s (-21809.4043); at -n 2 -ninit 5 -ntop 2 the search ended below
-# the bound (-21809.957)
+# 18c's search depth, cut from the defaults for the phase's time (at the
+# defaults the iterations took 171 s, at this depth 1.5 s). 18c's float32
+# search is bounded by 18d's float64 -te fit in the same run, as the
+# reference fit bounds phase 6's: the CPU's float64 logL of the search's
+# final tree and parameters at least 18d's logL - 0.5. On an H100 80GB
+# HBM3 that logL was -21809.1720 at this depth and -21809.1531 to
+# -21809.2327 at four deeper ones, against the fit's -21809.1553
+# (tools/torch_phase18.py --depths). The search's own float32 logL, which
+# moved between -21811.4258 and -21809.6426 there, is held to no bound:
+# the float32 path reads the float64 fit's state about 1.8 low (--fit32),
+# by an amount that moves with any change of the kernels' rounding
 POMO_DEPTH = ["-n", "3", "-ninit", "10", "-ntop", "3", "-nbest", "2"]
 # 18e: a 65-state --mdef datatype under MK+G, -te at a size past the joint
 # fit's guard (torchfit.MAX_REVERSE_ELEMENTS: 98 x 4 x 65 x 10496 padded
@@ -2601,25 +2606,45 @@ def pomo_wide(errors: dict) -> dict:
     return {r["name"]: {**r, **bnd[r["name"]]} for r in res}
 
 
-def pomo_search(bound: float, errors: dict) -> dict:
-    """18c: example.phy -m POMO_MODEL -B 1000 (POMO_DEPTH) in float32:
-    phase 6's files, logL at least ``bound``, down_pass with and without
-    its epilogue and up_pass launched (PoMo takes the nonreversible Newton:
-    both passes, no theta), one launch per pass; then the kernels against
-    their plain versions at its shapes (the search's tree, POMO_CHECK's
-    fixed parameters; untimed: it runs beside 14b-f). Returns the
-    launches."""
+def cpu_logl(keep: dict) -> tuple[float, float]:
+    """The port's float64 logL on the CPU of a run's final tree and
+    parameters (``keep``: run_analysis's result), and its seconds."""
+    import torch
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    t0 = time.perf_counter()
+    logl = LikelihoodEngine(keep["aln"], keep["model"], keep["rates"],
+                            dtype=torch.float64, device="cpu"
+                            ).loglik_tree(keep["tree"])
+    return logl, time.perf_counter() - t0
+
+
+def pomo_search(bound: float, errors: dict, depth: list[str] = POMO_DEPTH,
+                name: str = "pomo_search") -> dict:
+    """18c: example.phy -m POMO_MODEL -B 1000 (``depth``) in float32:
+    phase 6's files, a finite logL, the CPU's float64 logL of its final
+    tree and parameters at least ``bound`` (18d's float64 -te fit - 0.5),
+    down_pass with and without its epilogue and up_pass launched (PoMo
+    takes the nonreversible Newton: both passes, no theta), one launch per
+    pass; then the kernels against their plain versions at its shapes (the
+    search's tree, POMO_CHECK's fixed parameters; untimed: it runs beside
+    14b-f). Returns the launches."""
     import torch
     from iqtree2_tpu_torch import kernelcheck
     from iqtree2_tpu_torch.engine import LikelihoodEngine
-    pre = OUT / "pomo_search"
+    pre = OUT / name
     tag = "[phase 18c]"
+    keep: dict = {}
     got = counted(["-s", str(GOLDEN / "example.phy"), "-m", POMO_MODEL,
-                   "-B", str(FLAGSHIP_REPLICATES)] + POMO_DEPTH
-                  + ["-pre", str(pre)], tag)
-    logl = check_flagship(pre, bound)
-    print(f"{tag} logL {logl:.4f} (bound {bound:.4f}); wall seconds: "
-          f"{wall_split(pre)}", flush=True)
+                   "-B", str(FLAGSHIP_REPLICATES)] + depth
+                  + ["-pre", str(pre)], tag,
+                  runner=lambda a: run_analysis(a, keep))
+    logl = check_flagship(pre, -math.inf)
+    f64, secs = cpu_logl(keep)
+    print(f"{tag} logL {logl:.4f}; its tree and parameters in float64 on "
+          f"the CPU {f64:.6f} in {secs:.1f} s (bound {bound:.6f}); wall "
+          f"seconds: {wall_split(pre)}", flush=True)
+    if not f64 >= bound:
+        raise RuntimeError(f"{tag} float64 logL {f64} below {bound}")
     if not all(got[k] > 0 for k in ("down_pass", "sitelp", "up_pass")):
         raise RuntimeError(f"{tag} a kernel was never launched: {got}")
     p_aln, p_tree, p_model, p_rates = kernelcheck.load_problem(
@@ -2631,13 +2656,12 @@ def pomo_search(bound: float, errors: dict) -> dict:
     return got
 
 
-def pomo_te(dtype: str) -> float:
+def pomo_te(dtype: str, keep: dict | None = None) -> float:
     """18d: -m POMO_MODEL -te on the golden tree on the card, its logL
     (float64: within CARD_CPU_TOL of the port's CPU evaluation of the same
-    tree and parameters; no fit runs on the CPU). Returns the logL."""
-    import torch
-    from iqtree2_tpu_torch.engine import LikelihoodEngine
-    keep: dict = {}
+    tree and parameters; no fit runs on the CPU). Returns the logL; the
+    run's result goes into ``keep`` where given."""
+    keep = {} if keep is None else keep
     tag = f"[phase 18d {dtype}]"
     pre = OUT / f"pomo_te_{dtype}"
     counted(["-s", str(GOLDEN / "example.phy"), "-m", POMO_MODEL, "-te",
@@ -2647,13 +2671,10 @@ def pomo_te(dtype: str) -> float:
     if dtype != "float64":
         print(f"{tag} card logL {keep['logL']:.4f}", flush=True)
         return keep["logL"]
-    t0 = time.perf_counter()
-    cpu = LikelihoodEngine(keep["aln"], keep["model"], keep["rates"],
-                           dtype=torch.float64, device="cpu"
-                           ).loglik_tree(keep["tree"])
+    cpu, secs = cpu_logl(keep)
     print(f"{tag} card logL {keep['logL']:.6f}, the CPU's at the same tree "
-          f"and parameters {cpu:.6f} in {time.perf_counter() - t0:.1f} s "
-          f"(tol {CARD_CPU_TOL:g})", flush=True)
+          f"and parameters {cpu:.6f} in {secs:.1f} s (tol "
+          f"{CARD_CPU_TOL:g})", flush=True)
     if not abs(keep["logL"] - cpu) <= CARD_CPU_TOL:
         raise RuntimeError(f"{tag} card {keep['logL']} != CPU {cpu}")
     return keep["logL"]
@@ -2699,24 +2720,22 @@ def mdef_wide(errors: dict) -> dict:
     return got
 
 
-def wide_states(errors: dict, parts: str = "abcde",
-                te_bound: float | None = None) -> tuple[dict, dict]:
+def wide_states(errors: dict, parts: str = "abcde") -> tuple[dict, dict]:
     """Phase 18's parts: 18a, the wide instance against the plain versions
     on WIDE_CHECKS (PoMo's sampled-read tips, not indicator rows), then
-    18b-e. Returns 18b's kernel rows and the launches of 18c and 18e (the
-    wide instance's paths), summed. 18c is bounded by POMO_TE_LOGL - 0.5,
-    or te_bound where given."""
+    18b, 18d (also where 18c runs alone: its logL less 0.5 bounds 18c), 18c
+    and 18e. Returns 18b's kernel rows and the launches of 18c and 18e (the
+    wide instance's paths), summed."""
     t0 = time.perf_counter()
     if "a" in parts:
         kernel_rows(WIDE_CHECKS, "18a", errors,
                     not_indicators=[name for name, *_ in WIDE_CHECKS])
     timed = pomo_wide(errors) if "b" in parts else {}
     launches: dict = {}
+    if "c" in parts or "d" in parts:
+        te = pomo_te("float64")
     if "c" in parts:
-        add(launches, pomo_search(
-            (POMO_TE_LOGL if te_bound is None else te_bound) - 0.5, errors))
-    if "d" in parts:
-        pomo_te("float64")
+        add(launches, pomo_search(te - 0.5, errors))
     if "e" in parts:
         add(launches, mdef_wide(errors))
     print(f"[phase 18] {time.perf_counter() - t0:.1f} s", flush=True)

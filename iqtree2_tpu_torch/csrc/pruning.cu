@@ -861,34 +861,37 @@ __global__ void __launch_bounds__(kTile* kWarps, SMAX <= 4 ? kMinBlocks : kMinBl
 // Past kMaxRegStates states a thread can no longer own a pattern's column:
 // at S = 112 and C = 4 it holds 448 values, and the thread alone would do
 // 2*C*S*S multiply-adds per node. So the block splits the states across
-// its threads. It takes one node (down_pass) or one (node, child slot) item
-// (the sweeps) at a time; the lane is still the pattern, so loads and
+// its threads. The down pass has a kernel of its own (down_wide_kernel,
+// below: warp items over staged K-chunks, DMMA in float64). The sweeps
+// take one (node, child slot) item at a time; the lane is still the
+// pattern, so loads and
 // stores stay coalesced along Pp, and warp w computes the output states w,
 // w + kWarps, ... (kWideRows of them per chunk, so any S is covered in
 // chunks of kWarps * kWideRows). Per category, the [S, kTile] columns a
-// product contracts over (the children's, the sibling's, E, the child's own
+// product contracts over (the sibling's, E, the child's own
 // for theta) are staged in shared memory, where every thread reads them.
 // Where they do not fit (past about 290 states in float64 for theta_pass),
-// they are read in place from device memory instead: the children's and
-// the sibling's rows, E from its edge's rows (up_pass) or from a [S, Pp]
+// they are read in place from device memory instead: the
+// sibling's rows, E from its edge's rows (up_pass) or from a [S, Pp]
 // workspace that the launcher allocates (theta_pass, which never writes E),
 // so no S is refused short of device memory. The matrices P, U and V are
 // read through the cache, every lane of a warp
 // the same value (a broadcast). U and V are staged in shared memory when
 // they fit beside the rest. The per-pattern max over all C*S values is a
-// block reduction in shared memory. Where the [C, S, kTile] tile of the
-// outputs (down: the partial; sweeps: E) fits beside the columns
+// block reduction in shared memory. Where the [C, S, kTile] tile of E
+// fits beside the columns
 // (kWideShmBytes), the first sweep keeps it and the second stores it
 // rescaled; where it does not (C = 10 in float64), the second sweep
 // computes the products again, as the narrow wide columns do. UP is stored
 // as formed and multiplied by 2^B in place, by the thread that stored it,
-// when its max is low. The site log-likelihoods' root fold is a block sum.
+// when its max is low.
 // A node moves 3*C*S values per pattern for 2*C*S*S multiply-adds, about
 // 37 flops per byte at S = 112 in float32, above the H100's ridge of about
-// 20: the wide passes are bound by operations, not bytes. Here they are
+// 20: the wide passes are bound by operations, not bytes. The sweeps are
 // plain multiply-adds, each thread's rows sharing one staged value per
-// step of the contraction; tensor cores (wgmma, DMMA for float64) and TMA
-// are left for later, and TF32 is off by the precision policy.
+// step of the contraction; their tensor cores (DMMA for float64) and
+// staged matrices are left for later, and TF32 is off by the precision
+// policy.
 
 constexpr int kMaxRegStates = 64;  // widest S of the register-column instances
 constexpr int kWideRows = 8;       // output rows a wide thread holds per chunk
@@ -963,118 +966,494 @@ __device__ __forceinline__ T wide_reduce(T v, T* red, int warp, int lane) {
   return r;
 }
 
-// Staged [S, kTile] columns of a wide block (down: the two children; up:
-// the sibling and E; theta: and the child's own).
+// Staged [S, kTile] columns of a wide sweep's block (up_pass: the sibling
+// and E; theta_pass: and the child's own); the down pass stages K-chunks.
 __host__ __device__ constexpr size_t wide_cols(bool theta) { return theta ? 3 : 2; }
 
-// What a wide block keeps in shared memory beyond its reduction row (the
-// kernels' `stage` argument): nothing, the columns, or the columns and the
-// [C, S, kTile] output tile.
+// What a wide sweep's block (up_pass, theta_pass) keeps in shared memory
+// beyond its reduction row (up_wide_kernel's `stage` argument): nothing,
+// the columns, or the columns and the [C, S, kTile] output tile.
 enum WideStage { kWideInPlace = 0, kWideCols = 1, kWideTile = 2 };
 
 // Row j of warp's rows in the chunk from x0 (callers skip rows past S).
 __device__ __forceinline__ int wide_row(int x0, int warp, int j) { return x0 + warp + kWarps * j; }
 
-// H1, S > 64: one node at a time, the whole block. `stage` (WideStage):
-// the columns are staged, and the [C, S, kTile] products kept in shared
-// memory between the sweeps.
+// H1, S > 64: the wide down pass (down_wide_kernel). It serves T1/T2 and
+// T4/T5/T6 past 64 states: pallas_pruning2.stream_pass
+// (iqtree2_tpu/ops/pallas_pruning2.py:246 · :342) and the whole-tree forms
+// down_pass_pallas (pallas_pruning.py:183 · :224) and down_sitelp_pallas
+// (:405 · :452), with the site log-likelihoods as its epilogue.
+//
+// Per node, category c and child k the message is a matrix product: M = S
+// output states, K = S, N = the block's pattern tile of NP patterns,
+// P[e_k, c] (row-major S x S) times the child's [S, NP] column block. A
+// node moves 3*C*S values per pattern for 2*C*S*S multiply-adds: about 37
+// flops a byte at S = 112 in float32, above the H100's ridge of about 20,
+// so the pass is bound by operations, not bytes. The design answers the
+// four limits of the first wide kernel (one block of 8 warps per SM,
+// every P value an __ldg broadcast inside the contraction, scalar DFMA,
+// a runtime contraction stride):
+//
+// - Work: a node's C * ceil(S / 16) items, an item being 16 output states
+//   of one category for both children, go to the block's 8 warps in turn;
+//   a warp owns an item from the staged inputs to the stored partial, so
+//   the contraction needs no block barrier. Rows past S are zero and never
+//   stored (65 and 76 states pad to 80, 112 to 112, 136 to 144).
+// - Staging: the warp brings each K-chunk of its item's two P row blocks
+//   ([16, kK]) and two column blocks ([kK, NP]) into its own double buffer
+//   in shared memory by cp.async, 16 bytes a copy where S (P's rows) and
+//   Pp (the columns) allow it, else value by value; the next chunk's copies
+//   (also across items) are in flight while it computes on the current
+//   one. The contraction reads only shared memory at compile-time strides,
+//   and what a block takes does not depend on S or C, so no S is refused:
+//   float32 108, 74 and 57 KB at tiles of 32, 16 and 8 patterns, float64
+//   136, 96 and 76 KB. The sweeps' budget kWideShmBytes does not touch it,
+//   so tools/cuda_mock/rehearse.py's 48 KB and 0 builds run this kernel as
+//   the 227 KB build does; they give the mock card 8 and 16 SMs instead of
+//   1, so that the three builds take its tiles 32, 16 and 8.
+// - float64 runs on the tensor cores: DMMA, mma.sync m16n8k4 (dmma_16x8x4),
+//   an item one 16 x 8 tile per 8 patterns, fragments from conflict-free
+//   padded layouts.
+// - float32 stays exact float32 (TF32 is off by the precision policy): a
+//   register-tiled FFMA product, each lane 4 states x NP/8 patterns per
+//   child, so one staged P value serves NP/8 patterns and one column value
+//   4 states, read as 16-byte (4 x 4 blocks of P) and NP/8-wide loads.
+// - Fill: the tile NP is 32, 16 or 8 patterns, the widest whose grid
+//   reaches kDownFill blocks per SM (down_tile): 100 x 16384 (Pp 12672) and
+//   MK65's 100 x 12288 (Pp 10496) take 32, 64 x 4096 (Pp 3072) 16 (192
+//   blocks; 32 would leave 36 of the 132 SMs idle), and 64 x 1024 at 136
+//   states (Pp 896) 8 (112 blocks where 32 gave 28). Two blocks stay
+//   resident per SM (float64's tile of 32: one).
+//
+// What the H100 showed (tools/torch_wide_times.py): the pass is held by
+// how many chunks its 16 resident warps keep in flight, not by the FMA or
+// DMMA rate. Value-by-value copies took 1.1-1.7x as long as the 16-byte
+// ones; staging each round's column chunks once for the whole block (a
+// barrier per chunk) 1.2-1.6x; the copies through L1 (cp.async.ca) up to
+// 1.13x;
+// three stages a warp 1-3% less where two blocks stay resident and up to
+// 1.8x more where the larger ring leaves one; three float32 blocks per SM
+// (80 registers, spills) up to 1.2x more.
+//
+// The two children's tiles share one lane layout, so the product ua * ub,
+// the per-pattern max over the node's C*S values and the store happen in
+// registers; the max then goes across the warps in shared memory. Values
+// are stored as formed; where a pattern's max is below Scaling<T>::thresh,
+// the lanes that stored its values multiply them by 2^B in place (a power
+// of two: the values a rescale-then-store writes). The epilogue forms leaf
+// 0's message P_0 . tip_0 with the same product code, one child, and sums
+// w_c pi_{c,x} B_root * msg per pattern across the block.
+
+constexpr int kItemRows = 16;  // output states of a warp item: one m16 tile
+// blocks per SM a wider pattern tile's grid must reach (down_tile)
+constexpr int kDownFill = 1;
+// stages of a warp's cp.async ring: kDownStages - 1 chunks in flight
+constexpr int kDownStages = 2;
+
+// Per precision: the K-chunk, the staged layout of one child's blocks, and
+// the lanes that share a pattern column (the reduction's slots).
 template <typename T>
-__global__ void __launch_bounds__(kTile* kWarps, 1)
+struct DownTile;
+
+template <>
+struct DownTile<float> {
+  static constexpr int kK = 16;            // contraction chunk
+  static constexpr int kAStride = kK + 4;  // A [16][20]: P[x0 + r, y] at r * 20 + y
+  static constexpr int kAValues = kItemRows * kAStride;
+  static constexpr int kBPad = 0;          // B [kK][NP]
+  static constexpr int kSlots = 4;         // row groups of 4 states
+};
+
+template <>
+struct DownTile<double> {
+  static constexpr int kK = 8;
+  static constexpr int kAStride = kK + 4;  // A [16][12]: P[x0 + r, y] at r * 12 + y
+  static constexpr int kAValues = kItemRows * kAStride;
+  static constexpr int kBPad = 4;          // B [kK][NP + 4]
+  static constexpr int kSlots = 8;         // fragment row groups
+};
+
+// Values of T one stage of a warp's ring holds: two children's A and B
+// blocks.
+template <typename T, int NP>
+__host__ __device__ constexpr int down_stage_values() {
+  using D = DownTile<T>;
+  return 2 * (D::kAValues + D::kK * (NP + D::kBPad));
+}
+
+// Dynamic shared memory of a wide down block: the warps' rings of
+// kDownStages buffers, the reduction rows [kWarps][kSlots][NP] and NP
+// flags.
+template <typename T, int NP>
+__host__ __device__ constexpr size_t down_wide_shm() {
+  return (size_t)kWarps * kDownStages * down_stage_values<T, NP>() * sizeof(T) +
+         (size_t)kWarps * DownTile<T>::kSlots * NP * sizeof(T) + NP * sizeof(int);
+}
+
+// Aligned vector of N values (16-byte and 8-byte shared-memory loads).
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
+// cp.async.wait_group N: every group but the N newest has landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// cp.async of 16 bytes (both addresses 16-byte aligned), through L2 only:
+// rows written earlier in the launch are read there, never through L1's
+// read-only path (through L1, as cp_async goes, the down pass took up to
+// 13% longer on the H100: its L1 is small beside the staged buffers).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+#else
+  for (int i = 0; i < 16; ++i)
+    static_cast<unsigned char*>(dst)[i] = static_cast<const unsigned char*>(src)[i];
+#endif
+}
+
+// A 16-byte aligned address.
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// d += A B for one warp (mma.sync m16n8k4, float64 on the tensor cores):
+// lane l = 4 g + t holds A[g][t] (a0) and A[g + 8][t] (a1), B[t][g] (b),
+// and D[g][2t + i] (d[i]) and D[g + 8][2t + i] (d[2 + i]), i = 0, 1.
+__device__ __forceinline__ void dmma_16x8x4(double* d, double a0, double a1, double b) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+#elif defined(IQ_CUDA_MOCK)
+  iq_mock_mma_m16n8k4(d, a0, a1, b);
+#endif
+}
+
+// A lane's share of an item: NV = NP / 2 values per child. float32: rows
+// 4 rg + v / (NP/8) and pattern column v % (NP/8) of the lane's NP/8,
+// rg = lane / 8, pg = lane % 8, columns pg * NP/8 + j. float64 (the mma's
+// D fragments, one per 8 patterns): rows g + 8 (v % 4 / 2), column slot
+// 2 (v / 4) + v % 2 at pattern 8 (j / 2) + 2 t + j % 2, g = lane / 4,
+// t = lane % 4.
+template <typename T, int NP>
+struct DownLane {
+  static constexpr bool kF64 = sizeof(T) == 8;
+  static constexpr int kNV = NP / 2;
+  static constexpr int kCols = kF64 ? NP / 4 : NP / 8;  // pattern columns a lane holds
+  int lane;
+  __device__ __forceinline__ int slot() const { return kF64 ? lane >> 2 : lane >> 3; }
+  __device__ __forceinline__ int row(int v) const {
+    return kF64 ? (lane >> 2) + 8 * ((v & 3) >> 1) : 4 * (lane >> 3) + v / (NP / 8);
+  }
+  __device__ __forceinline__ int col(int v) const {
+    return kF64 ? 2 * (v >> 2) + (v & 1) : v % (NP / 8);
+  }
+  __device__ __forceinline__ int pattern(int j) const {
+    return kF64 ? 8 * (j >> 1) + 2 * (lane & 3) + (j & 1) : (lane & 7) * (NP / 8) + j;
+  }
+};
+
+// A wide product's operands: per child, its edge's [C, S, S] transition
+// block and its column rows (category c at X + c * xcs: xcs = 0 for a tip,
+// S * Pp for an internal node), pattern 0; vec_a: the child's P rows go
+// in 16-byte copies (S a multiple of their values, P aligned), vec_b: its
+// column rows do (Pp a multiple, X aligned).
+template <typename T>
+struct DownOps {
+  const T* P[2];
+  const T* X[2];
+  size_t xcs[2];
+  bool vec_a[2], vec_b[2];
+};
+
+// DownOps of one child (slot k): P at its edge, X its rows.
+template <typename T>
+__device__ __forceinline__ void down_operand(DownOps<T>& op, int k, const T* Pe, const T* X,
+                                             size_t xcs, int S, int Pp) {
+  constexpr int V = 16 / sizeof(T);
+  op.P[k] = Pe;
+  op.X[k] = X;
+  op.xcs[k] = xcs;
+  op.vec_a[k] = S % V == 0 && aligned16(Pe);
+  op.vec_b[k] = Pp % V == 0 && aligned16(X);
+}
+
+// Issues (cp.async, zeros past S) K-chunk k0 of item (c, m0) into stage
+// buffer buf: NCH children's A and B blocks, in 16-byte copies where
+// DownOps allows (a copy then lies wholly inside or outside S and Pp),
+// else value by value; patterns past Pp read pattern Pp - 1 (Pp - V).
+template <typename T, int NP, int NCH>
+__device__ __forceinline__ void down_stage(T* buf, const DownOps<T>& op, int c, int m0, int k0,
+                                           int S, int p0, int Pp, int lane) {
+  using D = DownTile<T>;
+  constexpr int V = 16 / sizeof(T);
+  const size_t SS = (size_t)S * S;
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    T* A = buf + ch * D::kAValues;
+    const T* Pc = op.P[ch] + c * SS;
+    if (op.vec_a[ch]) {  // lanes along y: coalesced rows of P
+      for (int i = lane; i < kItemRows * D::kK / V; i += 32) {
+        const int r = i / (D::kK / V), y = k0 + i % (D::kK / V) * V, x = m0 + r;
+        T* dst = A + r * D::kAStride + (y - k0);
+        if (x < S && y < S)
+          cp_async16(dst, Pc + (size_t)x * S + y);
+        else
+#pragma unroll
+          for (int e = 0; e < V; ++e) dst[e] = T(0);
+      }
+    } else {
+      for (int i = lane; i < kItemRows * D::kK; i += 32) {
+        const int r = i / D::kK, kk = i % D::kK, x = m0 + r, y = k0 + kk;
+        T* dst = A + r * D::kAStride + kk;
+        if (x < S && y < S)
+          cp_async(dst, Pc + (size_t)x * S + y);
+        else
+          *dst = T(0);
+      }
+    }
+    T* B = buf + 2 * D::kAValues + ch * D::kK * (NP + D::kBPad);
+    const T* Xc = op.X[ch] + c * op.xcs[ch];
+    if (op.vec_b[ch]) {  // lanes along patterns
+      for (int i = lane; i < D::kK * NP / V; i += 32) {
+        const int kk = i / (NP / V), j = i % (NP / V) * V, y = k0 + kk;
+        const int p = p0 + j < Pp ? p0 + j : Pp - V;
+        T* dst = B + kk * (NP + D::kBPad) + j;
+        if (y < S)
+          cp_async16(dst, Xc + (size_t)y * Pp + p);
+        else
+#pragma unroll
+          for (int e = 0; e < V; ++e) dst[e] = T(0);
+      }
+    } else {
+      for (int i = lane; i < D::kK * NP; i += 32) {
+        const int kk = i / NP, j = i % NP, y = k0 + kk;
+        const int p = p0 + j < Pp ? p0 + j : Pp - 1;
+        T* dst = B + kk * (NP + D::kBPad) + j;
+        if (y < S)
+          cp_async(dst, Xc + (size_t)y * Pp + p);
+        else
+          *dst = T(0);
+      }
+    }
+  }
+}
+
+// acc[ch] += the staged chunk's products for NCH children.
+template <typename T, int NP, int NCH>
+__device__ __forceinline__ void down_chunk(T (&acc)[2][NP / 2], const T* buf, int lane) {
+  using D = DownTile<T>;
+  if constexpr (sizeof(T) == 8) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < D::kK; kk += 4)
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        const T* A = buf + ch * D::kAValues;
+        const T* B = buf + 2 * D::kAValues + ch * D::kK * (NP + D::kBPad);
+        const double a0 = A[g * D::kAStride + kk + t], a1 = A[(g + 8) * D::kAStride + kk + t];
+#pragma unroll
+        for (int nt = 0; nt < NP / 8; ++nt)
+          dmma_16x8x4(acc[ch] + 4 * nt, a0, a1, B[(kk + t) * (NP + D::kBPad) + 8 * nt + g]);
+      }
+  } else {  // per 4 steps of the contraction: a 4 x 4 block of A, 4 rows of B
+    constexpr int TN = NP / 8;
+    const int rg = lane >> 3, pg = lane & 7;
+#pragma unroll
+    for (int kq = 0; kq < D::kK; kq += 4)
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        const T* A = buf + ch * D::kAValues + 4 * rg * D::kAStride + kq;
+        const T* B = buf + 2 * D::kAValues + ch * D::kK * NP + kq * NP + TN * pg;
+        Vec<T, 4> a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const Vec<T, 4>*>(A + i * D::kAStride);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const Vec<T, TN> b = *reinterpret_cast<const Vec<T, TN>*>(B + kk * NP);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) acc[ch][i * TN + j] += a[i].v[kk] * b.v[j];
+        }
+      }
+  }
+}
+
+// The warp's items of a node, item = warp, warp + kWarps, ... of C *
+// ceil(S / 16) (category item / MT, states 16 (item % MT) on): for each,
+// the NCH children's products over all K-chunks, staged through the warp's
+// ring of kDownStages buffers (the next chunks, of this item or the next,
+// in flight while the current one is used), then done(c, m0, acc).
+template <typename T, int NP, int NCH, typename F>
+__device__ __forceinline__ void down_items(T* buf, const DownOps<T>& op, int C, int S, int p0,
+                                           int Pp, int warp, int lane, F&& done) {
+  using D = DownTile<T>;
+  constexpr int kStage = down_stage_values<T, NP>();
+  const int MT = (S + kItemRows - 1) / kItemRows, nk = (S + D::kK - 1) / D::kK;
+  const int n_items = C * MT;
+  if (warp >= n_items) return;
+  const int total = (n_items - warp + kWarps - 1) / kWarps * nk;
+  auto issue = [&](int f) {
+    const int item = warp + kWarps * (f / nk);
+    if (f < total)
+      down_stage<T, NP, NCH>(buf + f % kDownStages * kStage, op, item / MT,
+                             item % MT * kItemRows, f % nk * D::kK, S, p0, Pp, lane);
+    cp_async_commit();  // (empty past the last chunk: the groups keep their count)
+  };
+  T acc[2][NP / 2];
+#pragma unroll
+  for (int v = 0; v < NP / 2; ++v) acc[0][v] = acc[1][v] = T(0);
+  for (int f = 0; f < kDownStages - 1; ++f) issue(f);
+  for (int f = 0; f < total; ++f) {
+    issue(f + kDownStages - 1);  // into the buffer chunk f - 1 used
+    cp_async_wait_group<kDownStages - 1>();
+    __syncwarp();  // the chunk the other lanes copied is in place
+    down_chunk<T, NP, NCH>(acc, buf + f % kDownStages * kStage, lane);
+    __syncwarp();  // every lane is done with the buffer before it is refilled
+    if (f % nk == nk - 1) {
+      const int item = warp + kWarps * (f / nk);
+      done(item / MT, item % MT * kItemRows, acc);
+#pragma unroll
+      for (int v = 0; v < NP / 2; ++v) acc[0][v] = acc[1][v] = T(0);
+    }
+  }
+}
+
+// Per pattern of the tile, the max (SUM: the sum) over the block of each
+// lane's column values v[j]; thread i < NP gets pattern i's (the others 0).
+template <typename T, int NP, bool SUM>
+__device__ __forceinline__ T down_reduce(const T (&v)[DownLane<T, NP>::kCols], T* red,
+                                         const DownLane<T, NP>& ln, int warp) {
+  constexpr int R = kWarps * DownTile<T>::kSlots;
+#pragma unroll
+  for (int j = 0; j < DownLane<T, NP>::kCols; ++j)
+    red[(warp * DownTile<T>::kSlots + ln.slot()) * NP + ln.pattern(j)] = v[j];
+  __syncthreads();
+  T r = 0;
+  if (threadIdx.x < NP)
+    for (int i = 0; i < R; ++i) {
+      const T o = red[i * NP + threadIdx.x];
+      r = SUM ? r + o : (o > r ? o : r);
+    }
+  return r;
+}
+
+// grid (ceil(Pp / NP)), block kWarps * 32: block b walks every level step
+// for patterns [b * NP, (b + 1) * NP); per node the warps take its items.
+// With lp given, the site log-likelihoods after the last step. The
+// __launch_bounds__ minimum of 2 resident blocks per SM caps a thread at 128
+// registers; float64's 32-pattern tile (64 doubles of accumulators, and
+// shared memory for one block) takes 1.
+template <typename T, int NP>
+__global__ void __launch_bounds__(kTile* kWarps, sizeof(T) == 8 && NP == 32 ? 1 : 2)
     down_wide_kernel(const T* __restrict__ P, const T* __restrict__ tip, T* all, int* sc,
                      const int* __restrict__ child_src, const int* __restrict__ child_edge,
                      const int* __restrict__ step_node, const T* __restrict__ root_freqs,
                      const T* __restrict__ cat_weight, const T* __restrict__ log_inv, T* lp,
-                     int n_steps, int G, int n_int, int L, int C, int S, int Pp, int stage) {
+                     int n_steps, int G, int n_int, int L, int C, int S, int Pp) {
   extern __shared__ __align__(16) unsigned char smem[];
+  using LN = DownLane<T, NP>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * kTile + lane;
-  const bool live = p < Pp, cols = stage >= kWideCols, tile = stage == kWideTile;
-  const int q = live ? p : Pp - 1;  // the pattern whose columns a lane reads
+  const LN ln{lane};
+  const int p0 = blockIdx.x * NP;
   const size_t SS = (size_t)S * S, CSS = (size_t)C * SS, CS = (size_t)C * S, P64 = (size_t)Pp;
-  constexpr int kChunk = kWarps * kWideRows;
-  T* red = reinterpret_cast<T*>(smem);
-  T* ca = red + kWarps * kTile;
-  T* cb = ca + (size_t)S * kTile;
-  T* out_tile = cb + (size_t)S * kTile;
+  T* buf = reinterpret_cast<T*>(smem) + (size_t)warp * kDownStages * down_stage_values<T, NP>();
+  T* red = reinterpret_cast<T*>(smem) + (size_t)kWarps * kDownStages * down_stage_values<T, NP>();
+  int* flag = reinterpret_cast<int*>(red + kWarps * DownTile<T>::kSlots * NP);
+  const int MT = (S + kItemRows - 1) / kItemRows;
+  // the lane's stored values of its items, each v[x, p] at out(c, x, p)
+  auto each_value = [&](int c, int m0, auto&& fn) {
+#pragma unroll
+    for (int v = 0; v < LN::kNV; ++v) {
+      const int x = m0 + ln.row(v), j = ln.col(v), p = p0 + ln.pattern(j);
+      if (x < S && p < Pp) fn(v, j, ((size_t)c * S + x) * P64 + p);
+    }
+  };
   for (int s = 0; s < n_steps; ++s) {
     const int* row = step_node + (size_t)s * G;
     for (int g = 0; g < G; ++g) {
       const int nid = row[g];
       if (nid >= n_int) continue;  // a pad slot (the same for every thread)
-      const int s0 = child_src[2 * nid], s1 = child_src[2 * nid + 1];
-      const T* Pa = P + (size_t)child_edge[2 * nid] * CSS;
-      const T* Pb = P + (size_t)child_edge[2 * nid + 1] * CSS;
-      const Col<T> a = child_col(tip, all, s0, L, S, CS, P64, q);
-      const Col<T> b = child_col(tip, all, s1, L, S, CS, P64, q);
-      const int count = live ? (s0 >= L ? sc[(size_t)s0 * P64 + p] : 0) +
-                                   (s1 >= L ? sc[(size_t)s1 * P64 + p] : 0)
-                             : 0;
-      T* out = all + (size_t)(L + nid) * CS * P64 + p;
-      // sweep 0: the products and their max, kept in the tile where it fits;
-      // sweep 1 (no tile): the same products again, stored rescaled
-      T mx = 0, f = 1;
-      bool low = false;
-      for (int sweep = 0; sweep < (tile ? 1 : 2); ++sweep) {
-        for (int c = 0; c < C; ++c) {
-          const WVec<T> va = wide_col(ca, a, c, S, cols, live, warp, lane);
-          const WVec<T> vb = wide_col(cb, b, c, S, cols, live, warp, lane);
-          __syncthreads();
-          for (int x0 = 0; x0 < S; x0 += kChunk) {
-            T ua[kWideRows], ub[kWideRows];
-            wide_rows<T, true>(ua, Pa + c * SS, S, 1, va, x0, warp, S);
-            wide_rows<T, true>(ub, Pb + c * SS, S, 1, vb, x0, warp, S);
+      DownOps<T> op;
+      for (int k = 0; k < 2; ++k) {
+        const int src = child_src[2 * nid + k];
+        down_operand(op, k, P + (size_t)child_edge[2 * nid + k] * CSS,
+                     src < L ? tip + (size_t)src * S * P64 : all + (size_t)src * CS * P64,
+                     src < L ? 0 : (size_t)S * P64, S, Pp);
+      }
+      T* out = all + (size_t)(L + nid) * CS * P64;
+      T mx[LN::kCols];
 #pragma unroll
-            for (int j = 0; j < kWideRows; ++j) {
-              const int x = wide_row(x0, warp, j);
-              if (x >= S) continue;
-              const T v = ua[j] * ub[j];
-              if (sweep == 1) {
-                if (live) out[((size_t)c * S + x) * P64] = v * f;
-              } else {
-                mx = v > mx ? v : mx;
-                if (tile) out_tile[((size_t)c * S + x) * kTile + lane] = v;
-              }
-            }
-          }
-          __syncthreads();  // the columns are free again
-        }
-        if (sweep == 0) {
-          low = wide_reduce<T, false>(mx, red, warp, lane) < Scaling<T>::thresh;
-          f = low ? Scaling<T>::factor : T(1);
+      for (int j = 0; j < LN::kCols; ++j) mx[j] = 0;
+      down_items<T, NP, 2>(buf, op, C, S, p0, Pp, warp, lane,
+                           [&](int c, int m0, T(&acc)[2][NP / 2]) {
+                             each_value(c, m0, [&](int v, int j, size_t o) {
+                               const T u = acc[0][v] * acc[1][v];
+                               mx[j] = u > mx[j] ? u : mx[j];
+                               out[o] = u;
+                             });
+                           });
+      const T m = down_reduce<T, NP, false>(mx, red, ln, warp);
+      if (threadIdx.x < NP) {
+        const int p = p0 + threadIdx.x;
+        const bool low = m < Scaling<T>::thresh;
+        flag[threadIdx.x] = low;
+        if (p < Pp) {
+          const int s0 = child_src[2 * nid], s1 = child_src[2 * nid + 1];
+          sc[(size_t)(L + nid) * P64 + p] = (s0 >= L ? sc[(size_t)s0 * P64 + p] : 0) +
+                                            (s1 >= L ? sc[(size_t)s1 * P64 + p] : 0) +
+                                            (low ? 1 : 0);
         }
       }
-      if (tile && live)  // the kept products, rescaled (each thread its own rows)
-        for (int c = 0; c < C; ++c)
-          for (int x = warp; x < S; x += kWarps)
-            out[((size_t)c * S + x) * P64] = out_tile[((size_t)c * S + x) * kTile + lane] * f;
-      if (warp == 0 && live) sc[(size_t)(L + nid) * P64 + p] = count + (low ? 1 : 0);
+      __syncthreads();  // the flags are in place, the reduction rows free
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < LN::kCols; ++j) any |= flag[ln.pattern(j)] != 0;
+      if (any)  // the values this lane stored for a low pattern, times 2^B
+        for (int item = warp; item < C * MT; item += kWarps)
+          each_value(item / MT, item % MT * kItemRows, [&](int, int j, size_t o) {
+            if (flag[ln.pattern(j)]) out[o] *= Scaling<T>::factor;
+          });
     }
     __syncthreads();  // this step's rows are visible to the next step
   }
   if (lp == nullptr) return;
-  // site log-likelihoods (T1/T4): leaf 0's message P_0 . tip_0 times the root
-  // row, weighted by root_freqs and cat_weight, summed over the block
+  // site log-likelihoods (T1/T4): leaf 0's message P_0 . tip_0 (edge 0)
+  // times the root row, weighted by root_freqs and cat_weight, summed over
+  // the block per pattern
   const int root = L + n_int - 1;
-  const WVec<T> t0 = wide_col(ca, Col<T>{tip + q, 0, P64}, 0, S, cols, live, warp, lane);
-  __syncthreads();
-  const T* B = all + (size_t)root * CS * P64 + p;
-  T part = 0;
-  for (int c = 0; c < C; ++c) {
-    T lh = 0;
-    for (int x0 = 0; x0 < S; x0 += kChunk) {
-      T m[kWideRows];
-      wide_rows<T, true>(m, P + c * SS, S, 1, t0, x0, warp, S);
+  const T* B = all + (size_t)root * CS * P64;
+  DownOps<T> op{};
+  down_operand(op, 0, P, tip, 0, S, Pp);
+  T part[LN::kCols];
 #pragma unroll
-      for (int j = 0; j < kWideRows; ++j) {
-        const int x = wide_row(x0, warp, j);
-        if (x < S && live)
-          lh += __ldg(root_freqs + c * S + x) * (B[((size_t)c * S + x) * P64] * m[j]);
-      }
-    }
-    part += __ldg(cat_weight + c) * lh;
-  }
-  const T site = wide_reduce<T, true>(part, red, warp, lane);
-  if (warp == 0 && live) {
+  for (int j = 0; j < LN::kCols; ++j) part[j] = 0;
+  down_items<T, NP, 1>(buf, op, C, S, p0, Pp, warp, lane,
+                       [&](int c, int m0, T(&acc)[2][NP / 2]) {
+#pragma unroll
+                         for (int v = 0; v < LN::kNV; ++v) {
+                           const int x = m0 + ln.row(v), j = ln.col(v), p = p0 + ln.pattern(j);
+                           if (x < S && p < Pp)
+                             part[j] += __ldg(cat_weight + c) *
+                                        (__ldg(root_freqs + c * S + x) *
+                                         (B[((size_t)c * S + x) * P64 + p] * acc[0][v]));
+                         }
+                       });
+  const T site = down_reduce<T, NP, true>(part, red, ln, warp);
+  const int p = p0 + threadIdx.x;
+  if (threadIdx.x < NP && p < Pp) {
     const T l = dlog(site > Scaling<T>::tiny ? site : Scaling<T>::tiny) -
                 (T)sc[(size_t)root * P64 + p] * Scaling<T>::log_factor;
     lp[p] = logaddexp(l, log_inv[p]);
@@ -1311,7 +1690,8 @@ struct PassShape {
   bool pf;
 };
 
-// The wide instance (S > kMaxRegStates): the reduction row always, then
+// The wide sweeps (up_pass, theta_pass at S > kMaxRegStates; the wide down
+// pass takes down_tile and launch_down_wide): the reduction row always, then
 // the staged columns, the [C, S, kTile] output tile (staged, a WideStage)
 // and U and V (uv_staged), each where it fits in kWideShmBytes beside the
 // rest.
@@ -1374,7 +1754,6 @@ PassShape pass_shape(int Pp, int C, int S, bool theta) {
 
 template <typename T>
 auto pick_down_pass(int C, int S, const PassShape& ps) -> decltype(&down_pass_kernel<T, 4, true, false>) {
-  if (S > kMaxRegStates) return down_wide_kernel<T>;
   IQ_PICK_PASS(down_pass_kernel, )
 }
 
@@ -1408,11 +1787,61 @@ int blocks_per_sm(K kernel, const PassShape& ps) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
+// The wide down pass's pattern tile on the current card: the widest of 32,
+// 16 and 8 patterns whose grid reaches kDownFill blocks per SM.
+inline int down_tile(int Pp) {
+  int dev = 0, sms = 1;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 1;
+  for (int np = 32; np > 8; np /= 2)
+    if ((Pp + np - 1) / np >= kDownFill * sms) return np;
+  return 8;
+}
+
+template <typename T, int NP>
+int launch_down_wide(const void* P, const void* tip, void* all, void* sc, const void* child_src,
+                     const void* child_edge, const void* step_node, const void* root_freqs,
+                     const void* cat_weight, const void* log_inv, void* lp, int n_steps, int G,
+                     int n_int, int L, int C, int S, int Pp, cudaStream_t st) {
+  const auto kernel = down_wide_kernel<T, NP>;
+  const size_t shm = down_wide_shm<T, NP>();
+  const cudaError_t err = allow_shm(kernel, shm);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)((Pp + NP - 1) / NP)), dim3(kTile * kWarps), shm, st>>>(
+      static_cast<const T*>(P), static_cast<const T*>(tip), static_cast<T*>(all),
+      static_cast<int*>(sc), static_cast<const int*>(child_src),
+      static_cast<const int*>(child_edge), static_cast<const int*>(step_node),
+      static_cast<const T*>(root_freqs), static_cast<const T*>(cat_weight),
+      static_cast<const T*>(log_inv), static_cast<T*>(lp), n_steps, G, n_int, L, C, S, Pp);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM and dynamic shared memory of the wide down pass
+// with pattern tile NP.
+template <typename T, int NP>
+int down_wide_occupancy(int* blocks, int* shm) {
+  PassShape ps;
+  ps.block = dim3(kTile * kWarps);
+  ps.shm = down_wide_shm<T, NP>();
+  *shm = (int)ps.shm;
+  *blocks = blocks_per_sm(down_wide_kernel<T, NP>, ps);
+  return *blocks < 0 ? -*blocks : (int)cudaSuccess;
+}
+
 template <typename T>
 int launch_down_pass(const void* P, const void* tip, void* all, void* sc, const void* child_src,
                      const void* child_edge, const void* step_node, const void* root_freqs,
                      const void* cat_weight, const void* log_inv, void* lp, int n_steps, int G,
                      int n_int, int L, int C, int S, int Pp, cudaStream_t st) {
+  if (S > kMaxRegStates) {
+    const int np = down_tile(Pp);
+    const auto launch = np == 32   ? launch_down_wide<T, 32>
+                        : np == 16 ? launch_down_wide<T, 16>
+                                   : launch_down_wide<T, 8>;
+    return launch(P, tip, all, sc, child_src, child_edge, step_node, root_freqs, cat_weight,
+                  log_inv, lp, n_steps, G, n_int, L, C, S, Pp, st);
+  }
   const PassShape ps = pass_shape<T>(Pp, C, S, false);
   const auto kernel = pick_down_pass<T>(C, S, ps);
   const cudaError_t err = allow_shm(kernel, ps.shm);
@@ -1484,6 +1913,13 @@ int launch_theta_pass(const void* P, const void* tip, const void* all, const voi
 // dynamic shared memory per block of the instance for (C, S, Pp).
 template <typename T, int KIND>
 int pass_occupancy(int C, int S, int Pp, int* blocks, int* shm) {
+  if constexpr (KIND == 0)
+    if (S > kMaxRegStates) {
+      const int np = down_tile(Pp);
+      return np == 32   ? down_wide_occupancy<T, 32>(blocks, shm)
+             : np == 16 ? down_wide_occupancy<T, 16>(blocks, shm)
+                        : down_wide_occupancy<T, 8>(blocks, shm);
+    }
   const PassShape ps = pass_shape<T>(Pp, C, S, KIND == 2);
   *shm = (int)ps.shm;
   if constexpr (KIND == 0)

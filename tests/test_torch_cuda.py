@@ -22,6 +22,7 @@ Without a CUDA device every test skips. Inputs are simulated problems; the
 comparison and its tolerances are iqtree2_tpu_torch/kernelcheck.py's.
 """
 
+import functools
 import re
 from pathlib import Path
 
@@ -592,16 +593,19 @@ def test_kernels_match_plain_nonrev_families(cuda, name, dtype):
     ("GTR+P13+G4", "+G{0.6}"), ("GTR+P19+G4", "+G{0.6}"),
     ("GTR+P23+G4", "+G{0.6}"), ("MK65+G4", "+G{0.6}"),
     ("GTR+P13+G4", ""), ("GTR+P19+G4", "+G10{0.6}"),
-    ("GTR+P76+G4", "+G{0.6}")],
-    ids=["S76", "S112", "S136", "S65", "S76-C1", "S112-C10", "S454"])
+    ("GTR+P76+G4", "+G{0.6}"), ("GTR+P23+G4", ""),
+    ("MK65+G4", "+G10{0.6}")],
+    ids=["S76", "S112", "S136", "S65", "S76-C1", "S112-C10", "S454",
+         "S136-C1", "S65-C10"])
 def test_kernels_match_plain_wide(cuda, name, gamma, dtype):
-    """The kernels' wide instance (S > 64, a node's states split across
-    the block): PoMo at 76, 112 and 136 states on k/N tips, a 65-state
-    --mdef datatype under a reversible model, one category (theta_pass
-    stages U and V) and ten (in float64 the output tile does not fit and
-    the sweeps compute the products twice), and PoMo at 454 states, whose
-    columns float64 cannot stage (the passes read them in place, theta_pass
-    keeps E in its workspace); one launch per pass."""
+    """The kernels' wide instance (S > 64: the down pass's warp items over
+    staged K-chunks, DMMA in float64; the sweeps' states split across the
+    block): PoMo at 76, 112 and 136 states on k/N tips, a 65-state --mdef
+    datatype under a reversible model, one category (theta_pass stages U
+    and V) and ten (in float64 the sweeps' output tile does not fit and
+    they compute the products twice), and PoMo at 454 states, whose
+    columns float64 cannot stage for the sweeps (they read them in place,
+    theta_pass keeps E in its workspace); one launch per pass."""
     aln, tree, _, _ = kernelcheck.simulate(name, 24, 300, seed=2)
     model, rates, _ = build_model(
         kernelcheck.MODELS[name][2].replace("+G{0.6}", gamma), aln)
@@ -614,17 +618,66 @@ def test_kernels_match_plain_wide(cuda, name, gamma, dtype):
     assert res[0]["sitelp_launches"] == 1
 
 
+@functools.cache
+def _ragged_problem():
+    """24 taxa x 9000 sites under PoMo at 76 states (simulated once, by
+    the first test that asks): 4420 patterns."""
+    return kernelcheck.simulate("GTR+P13+G4", 24, 9000, seed=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("Pp", [1, 31, 33, 36, 2115, 4228, 4229])
+def test_down_wide_ragged_tiles(cuda, Pp, dtype):
+    """The wide down pass with its epilogue on the first Pp patterns,
+    where the last (or only) pattern tile is partial: on the H100's 132
+    SMs, 1, 31, 33 and 36 patterns take the 8-pattern tile, 2115 the 16
+    and 4228 and 4229 the 32 (3, 4 and 5 live patterns in the last tile).
+    36 and 4228 are multiples of 4, so the children's columns go in
+    16-byte copies, the last tile's clamped to Pp - 4 (float32) or Pp - 2
+    (float64); the odd counts copy value by value. Rows it must write
+    start as NaN; partials, scale counts and site logLs against the plain
+    version within kernelcheck's tolerances, one launch."""
+    aln, tree, model, rates = _ragged_problem()
+    eng = kernelcheck.make_engine(aln, model, rates, dtype=dtype,
+                                  device=cuda)
+    assert eng.Pp >= 4229 and eng._tipP.shape[1] == 76
+    pb = kernelcheck.Problem(eng, tree).window(0, Pp)
+    L, tol = pb.L, kernelcheck.TOLERANCE[dtype]
+    lp_ref, lp = pb.lp_buffer(), pb.lp_buffer()
+    ref = pb.down(kernels.down_pass_plain, pb.down_buffers(),
+                  pb.sitelp(lp_ref))
+    got = pb.down_buffers()
+    got.all[L:] = float("nan")
+    got.scale[L:] = -1
+    before = kernels.LAUNCHES["down_pass"]
+    pb.down(kernels.down_pass, got, pb.sitelp(lp))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["down_pass"] == before + 1
+    assert kernelcheck.col_rel(got.all[L:], ref.all[L:]) <= tol["partials"]
+    assert torch.equal(got.scale, ref.scale)
+    assert kernelcheck.lp_error(lp, lp_ref, dtype) <= tol["lp"]
+
+
 @pytest.mark.cuda
 def test_occupancy_of_the_wide_passes(cuda):
-    """At 112 states and four categories every pass keeps its [C, S, 32]
-    output tile in shared memory (float32 and float64) and fits a block
-    on an SM. Where the staged columns do not fit (454 states in float64,
-    1000 in float32) a block keeps only its reduction row, 8 warps x 32
-    lanes, and still fits: no state count is refused."""
+    """The wide down pass stages K-chunks whatever S is: at 65, 112, 454
+    and 1000 states its blocks take the same shared memory (for one
+    pattern tile) and at least one fits an SM. At 112 states and four
+    categories the sweeps keep their [C, S, 32] output tile in shared
+    memory (float32 and float64) and fit a block on an SM. Where their
+    staged columns do not fit (454 states in float64, 1000 in float32) a
+    sweep's block keeps only its reduction row, 8 warps x 32 lanes, and
+    still fits: no state count is refused."""
+    for dtype in (torch.float32, torch.float64):
+        got = {S: kernels.pass_occupancy("down_pass", dtype, C, S, 16384)
+               for S, C in ((65, 1), (112, 4), (454, 4), (1000, 10))}
+        assert all(b >= 1 for b, _ in got.values()), (dtype, got)
+        assert len({shm for _, shm in got.values()}) == 1, (dtype, got)
     for dtype in (torch.float32, torch.float64):
         f = torch.finfo(dtype).bits // 8
         tile = 4 * 112 * 32 * f
-        for kind in kernels.PASS_KINDS:
+        for kind in ("up_pass", "theta_pass"):
             blocks, shm = kernels.pass_occupancy(kind, dtype, 4, 112, 16384)
             assert blocks >= 1 and shm > tile, (kind, dtype, blocks, shm)
             S = 454 if dtype == torch.float64 else 1000

@@ -1,7 +1,14 @@
 // CPU mock of the CUDA runtime for rehearsing csrc/pruning.cu with g++:
 // every CUDA thread of a block is a std::thread; __syncthreads and
-// __syncwarp are std::barriers; blocks run one after another.
+// __syncwarp are std::barriers; blocks run one after another; the float64
+// warp matrix product (mma.sync m16n8k4) is emulated lane by lane with the
+// card's fragment layout; the card has IQ_MOCK_SMS multiprocessors (-D to
+// choose the wide down pass's pattern tile).
 #pragma once
+#define IQ_CUDA_MOCK 1
+#ifndef IQ_MOCK_SMS
+#define IQ_MOCK_SMS 1
+#endif
 #include <barrier>
 #include <cstddef>
 #include <cstdlib>
@@ -32,6 +39,15 @@ enum cudaFuncAttribute {
   cudaFuncAttributePreferredSharedMemoryCarveout
 };
 enum { cudaSharedmemCarveoutMaxShared = 100 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = IQ_MOCK_SMS;
+  return cudaSuccess;
+}
 inline int cudaGetLastError() { return 0; }
 template <typename K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
@@ -63,6 +79,34 @@ inline void __syncthreads() { mock_block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { mock_warp_bar->arrive_and_wait(); }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 
+// the fragments each lane of a warp hands to an mma (one per warp)
+struct MockWarpFrags {
+  double a0[32], a1[32], b[32];
+};
+inline thread_local MockWarpFrags* mock_warp_frags = nullptr;
+
+// mma.sync.aligned.m16n8k4.row.col.f64: D = A B + D for a 16 x 4 A, a 4 x 8
+// B and a 16 x 8 D held across the warp, lane l = 4 g + t holding A[g][t]
+// (a0), A[g + 8][t] (a1), B[t][g] (b), D[g][2t + i] (d[i]) and
+// D[g + 8][2t + i] (d[2 + i]). Every lane of the warp must call it.
+inline void iq_mock_mma_m16n8k4(double* d, double a0, double a1, double b) {
+  const unsigned lane = threadIdx.x & 31;
+  MockWarpFrags& f = *mock_warp_frags;
+  f.a0[lane] = a0;
+  f.a1[lane] = a1;
+  f.b[lane] = b;
+  __syncwarp();
+  const unsigned g = lane >> 2, t = lane & 3;
+  for (unsigned i = 0; i < 4; ++i) {
+    const unsigned r = g + 8 * (i >> 1), n = 2 * t + (i & 1);
+    double acc = d[i];
+    for (unsigned k = 0; k < 4; ++k)  // A[r][k] at lane 4 (r % 8) + k, B[k][n] at 4 n + k
+      acc += (r < 8 ? f.a0[4 * r + k] : f.a1[4 * (r - 8) + k]) * f.b[4 * n + k];
+    d[i] = acc;
+  }
+  __syncwarp();  // every lane has read the fragments before they are replaced
+}
+
 namespace {
 alignas(16) unsigned char smem[1 << 20];
 }
@@ -76,6 +120,7 @@ void mock_launch(dim3 grid, dim3 block, size_t shm, cudaStream_t, F kernel, A...
         std::memset(smem, 0xff, sizeof(smem));
         std::barrier<> bar(n);
         std::vector<std::unique_ptr<std::barrier<>>> warps;
+        std::vector<MockWarpFrags> frags((n + 31) / 32);
         for (unsigned w = 0; w < (n + 31) / 32; ++w)
           warps.emplace_back(new std::barrier<>(std::min(32u, n - 32 * w)));
         std::vector<std::thread> ts;
@@ -87,6 +132,7 @@ void mock_launch(dim3 grid, dim3 block, size_t shm, cudaStream_t, F kernel, A...
             gridDim = grid;
             mock_block_bar = &bar;
             mock_warp_bar = warps[t / 32].get();
+            mock_warp_frags = &frags[t / 32];
             kernel(args...);
           });
         for (auto& th : ts) th.join();

@@ -21,13 +21,19 @@ supermatrices of kernelcheck.PARTITIONS (a short partition, one lacking
 taxa, protein beside DNA); and the wide instance (S > 64: PoMo at 76, 112
 and 136 states, a 65-state --mdef datatype under a reversible model, and
 PoMo at 76 with one category, where theta_pass stages U and V, and PoMo
-at 454 states, past what shared memory stages in float64), which two more
-builds run again with smaller shared-memory budgets (kWideShmBytes): 48 KB
-stages the columns but not the output tile (the recomputing sweeps), 0
-stages nothing (the columns read in place, theta_pass's workspace of E).
-``--wide`` runs the wide shapes alone. It checks indexing, the barriers,
-the block reductions and the rescale; it says nothing of speed or of what
-nvcc accepts.
+at 454 states, past what shared memory stages in float64, and the first
+of them on ragged pattern windows of 1, 31, 33, 36 and 44 patterns, the
+last two in 16-byte column copies), which two
+more builds run again with smaller shared-memory budgets for the sweeps
+(kWideShmBytes): 48 KB stages the columns but not the output tile (the
+recomputing sweeps), 0 stages nothing (the columns read in place,
+theta_pass's workspace of E). The wide down pass stages its K-chunks in
+every build; the three builds give the mock card 1, 8 and 16
+multiprocessors, so that it runs its pattern tiles of 32, 16 and 8, and
+its float64 products go through the mock's lane-by-lane emulation of
+mma.sync m16n8k4. ``--wide`` runs the wide shapes alone. It checks
+indexing, the barriers, the block reductions and the rescale; it says
+nothing of speed or of what nvcc accepts.
 """
 
 from __future__ import annotations
@@ -66,13 +72,25 @@ WIDE = (("GTR+P13+G4", 30, 60), ("GTR+P19+G4", 9, 100),
 # 454 states, past what shared memory stages in float64: the default
 # build's passes read their columns in place there
 WIDE_IN_PLACE = (("GTR+P76+G4", 6, 12),)
-# the wide instance's shared-memory budgets besides the card's: 48 KB stages
-# the columns but not the output tile (float32 at 76 states; float64 theta
-# reads in place), 0 stages nothing
-WIDE_BUDGETS = (("48 * 1024", " (columns staged)"), ("0", " (in place)"))
+# the sweeps' shared-memory budgets besides the card's: 48 KB stages the
+# columns but not the output tile (float32 at 76 states; float64 theta
+# reads in place), 0 stages nothing; each build also gives the mock card
+# another multiprocessor count, so that the wide down pass (whose shared
+# memory no budget changes) takes each of its pattern tiles at the 128
+# patterns of these problems: 32 on 1 SM, 16 on 8, 8 on 16
+WIDE_BUDGETS = (("48 * 1024", " (columns staged)", 8),
+                ("0", " (in place)", 16))
+# ragged pattern tiles: windows [a, b) of the first WIDE shape, whose last
+# (or only) tile is partial under every tile width; 36 and 44 patterns, a
+# multiple of 4, take the 16-byte column copies (their last tile clamped
+# to the window's end), 1, 31 and 33 the copies value by value
+RAGGED = ((0, 1), (0, 31), (3, 36), (0, 36), (8, 52))
 
 
-def build(out_dir: Path, tag: str = "", replace=()) -> ctypes.CDLL:
+def build(out_dir: Path, tag: str = "", replace=(), sms: int = 1
+          ) -> ctypes.CDLL:
+    """The mock library of csrc/pruning.cu (constants replaced as
+    ``replace`` says) on a card of ``sms`` multiprocessors."""
     src = kernels.SOURCE.read_text()
     for old, new in replace:
         assert old in src, old
@@ -83,13 +101,23 @@ def build(out_dir: Path, tag: str = "", replace=()) -> ctypes.CDLL:
     cpp.write_text(src)
     so = out_dir / f"libpruning_mock{tag}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-pthread", f"-I{HERE}", "-o", str(so), str(cpp)],
+                    "-pthread", f"-I{HERE}", f"-DIQ_MOCK_SMS={sms}", "-o",
+                    str(so), str(cpp)],
                    check=True)
     print(f"{n} launches rewritten; built {so}")
     return kernels.bind(ctypes.CDLL(str(so)))
 
 
 def check_wide(lib, tag: str, shapes=WIDE) -> None:
+    name, ntaxa, nsites = shapes[0]
+    aln, tree, model, rates = kernelcheck.simulate(name, ntaxa, nsites,
+                                                   seed=3)
+    for dtype in (torch.float32, torch.float64):
+        eng = kernelcheck.make_engine(aln, model, rates, dtype=dtype,
+                                      device="cpu")
+        for a, b in RAGGED:
+            check(lib, eng, tree, f"{name} patterns [{a}, {b}){tag}",
+                  window=(a, b))
     for name, ntaxa, nsites in shapes:
         model_name = name.removesuffix(" C1")
         aln, tree, model, rates = kernelcheck.simulate(model_name, ntaxa,
@@ -104,8 +132,13 @@ def check_wide(lib, tag: str, shapes=WIDE) -> None:
                   tree, f"{name}{tag}")
 
 
-def check(lib, eng: LikelihoodEngine, tree: Tree, tag: str) -> None:
+def check(lib, eng: LikelihoodEngine, tree: Tree, tag: str,
+          window: tuple[int, int] | None = None) -> None:
+    """The three pass kernels of ``lib`` against their plain versions on
+    one problem (on its patterns [a, b) alone with ``window``)."""
     pb = kernelcheck.Problem(eng, tree)
+    if window is not None:
+        pb = pb.window(*window)
     lp_ref, lp = pb.lp_buffer(), pb.lp_buffer()
     ref = pb.down(kernels.down_pass_plain, pb.down_buffers(),
                   pb.sitelp(lp_ref))
@@ -151,10 +184,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         lib = build(Path(args.build_dir or d))
         check_wide(lib, "", WIDE + WIDE_IN_PLACE)
-        for k, (budget, tag) in enumerate(WIDE_BUDGETS):
+        for k, (budget, tag, sms) in enumerate(WIDE_BUDGETS):
             check_wide(build(Path(args.build_dir or d), f"_budget{k}",
                              [("kWideShmBytes = 227 * 1024",
-                               f"kWideShmBytes = {budget}")]), tag)
+                               f"kWideShmBytes = {budget}")], sms), tag)
         if args.wide:
             return 0
         for name, ntaxa, nsites in (("GTR+G4", 40, 300), ("HKY+I", 9, 150),

@@ -2,23 +2,34 @@
 """chip_smoke.py's phase 18 (the kernels' wide instance, S > 64) by itself,
 on one card.
 
-    python3 tools/torch_phase18.py [--parts a,b,c,d,e] [--measure-te]
+    python3 tools/torch_phase18.py [--parts a,b,c,d,e] [--fit32] [--depths]
+        [--root DIR]
 
 Builds the kernels, then runs the chosen parts of phase 18 through
 chip_smoke.py's own functions, with its checks: a, the kernels against
 their plain versions under PoMo at 76, 112 and 136 states; b, 100 x 16384
 under GTR+P19+G4 (a logL, a Newton round, an NNI round, the kernels
-there); c, -m GTR+P19+G4 -B 1000 on example.phy; d, -m GTR+P19+G4 -te in
-float64 against the CPU; e, a 65-state --mdef datatype's -te fit.
---measure-te first runs d's -te fit in float32 and bounds c by its logL
-less 0.5 (how chip_smoke.POMO_TE_LOGL is measured). Prints each part's
-lines, the phase's wall, the launches of c and e and the kernels' errors.
-Outputs go to chip_smoke_out/.
+there); d, -m GTR+P19+G4 -te in float64 against the CPU; c, -m GTR+P19+G4
+-B 1000 on example.phy in float32, its final tree and parameters in
+float64 on the CPU against d's logL less 0.5 (c runs d first); e, a
+65-state --mdef datatype's -te fit. Prints each part's lines, the phase's
+wall, the launches of c and e and the kernels' errors.
+
+--fit32 then compares the float32 and float64 -te fits of d: the float32
+fit's own logL, the CPU's float64 logL of its tree and parameters, and
+the float64 fit's tree and parameters evaluated in float32 on the card
+(the float32 pass's error at a fixed state). --depths runs c's search at
+POMO_DEPTH and at deeper settings, each against d's bound, and goes on
+past a search below it. --root DIR takes iqtree2_tpu_torch (and so the
+kernels) from DIR, the root of another checkout (e.g. a parent unpacked
+with git archive), with this checkout's chip_smoke.py. Outputs go to
+chip_smoke_out/. Exits non-zero if a check failed.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -26,32 +37,81 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+DEPTHS = (["-n", "5", "-ninit", "10", "-ntop", "3", "-nbest", "2"],
+          ["-n", "3", "-ninit", "20", "-ntop", "5", "-nbest", "3"],
+          ["-n", "10", "-ninit", "20", "-ntop", "5", "-nbest", "5"],
+          ["-n", "20", "-ninit", "100", "-ntop", "20", "-nbest", "5"])
+
+
+def fit32(cs) -> None:
+    """The float32 -te fit beside the float64 one (--fit32)."""
+    import torch
+    from iqtree2_tpu_torch.engine import LikelihoodEngine
+    k64: dict = {}
+    k32: dict = {}
+    l64 = cs.pomo_te("float64", k64)
+    r32 = cs.pomo_te("float32", k32)
+    v32, _ = cs.cpu_logl(k32)
+    e32 = LikelihoodEngine(k64["aln"], k64["model"], k64["rates"],
+                           dtype=torch.float32, device="cuda"
+                           ).loglik_tree(k64["tree"])
+    print(f"[fit32] float64 fit {l64:.6f}; float32 fit {r32:.6f}, its tree "
+          f"and parameters in float64 on the CPU {v32:.6f} ({v32 - l64:+.6f}"
+          f" from the float64 fit); the float64 fit's state in float32 on "
+          f"the card {e32:.6f} ({e32 - l64:+.6f})", flush=True)
+
+
+def depths(cs, errors: dict) -> bool:
+    """c at POMO_DEPTH and DEPTHS (--depths); True if every one held."""
+    bound = cs.pomo_te("float64") - 0.5
+    ok = True
+    for k, depth in enumerate((cs.POMO_DEPTH,) + DEPTHS):
+        print(f"[depths] {' '.join(depth)}", flush=True)
+        t0 = time.perf_counter()
+        try:
+            cs.pomo_search(bound, errors, depth, name=f"pomo_depth{k}")
+        except RuntimeError as e:
+            ok = False
+            print(f"[depths] FAILED: {e}", flush=True)
+        print(f"[depths] {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", default="a,b,c,d,e")
-    ap.add_argument("--measure-te", action="store_true")
+    ap.add_argument("--fit32", action="store_true")
+    ap.add_argument("--depths", action="store_true")
+    ap.add_argument("--root", default=str(ROOT))
     args = ap.parse_args()
-    import chip_smoke as cs
+    sys.path.insert(0, args.root)
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
     from iqtree2_tpu_torch.ops import kernels
+    assert Path(kernels.__file__).resolve().is_relative_to(
+        Path(args.root).resolve()), kernels.__file__
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    print(f"iqtree2_tpu_torch from {args.root}", flush=True)
     cs.OUT.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     kernels.library()
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    te = cs.pomo_te("float32") if args.measure_te else None
     errors = {k: 0.0 for k in cs.REPLACES}
-    timed, launches = cs.wide_states(errors, args.parts.replace(",", ""),
-                                     te_bound=te)
-    print(f"wide launches {json.dumps(launches)}; kernel errors "
-          f"{json.dumps(errors)}; 18b ms "
-          f"{ {k: (r['ms'], r['b2b_ms'], r['plain_ms'], r['bound_ms'])
-              for k, r in timed.items()} }")
-    return 0
+    parts = args.parts.replace(",", "")
+    if parts:
+        timed, launches = cs.wide_states(errors, parts)
+        print(f"wide launches {json.dumps(launches)}; kernel errors "
+              f"{json.dumps(errors)}; 18b ms "
+              f"{ {k: (r['ms'], r['b2b_ms'], r['plain_ms'], r['bound_ms'])
+                  for k, r in timed.items()} }", flush=True)
+    if args.fit32:
+        fit32(cs)
+    return 0 if not args.depths or depths(cs, errors) else 1
 
 
 if __name__ == "__main__":
