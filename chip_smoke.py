@@ -12,9 +12,8 @@ ending in torch.cuda.synchronize():
 2. building the kernels of iqtree2_tpu_torch/csrc/pruning.cu with nvcc, and
    the resident blocks per SM and shared memory per block of each pass
    instance at 16384 patterns (DNA, protein, and 112 and 454 states, the
-   wide instance with its columns staged in shared memory and, in
-   float64 at 454, read in place; 1, 4 and 10 categories, float32 and
-   float64);
+   wide instance, whose shared memory is the same at both; 1, 4 and 10
+   categories, float32 and float64);
 3. each kernel against its plain PyTorch version on the same inputs, on a
    simulated 64-taxon x 4096-site problem under GTR+G4, GTR+G8 (more
    categories than the DNA register column holds), LG+G4, and the shapes
@@ -240,17 +239,16 @@ ending in torch.cuda.synchronize():
    gloo at the flagship's shapes: the same topology, logL within 1e-6
    relative.
 
-18. the kernels' wide instance (S > 64: the down pass's warp items over
-   staged K-chunks, the sweeps' states split across the block's
-   threads): (a) each kernel against its plain version on
-   64 x 4096 problems simulated under GTR+G4 and fitted under GTR+P13+G4
-   and GTR+P19+G4 (PoMo, 76 and 112 states), float32 and float64, and
-   GTR+P23+G4 (136) at 64 x 1024 in float32, with times loaded and back
-   to back, bounds, shares, occupancy and one launch per pass; (b) the
-   realistic width, 100 x 16384 under GTR+P19+G4 in float32: one logL,
-   one nonreversible Newton round (ms, peak memory), NNI5 scores of 8
-   candidates (peak memory below 40 GiB), then each kernel against its
-   plain version there;
+18. the kernels' wide instance (S > 64: the down pass's and the sweeps'
+   warp items over staged K-chunks): (a) each kernel against its plain
+   version on 64 x 4096 problems simulated under GTR+G4 and fitted under
+   GTR+P13+G4 and GTR+P19+G4 (PoMo, 76 and 112 states), float32 and
+   float64, and GTR+P23+G4 (136) at 64 x 1024 in float32, with times
+   loaded and back to back, bounds, shares, occupancy and one launch per
+   pass; (b) the realistic width, 100 x 16384 under GTR+P19+G4 in
+   float32: one logL, one nonreversible Newton round (ms, peak memory),
+   NNI5 scores of 8 candidates (peak memory below 40 GiB), then each
+   kernel against its plain version there;
    (d) -m GTR+P19+G4 -te in float64, its fitted state evaluated on the
    CPU within 1e-3; (c) -s example.phy -m GTR+P19+G4 -B 1000 in float32
    (depth cut to POMO_DEPTH), launches reset just before and read just

@@ -16,7 +16,8 @@
 //                (T3/T7: up_pass_pallas, stream_up_pass)
 //   theta_pass   the same sweep (up_pass_kernel's THETA instance) with
 //                theta = (U^T E) * (V down_child) and its scale formed per
-//                edge from the E the thread holds, so E is never written;
+//                edge from the E the thread holds, so E is never written
+//                (past 64 states E lives in a workspace, not in E's rows);
 //                a prologue sets UP(root) and theta of edge 0
 //                (T8: stream_theta_pass)
 //
@@ -860,123 +861,14 @@ __global__ void __launch_bounds__(kTile* kWarps, SMAX <= 4 ? kMinBlocks : kMinBl
 // ------------------------------------------------ the wide instance, S > 64
 // Past kMaxRegStates states a thread can no longer own a pattern's column:
 // at S = 112 and C = 4 it holds 448 values, and the thread alone would do
-// 2*C*S*S multiply-adds per node. So the block splits the states across
-// its threads. The down pass has a kernel of its own (down_wide_kernel,
-// below: warp items over staged K-chunks, DMMA in float64). The sweeps
-// take one (node, child slot) item at a time; the lane is still the
-// pattern, so loads and
-// stores stay coalesced along Pp, and warp w computes the output states w,
-// w + kWarps, ... (kWideRows of them per chunk, so any S is covered in
-// chunks of kWarps * kWideRows). Per category, the [S, kTile] columns a
-// product contracts over (the sibling's, E, the child's own
-// for theta) are staged in shared memory, where every thread reads them.
-// Where they do not fit (past about 290 states in float64 for theta_pass),
-// they are read in place from device memory instead: the
-// sibling's rows, E from its edge's rows (up_pass) or from a [S, Pp]
-// workspace that the launcher allocates (theta_pass, which never writes E),
-// so no S is refused short of device memory. The matrices P, U and V are
-// read through the cache, every lane of a warp
-// the same value (a broadcast). U and V are staged in shared memory when
-// they fit beside the rest. The per-pattern max over all C*S values is a
-// block reduction in shared memory. Where the [C, S, kTile] tile of E
-// fits beside the columns
-// (kWideShmBytes), the first sweep keeps it and the second stores it
-// rescaled; where it does not (C = 10 in float64), the second sweep
-// computes the products again, as the narrow wide columns do. UP is stored
-// as formed and multiplied by 2^B in place, by the thread that stored it,
-// when its max is low.
-// A node moves 3*C*S values per pattern for 2*C*S*S multiply-adds, about
-// 37 flops per byte at S = 112 in float32, above the H100's ridge of about
-// 20: the wide passes are bound by operations, not bytes. The sweeps are
-// plain multiply-adds, each thread's rows sharing one staged value per
-// step of the contraction; their tensor cores (DMMA for float64) and
-// staged matrices are left for later, and TF32 is off by the precision
-// policy.
+// 2*C*S*S multiply-adds per node. So the wide instance splits a node's
+// states across the block's warps: every product of a pass is a matrix
+// product of one category, M = S output states, K = S and N = the block's
+// tile of NP patterns, cut into warp items of 16 output states. The down
+// pass (down_wide_kernel) and the sweeps (sweep_wide_kernel) share that
+// machinery (down_stage, down_chunk, down_items and the block max).
 
 constexpr int kMaxRegStates = 64;  // widest S of the register-column instances
-constexpr int kWideRows = 8;       // output rows a wide thread holds per chunk
-constexpr size_t kWideShmBytes = 227 * 1024;  // shared memory one block may opt in to
-
-// The [S] vector a wide product contracts over, at one pattern: value i at
-// v[i * vs] (staged: a shared-memory column, vs = kTile; else rows of
-// device memory, vs = Pp). Plain loads: it is written in the same launch.
-template <typename T>
-struct WVec {
-  T* v;
-  size_t vs;
-};
-
-// acc[j] = sum_i M[r_j * rs + i * is] * v.v[i * v.vs] over i < S, for the
-// rows r_j = x0 + warp + kWarps * j. A row past S is computed on row S - 1
-// and left unused by the caller. LDG: M lies in device memory and is
-// read-only for the launch (P, U, V); else it is staged (plain loads).
-template <typename T, bool LDG>
-__device__ __forceinline__ void wide_rows(T (&acc)[kWideRows], const T* M, int rs, int is,
-                                          WVec<T> v, int x0, int warp, int S) {
-  int off[kWideRows];
-#pragma unroll
-  for (int j = 0; j < kWideRows; ++j) {
-    const int r = x0 + warp + kWarps * j;
-    off[j] = (r < S ? r : S - 1) * rs;
-    acc[j] = 0;
-  }
-  for (int i = 0; i < S; ++i) {
-    const T vi = v.v[i * v.vs];
-#pragma unroll
-    for (int j = 0; j < kWideRows; ++j) {
-      if constexpr (LDG)
-        acc[j] += __ldg(M + off[j] + i * is) * vi;
-      else
-        acc[j] += M[off[j] + i * is] * vi;
-    }
-  }
-}
-
-// dst[y * kTile + lane] = column value (c, y) for the rows y = warp, warp +
-// kWarps, ... (0 for a lane past Pp). Plain loads: rows of `all` and `up`
-// are written earlier in the same launch.
-template <typename T>
-__device__ __forceinline__ void wide_stage(T* dst, const Col<T>& col, int c, int S, bool live,
-                                           int warp, int lane) {
-  const T* b = col.base + c * col.cs;
-  for (int y = warp; y < S; y += kWarps) dst[y * kTile + lane] = live ? b[y * col.ys] : T(0);
-}
-
-// Category c of a child's column as a product reads it: staged into dst
-// (COLS; the caller syncs the block before reading it), else in place.
-template <typename T>
-__device__ __forceinline__ WVec<T> wide_col(T* dst, const Col<T>& col, int c, int S, bool cols,
-                                            bool live, int warp, int lane) {
-  if (!cols) return {const_cast<T*>(col.base + c * col.cs), col.ys};
-  wide_stage(dst, col, c, S, live, warp, lane);
-  return {dst + lane, (size_t)kTile};
-}
-
-// The max (SUM: the sum) over the block's warps of each lane's v.
-template <typename T, bool SUM>
-__device__ __forceinline__ T wide_reduce(T v, T* red, int warp, int lane) {
-  red[warp * kTile + lane] = v;
-  __syncthreads();
-  T r = red[lane];
-  for (int w = 1; w < kWarps; ++w) {
-    const T o = red[w * kTile + lane];
-    r = SUM ? r + o : (o > r ? o : r);
-  }
-  __syncthreads();  // red is free again
-  return r;
-}
-
-// Staged [S, kTile] columns of a wide sweep's block (up_pass: the sibling
-// and E; theta_pass: and the child's own); the down pass stages K-chunks.
-__host__ __device__ constexpr size_t wide_cols(bool theta) { return theta ? 3 : 2; }
-
-// What a wide sweep's block (up_pass, theta_pass) keeps in shared memory
-// beyond its reduction row (up_wide_kernel's `stage` argument): nothing,
-// the columns, or the columns and the [C, S, kTile] output tile.
-enum WideStage { kWideInPlace = 0, kWideCols = 1, kWideTile = 2 };
-
-// Row j of warp's rows in the chunk from x0 (callers skip rows past S).
-__device__ __forceinline__ int wide_row(int x0, int warp, int j) { return x0 + warp + kWarps * j; }
 
 // H1, S > 64: the wide down pass (down_wide_kernel). It serves T1/T2 and
 // T4/T5/T6 past 64 states: pallas_pruning2.stream_pass
@@ -1007,10 +899,9 @@ __device__ __forceinline__ int wide_row(int x0, int warp, int j) { return x0 + w
 //   one. The contraction reads only shared memory at compile-time strides,
 //   and what a block takes does not depend on S or C, so no S is refused:
 //   float32 108, 74 and 57 KB at tiles of 32, 16 and 8 patterns, float64
-//   136, 96 and 76 KB. The sweeps' budget kWideShmBytes does not touch it,
-//   so tools/cuda_mock/rehearse.py's 48 KB and 0 builds run this kernel as
-//   the 227 KB build does; they give the mock card 8 and 16 SMs instead of
-//   1, so that the three builds take its tiles 32, 16 and 8.
+//   136, 96 and 76 KB (tools/cuda_mock/rehearse.py's three builds give
+//   the mock card 1, 8 and 16 SMs, so that they take its tiles 32, 16 and
+//   8).
 // - float64 runs on the tensor cores: DMMA, mma.sync m16n8k4 (dmma_16x8x4),
 //   an item one 16 x 8 tile per 8 patterns, fragments from conflict-free
 //   padded layouts.
@@ -1025,7 +916,8 @@ __device__ __forceinline__ int wide_row(int x0, int warp, int j) { return x0 + w
 //   states (Pp 896) 8 (112 blocks where 32 gave 28). Two blocks stay
 //   resident per SM (float64's tile of 32: one).
 //
-// What the H100 showed (tools/torch_wide_times.py): the pass is held by
+// What the H100 showed (variants timed back to back, as
+// tools/torch_kernel_bits.py --wide times the pass): it is held by
 // how many chunks its 16 resident warps keep in flight, not by the FMA or
 // DMMA rate. Value-by-value copies took 1.1-1.7x as long as the 16-byte
 // ones; staging each round's column chunks once for the whole block (a
@@ -1050,8 +942,9 @@ constexpr int kDownFill = 1;
 // stages of a warp's cp.async ring: kDownStages - 1 chunks in flight
 constexpr int kDownStages = 2;
 
-// Per precision: the K-chunk, the staged layout of one child's blocks, and
-// the lanes that share a pattern column (the reduction's slots).
+// Per precision: the K-chunk, the staged layout of one child's blocks (A
+// row-major, or K-major where the product reads its matrix transposed),
+// and the lanes that share a pattern column (the reduction's slots).
 template <typename T>
 struct DownTile;
 
@@ -1060,6 +953,7 @@ struct DownTile<float> {
   static constexpr int kK = 16;            // contraction chunk
   static constexpr int kAStride = kK + 4;  // A [16][20]: P[x0 + r, y] at r * 20 + y
   static constexpr int kAValues = kItemRows * kAStride;
+  static constexpr int kTStride = kItemRows + 4;  // A^T [16][20]: M[y, x0 + r] at (y - k0) * 20 + r
   static constexpr int kBPad = 0;          // B [kK][NP]
   static constexpr int kSlots = 4;         // row groups of 4 states
 };
@@ -1069,9 +963,13 @@ struct DownTile<double> {
   static constexpr int kK = 8;
   static constexpr int kAStride = kK + 4;  // A [16][12]: P[x0 + r, y] at r * 12 + y
   static constexpr int kAValues = kItemRows * kAStride;
+  static constexpr int kTStride = kItemRows + 4;  // A^T [8][20]: M[y, x0 + r] at (y - k0) * 20 + r
   static constexpr int kBPad = 4;          // B [kK][NP + 4]
   static constexpr int kSlots = 8;         // fragment row groups
 };
+static_assert(DownTile<float>::kK * DownTile<float>::kTStride <= DownTile<float>::kAValues &&
+                  DownTile<double>::kK * DownTile<double>::kTStride <= DownTile<double>::kAValues,
+              "a K-major A block fits where a row-major one goes");
 
 // Values of T one stage of a warp's ring holds: two children's A and B
 // blocks.
@@ -1193,7 +1091,10 @@ __device__ __forceinline__ void down_operand(DownOps<T>& op, int k, const T* Pe,
 // buffer buf: NCH children's A and B blocks, in 16-byte copies where
 // DownOps allows (a copy then lies wholly inside or outside S and Pp),
 // else value by value; patterns past Pp read pattern Pp - 1 (Pp - V).
-template <typename T, int NP, int NCH>
+// Bit ch of TR: child ch's product reads its matrix transposed (A[r][y] =
+// M[y, m0 + r]), staged K-major, so that 16 rows of one column of M are
+// one contiguous run, copied 16 bytes at a time as the rows of P are.
+template <typename T, int NP, int NCH, unsigned TR = 0>
 __device__ __forceinline__ void down_stage(T* buf, const DownOps<T>& op, int c, int m0, int k0,
                                            int S, int p0, int Pp, int lane) {
   using D = DownTile<T>;
@@ -1203,7 +1104,29 @@ __device__ __forceinline__ void down_stage(T* buf, const DownOps<T>& op, int c, 
   for (int ch = 0; ch < NCH; ++ch) {
     T* A = buf + ch * D::kAValues;
     const T* Pc = op.P[ch] + c * SS;
-    if (op.vec_a[ch]) {  // lanes along y: coalesced rows of P
+    if ((TR >> ch) & 1u) {  // K-major: lanes along x, coalesced rows of M
+      if (op.vec_a[ch]) {
+        for (int i = lane; i < D::kK * kItemRows / V; i += 32) {
+          const int kk = i / (kItemRows / V), r = i % (kItemRows / V) * V;
+          const int y = k0 + kk, x = m0 + r;
+          T* dst = A + kk * D::kTStride + r;
+          if (x < S && y < S)
+            cp_async16(dst, Pc + (size_t)y * S + x);
+          else
+#pragma unroll
+            for (int e = 0; e < V; ++e) dst[e] = T(0);
+        }
+      } else {
+        for (int i = lane; i < D::kK * kItemRows; i += 32) {
+          const int kk = i / kItemRows, r = i % kItemRows, y = k0 + kk, x = m0 + r;
+          T* dst = A + kk * D::kTStride + r;
+          if (x < S && y < S)
+            cp_async(dst, Pc + (size_t)y * S + x);
+          else
+            *dst = T(0);
+        }
+      }
+    } else if (op.vec_a[ch]) {  // lanes along y: coalesced rows of P
       for (int i = lane; i < kItemRows * D::kK / V; i += 32) {
         const int r = i / (D::kK / V), y = k0 + i % (D::kK / V) * V, x = m0 + r;
         T* dst = A + r * D::kAStride + (y - k0);
@@ -1250,8 +1173,12 @@ __device__ __forceinline__ void down_stage(T* buf, const DownOps<T>& op, int c, 
   }
 }
 
-// acc[ch] += the staged chunk's products for NCH children.
-template <typename T, int NP, int NCH>
+// acc[ch] += the staged chunk's products for NCH children (TR: as
+// down_stage staged them). A K-major block gives each lane the same values
+// in the same order, from conflict-free layouts too: float64's fragment
+// rows g and g + 8 of column t at 20 t + g (two 16-lane phases of distinct
+// banks), float32's 4 x 4 block as four 16-byte rows of 4 states.
+template <typename T, int NP, int NCH, unsigned TR = 0>
 __device__ __forceinline__ void down_chunk(T (&acc)[2][NP / 2], const T* buf, int lane) {
   using D = DownTile<T>;
   if constexpr (sizeof(T) == 8) {
@@ -1262,7 +1189,10 @@ __device__ __forceinline__ void down_chunk(T (&acc)[2][NP / 2], const T* buf, in
       for (int ch = 0; ch < NCH; ++ch) {
         const T* A = buf + ch * D::kAValues;
         const T* B = buf + 2 * D::kAValues + ch * D::kK * (NP + D::kBPad);
-        const double a0 = A[g * D::kAStride + kk + t], a1 = A[(g + 8) * D::kAStride + kk + t];
+        const bool tr = (TR >> ch) & 1u;
+        const double a0 = tr ? A[(kk + t) * D::kTStride + g] : A[g * D::kAStride + kk + t];
+        const double a1 =
+            tr ? A[(kk + t) * D::kTStride + g + 8] : A[(g + 8) * D::kAStride + kk + t];
 #pragma unroll
         for (int nt = 0; nt < NP / 8; ++nt)
           dmma_16x8x4(acc[ch] + 4 * nt, a0, a1, B[(kk + t) * (NP + D::kBPad) + 8 * nt + g]);
@@ -1274,11 +1204,22 @@ __device__ __forceinline__ void down_chunk(T (&acc)[2][NP / 2], const T* buf, in
     for (int kq = 0; kq < D::kK; kq += 4)
 #pragma unroll
       for (int ch = 0; ch < NCH; ++ch) {
-        const T* A = buf + ch * D::kAValues + 4 * rg * D::kAStride + kq;
         const T* B = buf + 2 * D::kAValues + ch * D::kK * NP + kq * NP + TN * pg;
-        Vec<T, 4> a[4];
+        Vec<T, 4> a[4];  // a[i].v[kk] = A[4 rg + i][kq + kk]
+        if ((TR >> ch) & 1u) {
+          const T* At = buf + ch * D::kAValues + kq * D::kTStride + 4 * rg;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const Vec<T, 4>*>(A + i * D::kAStride);
+          for (int kk = 0; kk < 4; ++kk) {
+            const Vec<T, 4> col = *reinterpret_cast<const Vec<T, 4>*>(At + kk * D::kTStride);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i].v[kk] = col.v[i];
+          }
+        } else {
+          const T* A = buf + ch * D::kAValues + 4 * rg * D::kAStride + kq;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const Vec<T, 4>*>(A + i * D::kAStride);
+        }
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const Vec<T, TN> b = *reinterpret_cast<const Vec<T, TN>*>(B + kk * NP);
@@ -1296,7 +1237,7 @@ __device__ __forceinline__ void down_chunk(T (&acc)[2][NP / 2], const T* buf, in
 // the NCH children's products over all K-chunks, staged through the warp's
 // ring of kDownStages buffers (the next chunks, of this item or the next,
 // in flight while the current one is used), then done(c, m0, acc).
-template <typename T, int NP, int NCH, typename F>
+template <typename T, int NP, int NCH, unsigned TR = 0, typename F>
 __device__ __forceinline__ void down_items(T* buf, const DownOps<T>& op, int C, int S, int p0,
                                            int Pp, int warp, int lane, F&& done) {
   using D = DownTile<T>;
@@ -1308,7 +1249,7 @@ __device__ __forceinline__ void down_items(T* buf, const DownOps<T>& op, int C, 
   auto issue = [&](int f) {
     const int item = warp + kWarps * (f / nk);
     if (f < total)
-      down_stage<T, NP, NCH>(buf + f % kDownStages * kStage, op, item / MT,
+      down_stage<T, NP, NCH, TR>(buf + f % kDownStages * kStage, op, item / MT,
                              item % MT * kItemRows, f % nk * D::kK, S, p0, Pp, lane);
     cp_async_commit();  // (empty past the last chunk: the groups keep their count)
   };
@@ -1320,7 +1261,7 @@ __device__ __forceinline__ void down_items(T* buf, const DownOps<T>& op, int C, 
     issue(f + kDownStages - 1);  // into the buffer chunk f - 1 used
     cp_async_wait_group<kDownStages - 1>();
     __syncwarp();  // the chunk the other lanes copied is in place
-    down_chunk<T, NP, NCH>(acc, buf + f % kDownStages * kStage, lane);
+    down_chunk<T, NP, NCH, TR>(acc, buf + f % kDownStages * kStage, lane);
     __syncwarp();  // every lane is done with the buffer before it is refilled
     if (f % nk == nk - 1) {
       const int item = warp + kWarps * (f / nk);
@@ -1460,224 +1401,295 @@ __global__ void __launch_bounds__(kTile* kWarps, sizeof(T) == 8 && NP == 32 ? 1 
   }
 }
 
-// H2/H3, S > 64: one (node, child slot) item at a time, the whole block, the
-// level steps in reverse. up_pass: UP of the root and E of edge 0 are set
-// before the launch. theta_pass (THETA): the block stages U and V when
-// uv_staged, runs the prologue (UP(root), theta of edge 0), and items write
-// theta and UP, never E; without staged columns its E argument is the [S,
-// Pp] workspace of one category's E. `stage` (WideStage): the columns are
-// staged, and E's [C, S, kTile] values kept in shared memory between the
-// sweeps.
-template <typename T, bool THETA>
-__global__ void __launch_bounds__(kTile* kWarps, 1)
-    up_wide_kernel(const T* __restrict__ P, const T* __restrict__ tip,
-                   const T* __restrict__ all, const int* __restrict__ dsc, T* up, int* upsc,
-                   T* E, int* esc, T* theta, int* tsc, const T* __restrict__ U,
-                   const T* __restrict__ V, const T* __restrict__ root_freqs,
-                   const int* __restrict__ child_src, const int* __restrict__ child_edge,
-                   const int* __restrict__ step_node, int n_steps, int G, int n_int, int L,
-                   int C, int S, int Pp, int stage, int uv_staged) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * kTile + lane;
-  const bool live = p < Pp, cols = stage >= kWideCols, tile = stage == kWideTile;
-  const int q = live ? p : Pp - 1;  // the pattern whose columns a lane reads
-  const size_t SS = (size_t)S * S, CSS = (size_t)C * SS, CS = (size_t)C * S, P64 = (size_t)Pp;
-  constexpr int kChunk = kWarps * kWideRows;
-  T* red = reinterpret_cast<T*>(smem);
-  T* cb = red + kWarps * kTile;          // the sibling's column
-  T* es = cb + (size_t)S * kTile;        // one category's E (without the tile)
-  T* cd = es + (size_t)S * kTile;        // THETA: the child's own column
-  T* e_tile = cols ? cd + (THETA ? (size_t)S * kTile : 0) : cb;
-  const T* Ub = U;
-  const T* Vb = V;
-  // one category's E where a product reads it (and the second sweep or the
-  // prologue writes it): the tile's rows, the staged column, or in place,
-  // theta_pass's workspace or the edge's rows of E (dead lanes skip writes)
-  auto e_vec = [&](int c, int ek) -> WVec<T> {
-    if (tile) return {e_tile + (size_t)c * S * kTile + lane, (size_t)kTile};
-    if (cols) return {es + lane, (size_t)kTile};
-    if constexpr (THETA) return {E + q, P64};
-    return {E + ((size_t)ek * CS + (size_t)c * S) * P64 + q, P64};
-  };
-  // theta's two factors of one category's rows k: (U^T E)_k (V D)_k
-  auto theta_rows = [&](T (&a)[kWideRows], T (&b)[kWideRows], WVec<T> ec, WVec<T> d, int c,
-                        int x0) {
-    if (uv_staged) {
-      wide_rows<T, false>(a, Ub + c * SS, 1, S, ec, x0, warp, S);
-      wide_rows<T, false>(b, Vb + c * SS, S, 1, d, x0, warp, S);
-    } else {
-      wide_rows<T, true>(a, Ub + c * SS, 1, S, ec, x0, warp, S);
-      wide_rows<T, true>(b, Vb + c * SS, S, 1, d, x0, warp, S);
+// Per pattern of the tile, the max over the block of N quantities' lane
+// values v[q][j] (the lane's pattern columns j): first across the lanes of
+// a warp that hold the same patterns (the slots, by shuffles), then across
+// the warps in red [N][kWarps][NP]; thread i < N * NP gets quantity i /
+// NP's at pattern i % NP (the others 0). The caller syncs the block before
+// red is written again.
+template <typename T, int NP, int N>
+__device__ __forceinline__ T block_max(const T (&v)[N][DownLane<T, NP>::kCols], T* red,
+                                       const DownLane<T, NP>& ln, int warp) {
+  constexpr int kFirst = sizeof(T) == 8 ? 4 : 8;  // lane bits above the pattern's: the slot
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+#pragma unroll
+    for (int j = 0; j < DownLane<T, NP>::kCols; ++j) {
+      T m = v[q][j];
+#pragma unroll
+      for (int s = kFirst; s < 32; s *= 2) {
+        const T o = __shfl_xor_sync(0xffffffffu, m, s);
+        m = o > m ? o : m;
+      }
+      if (ln.slot() == 0) red[(q * kWarps + warp) * NP + ln.pattern(j)] = m;
     }
+  __syncthreads();
+  T r = 0;
+  if (threadIdx.x < N * NP) {
+    const T* row = red + (size_t)(threadIdx.x / NP) * kWarps * NP + threadIdx.x % NP;
+    for (int w = 0; w < kWarps; ++w) r = row[w * NP] > r ? row[w * NP] : r;
+  }
+  return r;
+}
+
+// H2/H3, S > 64: the wide sweeps (sweep_wide_kernel). up_pass serves T3/T7
+// past 64 states, pallas_pruning2.stream_up_pass
+// (iqtree2_tpu/ops/pallas_pruning2.py:490 · :567) and the whole-tree
+// up_pass_pallas (pallas_pruning.py:310 · :372); theta_pass (THETA) serves
+// T8, stream_theta_pass (pallas_pruning2.py:726 · :804).
+//
+// Per node and child slot k (sibling j = 1 - k) a sweep forms three kinds
+// of product per category, each M = S states, K = S, N = the block's NP
+// patterns: E_k = UP(node) x (P_j . down(sibling)); UP(child) = P_k^T E_k
+// for an internal child; and for theta_pass theta_k = (U^T E_k) x (V .
+// down(child)). A node moves some 5*C*S values a pattern for 4*C*S*S
+// multiply-adds (theta_pass 8*C*S*S), so the sweeps are bound by
+// operations, as the down pass is. The first wide sweep lost to that bound
+// in five ways (one block of 8 warps per SM; every P, U or V value an
+// __ldg broadcast inside the contraction; scalar DFMA; a runtime
+// contraction stride; the whole block on one (node, child) item, with
+// barriers per category and E computed twice where its tile did not fit).
+// This one is the down pass's machinery with three more epilogues:
+//
+// - Both slots at once: P_j . down(sibling) of slots 0 and 1 are the down
+//   pass's two messages of the node, so the first phase is down_items over
+//   the node's C * ceil(S / 16) warp items of both children, and its
+//   epilogue multiplies UP(node) in (E_0 = UP x msg_1, E_1 = UP x msg_0),
+//   keeps both per-pattern maxima in registers and stores both E blocks.
+// - E between the phases: the maxima go across the warps (block_max); the
+//   lanes that stored a low pattern's E multiply it by 2^B in place, as the
+//   down pass fixes its partials; after a barrier the second phase reads E
+//   back as its K operand by cp.async.cg, through L2. up_pass keeps E in
+//   its edges' rows, where it belongs; theta_pass in a [2, C, S, Pp]
+//   workspace that the launcher allocates stream-ordered (E of edge 0 in
+//   its first slot for the prologue). So shared memory holds only the
+//   warps' rings and the reduction rows, whatever S and C are: no S is
+//   refused.
+// - Transposed operands: P_k^T and U^T are read down columns of P and U;
+//   down_stage stages them K-major (TR), so that their copies are 16-byte
+//   copies where S divides, as P's rows are, and down_chunk reads every
+//   block at compile-time strides.
+// - Second phase: theta_pass's theta_k is a two-operand item, (U^T, E_k)
+//   and (V, down(child k)), multiplied in registers as the down pass
+//   multiplies its two children; UP of the internal children is one item of
+//   one or two operands (P_0^T E_0, P_1^T E_1), stored as formed, its max
+//   reduced and its low patterns fixed in place as E's are.
+// - float64 on DMMA, float32 register-tiled exact FFMA, and the pattern
+//   tile of down_tile, as the down pass; one launch per pass, the level
+//   steps in reverse, and a node's six block barriers whatever C is (four
+//   with no internal child).
+// The prologue of theta_pass (UP(root), theta of edge 0) uses the same
+// items; UP(root) keeps root_init_plain's order of summation, so that the
+// sweep starts from the up_pass path's bits.
+//
+// What the H100 showed (tools/torch_kernel_bits.py --wide, against the
+// first wide sweep): 2.2-6.4x faster at 65-136 states, 7-18% of the
+// operations bound (up_pass 7.1-17.5%, theta_pass 7.1-15.0%), two blocks
+// per SM at every timed shape where the first sweep kept one; float64 and
+// the widest grids are furthest from the bound. The warps' per-item
+// maxima reduce by shuffles first, so the reduction rows are one per
+// warp and float32's tile of 32 keeps two blocks per SM (109 KB each).
+
+// Dynamic shared memory of a wide sweep block: the down pass's rings, two
+// quantities' reduction rows of block_max, and per child slot NP flags and
+// NP scale counts.
+template <typename T, int NP>
+__host__ __device__ constexpr size_t sweep_wide_shm() {
+  return (size_t)kWarps * kDownStages * down_stage_values<T, NP>() * sizeof(T) +
+         2 * (size_t)kWarps * NP * sizeof(T) + 4 * NP * sizeof(int);
+}
+
+// grid (ceil(Pp / NP)), block kWarps * 32: block b walks the level steps in
+// reverse for patterns [b * NP, (b + 1) * NP); per node the warps take its
+// items. up_pass: UP of the root and E of edge 0 are set before the launch,
+// E [n_edges, C, S, Pp] are the edges' rows. theta_pass (THETA): E is the
+// [2, C, S, Pp] workspace, esc unused. Resident blocks as down_wide_kernel.
+template <typename T, int NP, bool THETA>
+__global__ void __launch_bounds__(kTile* kWarps, sizeof(T) == 8 && NP == 32 ? 1 : 2)
+    sweep_wide_kernel(const T* __restrict__ P, const T* __restrict__ tip,
+                      const T* __restrict__ all, const int* __restrict__ dsc, T* up, int* upsc,
+                      T* E, int* esc, T* theta, int* tsc, const T* __restrict__ U,
+                      const T* __restrict__ V, const T* __restrict__ root_freqs,
+                      const int* __restrict__ child_src, const int* __restrict__ child_edge,
+                      const int* __restrict__ step_node, int n_steps, int G, int n_int, int L,
+                      int C, int S, int Pp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using LN = DownLane<T, NP>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const LN ln{lane};
+  const int p0 = blockIdx.x * NP;
+  const size_t SS = (size_t)S * S, CSS = (size_t)C * SS, CS = (size_t)C * S, P64 = (size_t)Pp;
+  T* buf = reinterpret_cast<T*>(smem) + (size_t)warp * kDownStages * down_stage_values<T, NP>();
+  T* red = reinterpret_cast<T*>(smem) + (size_t)kWarps * kDownStages * down_stage_values<T, NP>();
+  int* flag = reinterpret_cast<int*>(red + 2 * kWarps * NP);  // [2][NP]: slot k's pattern is low
+  int* cnt = flag + 2 * NP;                                // [2][NP]: E_k's scale count
+  const int MT = (S + kItemRows - 1) / kItemRows;
+  // the lane's stored values of its items, each v[x, p] at out(c, x, p)
+  auto each_value = [&](int c, int m0, auto&& fn) {
+#pragma unroll
+    for (int v = 0; v < LN::kNV; ++v) {
+      const int x = m0 + ln.row(v), j = ln.col(v), p = p0 + ln.pattern(j);
+      if (x < S && p < Pp) fn(v, j, ((size_t)c * S + x) * P64 + p);
+    }
+  };
+  // the values this lane stored in out[q] (q < n) where slot[q]'s flag
+  // marks the pattern low, times 2^B; then the block syncs
+  auto rescale = [&](T* const (&out)[2], const int (&slot)[2], int n) {
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < LN::kCols; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) any |= q < n && flag[slot[q] * NP + ln.pattern(j)] != 0;
+    if (any)
+      for (int item = warp; item < C * MT; item += kWarps)
+        each_value(item / MT, item % MT * kItemRows, [&](int, int j, size_t o) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (q < n && flag[slot[q] * NP + ln.pattern(j)]) out[q][o] *= Scaling<T>::factor;
+        });
+    __syncthreads();
+  };
+  // theta of an edge, (U^T e) x (V . d), into out [C, S, Pp]: e's and d's
+  // rows at category c are e + c S Pp and d + c dcs
+  auto thetas = [&](const T* e, const T* d, size_t dcs, T* out) {
+    DownOps<T> op;
+    down_operand(op, 0, U, e, (size_t)S * P64, S, Pp);
+    down_operand(op, 1, V, d, dcs, S, Pp);
+    down_items<T, NP, 2, 1u>(buf, op, C, S, p0, Pp, warp, lane, [&](int c, int m0, auto& acc) {
+      each_value(c, m0, [&](int v, int, size_t o) { out[o] = acc[0][v] * acc[1][v]; });
+    });
   };
   if constexpr (THETA) {
-    if (uv_staged) {
-      T* uv = e_tile + (tile ? CS * kTile : 0);
-      for (size_t i = threadIdx.x; i < CSS; i += blockDim.x) {
-        uv[i] = __ldg(U + i);
-        uv[CSS + i] = __ldg(V + i);
-      }
-      Ub = uv;
-      Vb = uv + CSS;
-    }
-    // prologue (T8's first grid step): UP(root) = pi x (P_0 . tip_0), summed
-    // as theta_prologue sums it, with scale 0; theta of edge 0 from E_0 = pi
-    // x down(root) (scale dsc[root]) and the child column tip_0
+    // prologue (T8's first grid step): UP(root) = pi x (P_0 . tip_0), each
+    // product rounded, four running sums over y = 0, 4, ... / 1, 5, ... /
+    // ..., added in order (theta_prologue), scale 0; E_0 = pi x down(root)
+    // into the workspace (scale dsc[root], no rescale) for theta of edge 0
     const int root = L + n_int - 1;
-    const T* B = all + (size_t)root * CS * P64 + p;
-    T* ur = up + (size_t)(n_int - 1) * CS * P64 + p;
-    const WVec<T> d0 = wide_col(cd, Col<T>{tip + q, 0, P64}, 0, S, cols, live, warp, lane);
-    const WVec<T> e0 = cols ? WVec<T>{es + lane, (size_t)kTile} : e_vec(0, 0);
-    for (int c = 0; c < C; ++c) {
-      for (int x = warp; x < S; x += kWarps)
-        if (cols || live)
-          e0.v[x * e0.vs] =
-              live ? __ldg(root_freqs + c * S + x) * B[((size_t)c * S + x) * P64] : T(0);
-      __syncthreads();  // E_0 and tip_0 (and U, V) are in place
-      const T* Pc = P + c * SS;
-      for (int x = warp; x < S; x += kWarps) {
-        T acc[4] = {0, 0, 0, 0};
-        for (int y = 0; y < S; ++y)
-          acc[y & 3] = add_rn(acc[y & 3], mul_rn(__ldg(Pc + x * S + y), d0.v[y * d0.vs]));
-        if (live)
-          ur[((size_t)c * S + x) * P64] = __ldg(root_freqs + c * S + x) *
-                                          add_rn(add_rn(add_rn(acc[0], acc[1]), acc[2]), acc[3]);
-      }
-      for (int x0 = 0; x0 < S; x0 += kChunk) {
-        T ta[kWideRows], tb[kWideRows];
-        theta_rows(ta, tb, e0, d0, c, x0);
-#pragma unroll
-        for (int j = 0; j < kWideRows; ++j) {
-          const int k = wide_row(x0, warp, j);
-          if (k < S && live) theta[((size_t)c * S + k) * P64 + p] = ta[j] * tb[j];
-        }
-      }
-      __syncthreads();  // es is free again
+    T* ur = up + (size_t)(n_int - 1) * CS * P64;
+    const T* B = all + (size_t)root * CS * P64;
+    for (int i = threadIdx.x; i < C * S * NP; i += blockDim.x) {
+      const int c = i / (S * NP), x = i / NP % S, p = p0 + i % NP;
+      if (p >= Pp) continue;
+      const T* Px = P + c * SS + (size_t)x * S;
+      T acc[4] = {0, 0, 0, 0};
+      for (int y = 0; y < S; ++y)
+        acc[y & 3] = add_rn(acc[y & 3], mul_rn(__ldg(Px + y), __ldg(tip + (size_t)y * P64 + p)));
+      const T f = __ldg(root_freqs + c * S + x);
+      const size_t o = ((size_t)c * S + x) * P64 + p;
+      ur[o] = f * add_rn(add_rn(add_rn(acc[0], acc[1]), acc[2]), acc[3]);
+      E[o] = f * B[o];
     }
-    if (warp == 0 && live) {
+    const int p = p0 + threadIdx.x;
+    if (threadIdx.x < NP && p < Pp) {
       upsc[(size_t)(n_int - 1) * P64 + p] = 0;
       tsc[p] = dsc[(size_t)root * P64 + p];
     }
-    __syncthreads();  // UP(root) is visible to the first step
+    __syncthreads();  // E_0 is in place
+    thetas(E, tip, 0, theta);
+    __syncthreads();  // UP(root) is visible to the first step, the workspace free
   }
   for (int s = n_steps - 1; s >= 0; --s) {
     const int* row = step_node + (size_t)s * G;
-    for (int it = 0; it < 2 * G; ++it) {
-      const int nid = row[it >> 1];
+    for (int g = 0; g < G; ++g) {
+      const int nid = row[g];
       if (nid >= n_int) continue;  // a pad slot (the same for every thread)
-      const int k = it & 1, j = 1 - k;
-      const int sk = child_src[2 * nid + k], sj = child_src[2 * nid + j];
-      const int ek = child_edge[2 * nid + k];
-      const T* Pj = P + (size_t)child_edge[2 * nid + j] * CSS;
-      const T* Pk = P + (size_t)ek * CSS;
-      const T* upn = up + (size_t)nid * CS * P64 + p;
-      const Col<T> bcol = child_col(tip, all, sj, L, S, CS, P64, q);
-      const Col<T> dcol = child_col(tip, all, sk, L, S, CS, P64, q);
-      const int e_base =
-          live ? upsc[(size_t)nid * P64 + p] + (sj >= L ? dsc[(size_t)sj * P64 + p] : 0) : 0;
-      const bool internal = sk >= L;
-      T* uc = internal ? up + (size_t)(sk - L) * CS * P64 + p : nullptr;
-      // E's values of one category's rows: UP(node) x (P_j . sibling), times f
-      auto e_rows = [&](T (&ev)[kWideRows], WVec<T> vb, int c, int x0, T f) {
-        wide_rows<T, true>(ev, Pj + c * SS, S, 1, vb, x0, warp, S);
+      const int src[2] = {child_src[2 * nid], child_src[2 * nid + 1]};
+      const int edge[2] = {child_edge[2 * nid], child_edge[2 * nid + 1]};
+      DownOps<T> op;
+      T* ek[2];  // E of slot k: the edge's rows (up_pass) or the workspace's
 #pragma unroll
-        for (int r = 0; r < kWideRows; ++r) {
-          const int x = wide_row(x0, warp, r);
-          ev[r] = (x < S && live) ? upn[((size_t)c * S + x) * P64] * ev[r] * f : T(0);
+      for (int k = 0; k < 2; ++k) {
+        down_operand(op, k, P + (size_t)edge[k] * CSS,
+                     src[k] < L ? tip + (size_t)src[k] * S * P64 : all + (size_t)src[k] * CS * P64,
+                     src[k] < L ? 0 : (size_t)S * P64, S, Pp);
+        ek[k] = E + (THETA ? (size_t)k : (size_t)edge[k]) * CS * P64;
+      }
+      // first phase: E_0 = UP x msg_1 and E_1 = UP x msg_0, stored as formed
+      const T* un = up + (size_t)nid * CS * P64;
+      T mx[2][LN::kCols] = {};
+      down_items<T, NP, 2>(buf, op, C, S, p0, Pp, warp, lane, [&](int c, int m0, auto& acc) {
+        each_value(c, m0, [&](int v, int j, size_t o) {
+          const T u = un[o];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const T e = u * acc[1 - k][v];
+            mx[k][j] = e > mx[k][j] ? e : mx[k][j];
+            ek[k][o] = e;
+          }
+        });
+      });
+      const T m = block_max<T, NP, 2>(mx, red, ln, warp);
+      if (threadIdx.x < 2 * NP) {
+        const int k = threadIdx.x / NP, p = p0 + threadIdx.x % NP, sj = src[1 - k];
+        const bool low = m < Scaling<T>::thresh;
+        flag[threadIdx.x] = low;
+        if (p < Pp) {
+          const int e_count = upsc[(size_t)nid * P64 + p] +
+                              (sj >= L ? dsc[(size_t)sj * P64 + p] : 0) + (low ? 1 : 0);
+          cnt[threadIdx.x] = e_count;
+          if constexpr (THETA)
+            tsc[(size_t)edge[k] * P64 + p] =
+                e_count + (src[k] >= L ? dsc[(size_t)src[k] * P64 + p] : 0);
+          else
+            esc[(size_t)edge[k] * P64 + p] = e_count;
         }
+      }
+      __syncthreads();  // the flags are in place, the reduction rows free
+      const int slots[2] = {0, 1};
+      rescale(ek, slots, 2);  // E is final and visible to the block's copies
+      if constexpr (THETA)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          thetas(ek[k], op.X[k], op.xcs[k], theta + (size_t)edge[k] * CS * P64);
+      // second phase: UP(child) = P_k^T E_k of the internal children
+      const int n = (src[0] >= L) + (src[1] >= L);
+      const int slot[2] = {src[0] >= L ? 0 : 1, 1};
+      if (n == 0) {
+        __syncthreads();  // the workspace is free again
+        continue;
+      }
+      DownOps<T> uo;
+      T* uc[2] = {nullptr, nullptr};
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (q < n) {
+          down_operand(uo, q, P + (size_t)edge[slot[q]] * CSS, ek[slot[q]], (size_t)S * P64, S,
+                       Pp);
+          uc[q] = up + (size_t)(src[slot[q]] - L) * CS * P64;
+        }
+      T mu[2][LN::kCols] = {};
+      auto store = [&](int c, int m0, auto& acc) {
+        each_value(c, m0, [&](int v, int j, size_t o) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (q < n) {
+              const T u = acc[q][v];
+              mu[q][j] = u > mu[q][j] ? u : mu[q][j];
+              uc[q][o] = u;
+            }
+        });
       };
-      T mx = 0;
-      for (int c = 0; c < C; ++c) {  // first sweep: E and its max
-        const WVec<T> vb = wide_col(cb, bcol, c, S, cols, live, warp, lane);
-        __syncthreads();
-        for (int x0 = 0; x0 < S; x0 += kChunk) {
-          T ev[kWideRows];
-          e_rows(ev, vb, c, x0, T(1));
-#pragma unroll
-          for (int r = 0; r < kWideRows; ++r) {
-            const int x = wide_row(x0, warp, r);
-            if (x < S) {
-              mx = ev[r] > mx ? ev[r] : mx;
-              if (tile) e_tile[((size_t)c * S + x) * kTile + lane] = ev[r];
-            }
-          }
-        }
-        __syncthreads();  // the sibling's column is free again
+      if (n == 2)
+        down_items<T, NP, 2, 3u>(buf, uo, C, S, p0, Pp, warp, lane, store);
+      else
+        down_items<T, NP, 1, 1u>(buf, uo, C, S, p0, Pp, warp, lane, store);
+      const T mu_max = block_max<T, NP, 2>(mu, red, ln, warp);
+      if (threadIdx.x < n * NP) {
+        const int q = threadIdx.x / NP, i = threadIdx.x % NP, p = p0 + i;
+        const bool low = mu_max < Scaling<T>::thresh;
+        flag[slot[q] * NP + i] = low;
+        if (p < Pp)
+          upsc[(size_t)(src[slot[q]] - L) * P64 + p] = cnt[slot[q] * NP + i] + (low ? 1 : 0);
       }
-      const bool low_e = wide_reduce<T, false>(mx, red, warp, lane) < Scaling<T>::thresh;
-      const T fe = low_e ? Scaling<T>::factor : T(1);
-      const int e_count = e_base + (low_e ? 1 : 0);
-      T mu = 0;
-      for (int c = 0; c < C; ++c) {  // second sweep: E rescaled, then E or theta, and UP
-        const WVec<T> ec = e_vec(c, ek);
-        if (tile) {
-          for (int x = warp; x < S; x += kWarps) ec.v[x * kTile] *= fe;
-        } else {
-          const WVec<T> vb = wide_col(cb, bcol, c, S, cols, live, warp, lane);
-          __syncthreads();
-          for (int x0 = 0; x0 < S; x0 += kChunk) {
-            T ev[kWideRows];
-            e_rows(ev, vb, c, x0, fe);
-#pragma unroll
-            for (int r = 0; r < kWideRows; ++r) {
-              const int x = wide_row(x0, warp, r);
-              if (x < S && (cols || live)) ec.v[x * ec.vs] = ev[r];
-            }
-          }
-        }
-        WVec<T> vd{};
-        if constexpr (THETA) vd = wide_col(cd, dcol, c, S, cols, live, warp, lane);
-        __syncthreads();  // this category's E (and the child's column) is in place
-        if constexpr (THETA) {
-          T* th = theta + (size_t)ek * CS * P64 + p;
-          for (int x0 = 0; x0 < S; x0 += kChunk) {
-            T ta[kWideRows], tb[kWideRows];
-            theta_rows(ta, tb, ec, vd, c, x0);
-#pragma unroll
-            for (int r = 0; r < kWideRows; ++r) {
-              const int kk = wide_row(x0, warp, r);
-              if (kk < S && live) th[((size_t)c * S + kk) * P64] = ta[r] * tb[r];
-            }
-          }
-        } else if (live && cols) {  // else E's rows are written in place
-          T* Ek = E + (size_t)ek * CS * P64 + p;
-          for (int x = warp; x < S; x += kWarps)
-            Ek[((size_t)c * S + x) * P64] = ec.v[x * kTile];
-        }
-        if (internal)  // UP(child) = P_k^T E, stored as formed
-          for (int x0 = 0; x0 < S; x0 += kChunk) {
-            T u[kWideRows];
-            wide_rows<T, true>(u, Pk + c * SS, 1, S, ec, x0, warp, S);
-#pragma unroll
-            for (int r = 0; r < kWideRows; ++r) {
-              const int y = wide_row(x0, warp, r);
-              if (y < S && live) {
-                uc[((size_t)c * S + y) * P64] = u[r];
-                mu = u[r] > mu ? u[r] : mu;
-              }
-            }
-          }
-        __syncthreads();  // E's buffer and the columns are free again
-      }
-      if (warp == 0 && live) {
-        if constexpr (THETA)
-          tsc[(size_t)ek * P64 + p] = e_count + (sk >= L ? dsc[(size_t)sk * P64 + p] : 0);
-        else
-          esc[(size_t)ek * P64 + p] = e_count;
-      }
-      if (!internal) continue;
-      const bool low_u = wide_reduce<T, false>(mu, red, warp, lane) < Scaling<T>::thresh;
-      if (low_u && live)  // the UP this thread has just stored, times 2^B
-        for (int c = 0; c < C; ++c)
-          for (int y = warp; y < S; y += kWarps) uc[((size_t)c * S + y) * P64] *= Scaling<T>::factor;
-      if (warp == 0 && live) upsc[(size_t)(sk - L) * P64 + p] = e_count + (low_u ? 1 : 0);
+      __syncthreads();  // the flags are in place
+      rescale(uc, slot, n);  // UP(child) is final; E and the workspace free
     }
     __syncthreads();  // this step's UP rows are visible to the next step
   }
 }
 
-// Block shape and dynamic shared memory of the passes. The matrices are
+// Block shape and dynamic shared memory of the passes (S <= kMaxRegStates;
+// the wide instance takes down_tile). The matrices are
 // staged when every warp's slice fits in the budget; the prefetch buffers
 // are added (float only, S <= 4) when they fit there too; theta_pass also
 // stages U and V when they fit beside the warps' part. theta_pass's budget
@@ -1690,33 +1702,8 @@ struct PassShape {
   bool pf;
 };
 
-// The wide sweeps (up_pass, theta_pass at S > kMaxRegStates; the wide down
-// pass takes down_tile and launch_down_wide): the reduction row always, then
-// the staged columns, the [C, S, kTile] output tile (staged, a WideStage)
-// and U and V (uv_staged), each where it fits in kWideShmBytes beside the
-// rest.
-template <typename T>
-PassShape wide_shape(int Pp, int C, int S, bool theta) {
-  PassShape ps;
-  ps.grid = dim3((unsigned)((Pp + kTile - 1) / kTile));
-  ps.block = dim3(kTile * kWarps);
-  ps.pf = false;
-  const size_t red = (size_t)kWarps * kTile * sizeof(T);
-  const size_t cols = wide_cols(theta) * (size_t)S * kTile * sizeof(T);
-  const size_t tile = (size_t)C * S * kTile * sizeof(T);
-  const size_t uv = theta ? 2 * (size_t)C * S * S * sizeof(T) : 0;
-  ps.staged = red + cols > kWideShmBytes          ? kWideInPlace
-              : red + cols + tile > kWideShmBytes ? kWideCols
-                                                  : kWideTile;
-  ps.shm = red + (ps.staged >= kWideCols ? cols : 0) + (ps.staged == kWideTile ? tile : 0);
-  ps.uv_staged = theta && ps.shm + uv <= kWideShmBytes;
-  ps.shm += ps.uv_staged ? uv : 0;
-  return ps;
-}
-
 template <typename T>
 PassShape pass_shape(int Pp, int C, int S, bool theta) {
-  if (S > kMaxRegStates) return wide_shape<T>(Pp, C, S, theta);
   PassShape ps;
   ps.grid = dim3((unsigned)((Pp + kTile - 1) / kTile));
   ps.block = dim3(kTile * kWarps);
@@ -1732,9 +1719,9 @@ PassShape pass_shape(int Pp, int C, int S, bool theta) {
   return ps;
 }
 
-// The pass kernel instance for S states: the register column width is the
-// smallest of 4 (DNA), 20 (protein), 64 (codon) that holds S; larger S
-// takes the wide instance (the pick functions). Prefetch instances exist
+// The pass kernel instance for S <= kMaxRegStates states: the register
+// column width is the smallest of 4 (DNA), 20 (protein), 64 (codon) that
+// holds S. Prefetch instances exist
 // for float at S <= 4 only. Trailing template arguments (up_pass_kernel's
 // THETA) follow KERNEL after an empty argument.
 #define IQ_PICK_PASS(KERNEL, ...)                                              \
@@ -1760,7 +1747,6 @@ auto pick_down_pass(int C, int S, const PassShape& ps) -> decltype(&down_pass_ke
 template <typename T, bool THETA>
 auto pick_up_pass(int C, int S, const PassShape& ps)
     -> decltype(&up_pass_kernel<T, 4, true, false, THETA>) {
-  if (S > kMaxRegStates) return up_wide_kernel<T, THETA>;
   IQ_PICK_PASS(up_pass_kernel, , THETA)
 }
 
@@ -1817,15 +1803,48 @@ int launch_down_wide(const void* P, const void* tip, void* all, void* sc, const 
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM and dynamic shared memory of the wide down pass
-// with pattern tile NP.
-template <typename T, int NP>
-int down_wide_occupancy(int* blocks, int* shm) {
+// The wide sweep with pattern tile NP (theta_pass: E is its workspace).
+template <typename T, int NP, bool THETA>
+int launch_sweep_wide(const void* P, const void* tip, const void* all, const void* dsc, void* up,
+                      void* upsc, void* E, void* esc, void* theta, void* tsc, const void* U,
+                      const void* V, const void* root_freqs, const void* child_src,
+                      const void* child_edge, const void* step_node, int n_steps, int G,
+                      int n_int, int L, int C, int S, int Pp, cudaStream_t st) {
+  const auto kernel = sweep_wide_kernel<T, NP, THETA>;
+  const size_t shm = sweep_wide_shm<T, NP>();
+  const cudaError_t err = allow_shm(kernel, shm);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)((Pp + NP - 1) / NP)), dim3(kTile * kWarps), shm, st>>>(
+      static_cast<const T*>(P), static_cast<const T*>(tip), static_cast<const T*>(all),
+      static_cast<const int*>(dsc), static_cast<T*>(up), static_cast<int*>(upsc),
+      static_cast<T*>(E), static_cast<int*>(esc), static_cast<T*>(theta), static_cast<int*>(tsc),
+      static_cast<const T*>(U), static_cast<const T*>(V), static_cast<const T*>(root_freqs),
+      static_cast<const int*>(child_src), static_cast<const int*>(child_edge),
+      static_cast<const int*>(step_node), n_steps, G, n_int, L, C, S, Pp);
+  return (int)cudaGetLastError();
+}
+
+// The wide sweep's launcher for the pattern tile of Pp (down_tile).
+template <typename T, bool THETA>
+auto pick_sweep_wide(int Pp) -> decltype(&launch_sweep_wide<T, 32, THETA>) {
+  const int np = down_tile(Pp);
+  return np == 32   ? launch_sweep_wide<T, 32, THETA>
+         : np == 16 ? launch_sweep_wide<T, 16, THETA>
+                    : launch_sweep_wide<T, 8, THETA>;
+}
+
+// Resident blocks per SM and dynamic shared memory of a wide instance:
+// KIND 0 the down pass, 1 up_pass, 2 theta_pass, with pattern tile NP.
+template <typename T, int NP, int KIND>
+int wide_occupancy(int* blocks, int* shm) {
   PassShape ps;
   ps.block = dim3(kTile * kWarps);
-  ps.shm = down_wide_shm<T, NP>();
+  ps.shm = KIND == 0 ? down_wide_shm<T, NP>() : sweep_wide_shm<T, NP>();
   *shm = (int)ps.shm;
-  *blocks = blocks_per_sm(down_wide_kernel<T, NP>, ps);
+  if constexpr (KIND == 0)
+    *blocks = blocks_per_sm(down_wide_kernel<T, NP>, ps);
+  else
+    *blocks = blocks_per_sm(sweep_wide_kernel<T, NP, KIND == 2>, ps);
   return *blocks < 0 ? -*blocks : (int)cudaSuccess;
 }
 
@@ -1861,6 +1880,10 @@ int launch_up_pass(const void* P, const void* tip, const void* all, const void* 
                    void* upsc, void* E, void* esc, const void* child_src, const void* child_edge,
                    const void* step_node, int n_steps, int G, int n_int, int L, int C, int S,
                    int Pp, cudaStream_t st) {
+  if (S > kMaxRegStates)
+    return pick_sweep_wide<T, false>(Pp)(P, tip, all, dsc, up, upsc, E, esc, nullptr, nullptr,
+                                         nullptr, nullptr, nullptr, child_src, child_edge,
+                                         step_node, n_steps, G, n_int, L, C, S, Pp, st);
   const PassShape ps = pass_shape<T>(Pp, C, S, false);
   const auto kernel = pick_up_pass<T, false>(C, S, ps);
   const cudaError_t err = allow_shm(kernel, ps.shm);
@@ -1882,44 +1905,43 @@ int launch_theta_pass(const void* P, const void* tip, const void* all, const voi
                       const void* root_freqs, const void* child_src, const void* child_edge,
                       const void* step_node, int n_steps, int G, int n_int, int L, int C, int S,
                       int Pp, cudaStream_t st) {
+  if (S > kMaxRegStates) {
+    // the wide sweep keeps E of a node's two child slots in a [2, C, S, Pp]
+    // workspace, stream-ordered around the launch
+    void* ws = nullptr;
+    cudaError_t err = cudaMallocAsync(&ws, 2 * (size_t)C * S * Pp * sizeof(T), st);
+    if (err != cudaSuccess) return (int)err;
+    err = (cudaError_t)pick_sweep_wide<T, true>(Pp)(
+        P, tip, all, dsc, up, upsc, ws, nullptr, theta, tsc, U, V, root_freqs, child_src,
+        child_edge, step_node, n_steps, G, n_int, L, C, S, Pp, st);
+    const cudaError_t freed = cudaFreeAsync(ws, st);
+    return (int)(err != cudaSuccess ? err : freed);
+  }
   const PassShape ps = pass_shape<T>(Pp, C, S, true);
   const auto kernel = pick_up_pass<T, true>(C, S, ps);
-  cudaError_t err = allow_shm(kernel, ps.shm);
+  const cudaError_t err = allow_shm(kernel, ps.shm);
   if (err != cudaSuccess) return (int)err;
-  // the wide instance without staged columns keeps one category's E of the
-  // item in a [S, Pp] workspace, stream-ordered around the launch
-  T* ws = nullptr;
-  if (S > kMaxRegStates && ps.staged == kWideInPlace) {
-    err = cudaMallocAsync(reinterpret_cast<void**>(&ws), (size_t)S * Pp * sizeof(T), st);
-    if (err != cudaSuccess) return (int)err;
-  }
   kernel<<<ps.grid, ps.block, ps.shm, st>>>(
       static_cast<const T*>(P), static_cast<const T*>(tip), static_cast<const T*>(all),
-      static_cast<const int*>(dsc), static_cast<T*>(up), static_cast<int*>(upsc), ws,
-      static_cast<int*>(nullptr), static_cast<T*>(theta), static_cast<int*>(tsc),
-      static_cast<const T*>(U), static_cast<const T*>(V), static_cast<const T*>(root_freqs),
-      static_cast<const int*>(child_src), static_cast<const int*>(child_edge),
-      static_cast<const int*>(step_node), n_steps, G, n_int, L, C, S, Pp, ps.staged,
-      ps.uv_staged);
-  err = cudaGetLastError();
-  if (ws != nullptr) {
-    const cudaError_t freed = cudaFreeAsync(ws, st);
-    if (err == cudaSuccess) err = freed;
-  }
-  return (int)err;
+      static_cast<const int*>(dsc), static_cast<T*>(up), static_cast<int*>(upsc),
+      static_cast<T*>(nullptr), static_cast<int*>(nullptr), static_cast<T*>(theta),
+      static_cast<int*>(tsc), static_cast<const T*>(U), static_cast<const T*>(V),
+      static_cast<const T*>(root_freqs), static_cast<const int*>(child_src),
+      static_cast<const int*>(child_edge), static_cast<const int*>(step_node), n_steps, G, n_int,
+      L, C, S, Pp, ps.staged, ps.uv_staged);
+  return (int)cudaGetLastError();
 }
 
 // KIND 0 down_pass, 1 up_pass, 2 theta_pass: resident blocks per SM and
 // dynamic shared memory per block of the instance for (C, S, Pp).
 template <typename T, int KIND>
 int pass_occupancy(int C, int S, int Pp, int* blocks, int* shm) {
-  if constexpr (KIND == 0)
-    if (S > kMaxRegStates) {
-      const int np = down_tile(Pp);
-      return np == 32   ? down_wide_occupancy<T, 32>(blocks, shm)
-             : np == 16 ? down_wide_occupancy<T, 16>(blocks, shm)
-                        : down_wide_occupancy<T, 8>(blocks, shm);
-    }
+  if (S > kMaxRegStates) {
+    const int np = down_tile(Pp);
+    return np == 32   ? wide_occupancy<T, 32, KIND>(blocks, shm)
+           : np == 16 ? wide_occupancy<T, 16, KIND>(blocks, shm)
+                      : wide_occupancy<T, 8, KIND>(blocks, shm);
+  }
   const PassShape ps = pass_shape<T>(Pp, C, S, KIND == 2);
   *shm = (int)ps.shm;
   if constexpr (KIND == 0)

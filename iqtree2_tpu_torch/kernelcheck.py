@@ -140,8 +140,7 @@ MODELS = {
                    "GTR{1.5,4.0,1.2,0.8,5.0}+P19{0.01}+G{0.6}"),
     "GTR+P23+G4": ("DNA", "ACGT",
                    "GTR{1.5,4.0,1.2,0.8,5.0}+P23{0.01}+G{0.6}"),
-    # N = 76 (454 states): past what a block's shared memory stages in
-    # float64, where the wide passes read their columns in place
+    # N = 76 (454 states): the widest state count the card tests run
     "GTR+P76+G4": ("DNA", "ACGT",
                    "GTR{1.5,4.0,1.2,0.8,5.0}+P76{0.01}+G{0.6}"),
 }
@@ -756,8 +755,9 @@ def bounds(eng: LikelihoodEngine, tree: Tree) -> dict:
                               + (n_int - 1) * 2 * S * S)),
         # read P, tips, down rows and scales, U, V, pi; write theta of every
         # edge with its scale. E and UP are the sweep's own intermediates,
-        # not its result (the kernel keeps E in registers and sends UP
-        # through device memory; T8 kept UP in VMEM), so neither counts
+        # not its result (the narrow kernel keeps E in registers, the wide
+        # one in a workspace, and both send UP through device memory; T8
+        # kept UP in VMEM), so neither counts
         "theta_pass": (mats + tips + index + n_int * (col + scale)
                        + (2 * C * S * S + C * S) * f
                        + n_edges * (col + scale),

@@ -40,11 +40,10 @@ unit (32x the useful work for DNA) and kept partials in a VMEM ring; here
 a block owns a tile of 32 patterns and walks every level step of the
 schedule, a warp per node slot and a thread per pattern contracting each
 category's S x S block directly; above 64 states the wide instance splits
-a node's states across the block's threads: the down pass as warp items of
-16 states over K-chunks staged by cp.async (float64 on the tensor cores,
-float32 register-tiled), a pattern tile of 32, 16 or 8 chosen to fill the
-card, the sweeps with their columns staged in shared memory
-(csrc/pruning.cu says how; any S, any C). Each pass is one launch,
+a node's states across the block's warps: the down pass and the sweeps as
+warp items of 16 states over K-chunks staged by cp.async (float64 on the
+tensor cores, float32 register-tiled), a pattern tile of 32, 16 or 8
+chosen to fill the card (csrc/pruning.cu says how; any S, any C). Each pass is one launch,
 as each Pallas pass was, so a pass costs one operand check and one launch
 on the host whatever the tree's depth; the site log-likelihoods and theta
 are computed inside the pass that produces their inputs, as on the TPU.

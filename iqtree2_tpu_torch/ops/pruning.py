@@ -26,7 +26,6 @@ reversible model. ``expm_ss`` also serves the joint model fit
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -91,35 +90,50 @@ def transition_tensors(blens, pack):
 
 
 # the largest scaled norm ||A / 2^k||_inf the Taylor series of expm_ss
-# takes: its order-8 remainder is then below 0.1^9 / 9! = 3e-15
-EXPM_MAX_SCALED_NORM = 0.1
+# takes, per precision: its order-8 remainder is then below 0.1^9 / 9! =
+# 3e-15 in float64 and 0.5^9 / 9! = 5.4e-9 in float32, under the rounding
+# of each
+EXPM_MAX_SCALED_NORM = {torch.float64: 0.1, torch.float32: 0.5}
+# the fewest squarings per precision: the JAX package's fixed eight in
+# float64 (its values wherever eight suffice); none in float32, where each
+# squaring doubles the rounding error that P carries (ROADMAP C-port 3: at
+# GTR+P19+G4 on example.phy the float32 logL read 0.214 below the float64
+# one with nine squarings for every matrix, within 0.002 with these)
+EXPM_MIN_SQUARINGS = {torch.float64: 8, torch.float32: 0}
 
 
-def expm_ss(A, order: int = 8, squarings: int = 8):
+def expm_ss(A, order: int = 8, squarings: int | None = None):
     """Batched matrix exponential by scaling and squaring with a truncated
-    Taylor series, exp(A) = (exp(A / 2^k))^(2^k). For rate matrices Q t with
-    t <= 10 and mean rate 1 the scaled norm is tiny at the JAX package's
-    fixed k = ``squarings``, which is kept there; a stiffer A (PoMo's drift
-    rates over its small mean rate reach hundreds) takes more squarings,
-    until the scaled norm is at most EXPM_MAX_SCALED_NORM (the JAX package's
-    fixed k gives P entries far above 1 there, ROADMAP C20). Matmuls only,
-    so autograd is smooth at the degenerate eigenvalues where an
-    eigendecomposition's gradient is not."""
-    if A.numel():
-        norm = float(A.detach().abs().sum(-1).amax())
-        need = math.ceil(math.log2(max(norm, 1e-300)
-                                   / EXPM_MAX_SCALED_NORM))
-        squarings = max(squarings, need)
-    A = A / (2.0 ** squarings)
+    Taylor series, exp(A) = (exp(A / 2^k))^(2^k), k chosen per matrix. For
+    rate matrices Q t with t <= 10 and mean rate 1 the scaled norm is tiny
+    at the JAX package's fixed k = 8, which float64 keeps as its floor
+    (``squarings`` overrides the floor); a stiffer A (PoMo's drift rates
+    over its small mean rate reach hundreds) takes more squarings, until its
+    scaled norm is at most EXPM_MAX_SCALED_NORM (the JAX package's fixed k
+    gives P entries far above 1 there, ROADMAP C20). Each matrix takes its
+    own k, so a short branch is not squared as often as the stiffest one.
+    Matmuls only, so autograd is smooth at the degenerate eigenvalues where
+    an eigendecomposition's gradient is not."""
+    floor = EXPM_MIN_SQUARINGS.get(A.dtype, 8) if squarings is None \
+        else squarings
     eye = torch.eye(A.shape[-1], dtype=A.dtype,
                     device=A.device).expand(A.shape)
+    if not A.numel():
+        return eye
+    norm = A.detach().abs().sum(-1).amax(-1)
+    theta = EXPM_MAX_SCALED_NORM.get(A.dtype, 0.1)
+    k = torch.ceil(torch.log2(norm / theta)).nan_to_num(neginf=0.0) \
+        .clamp(min=floor)
+    k_min, k_max = (int(v) for v in torch.stack([k.min(), k.max()]).tolist())
+    A = A * torch.exp2(-k)[..., None, None]
     P = eye
     term = eye
-    for k in range(1, order + 1):
-        term = torch.matmul(term, A) / k
+    for i in range(1, order + 1):
+        term = torch.matmul(term, A) / i
         P = P + term
-    for _ in range(squarings):
-        P = torch.matmul(P, P)
+    for i in range(k_max):
+        PP = torch.matmul(P, P)
+        P = PP if i < k_min else torch.where((k > i)[..., None, None], PP, P)
     return P
 
 
@@ -202,7 +216,8 @@ def both_passes(P, tipP, sched, pack, want_lp: bool = False):
 def theta_pass(P, dp: DownPass, tipP, sched, pack) -> Thetas:
     """Theta buffers of every edge from one theta_pass kernel call over a
     finished down pass (tip rows of dp.all not needed): the outside sweep
-    with theta formed per edge inside it, E never stored (contract of
+    with theta formed per edge inside it, E never stored in edge rows (past
+    64 states the kernel keeps it in a workspace of its own; contract of
     pallas_pruning2.thetas_v2; the same values as edge_thetas on
     both_passes)."""
     UP, UPS = _rows(dp.all.shape[0] - tipP.shape[0], P, tipP)

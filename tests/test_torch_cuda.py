@@ -598,14 +598,15 @@ def test_kernels_match_plain_nonrev_families(cuda, name, dtype):
     ids=["S76", "S112", "S136", "S65", "S76-C1", "S112-C10", "S454",
          "S136-C1", "S65-C10"])
 def test_kernels_match_plain_wide(cuda, name, gamma, dtype):
-    """The kernels' wide instance (S > 64: the down pass's warp items over
-    staged K-chunks, DMMA in float64; the sweeps' states split across the
-    block): PoMo at 76, 112 and 136 states on k/N tips, a 65-state --mdef
-    datatype under a reversible model, one category (theta_pass stages U
-    and V) and ten (in float64 the sweeps' output tile does not fit and
-    they compute the products twice), and PoMo at 454 states, whose
-    columns float64 cannot stage for the sweeps (they read them in place,
-    theta_pass keeps E in its workspace); one launch per pass."""
+    """The kernels' wide instance (S > 64: the down pass and both sweeps
+    as warp items over K-chunks staged by cp.async, DMMA in float64,
+    register-tiled FFMA in float32; the sweeps' E between their two phases
+    in the edges' rows, or for theta_pass in its [2, C, S, Pp] workspace,
+    read back as the K operand of UP(child) and theta; P^T and U^T staged
+    K-major): PoMo at 76, 112 and 136 states on k/N tips, a 65-state --mdef
+    datatype under a reversible model, one category and ten, and PoMo at
+    454 states (shared memory independent of S and C, so none is refused);
+    one launch per pass."""
     aln, tree, _, _ = kernelcheck.simulate(name, 24, 300, seed=2)
     model, rates, _ = build_model(
         kernelcheck.MODELS[name][2].replace("+G{0.6}", gamma), aln)
@@ -660,30 +661,61 @@ def test_down_wide_ragged_tiles(cuda, Pp, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("Pp", [1, 31, 33, 36, 2115, 4228, 4229])
+def test_sweeps_wide_ragged_tiles(cuda, Pp, dtype):
+    """The wide sweeps, up_pass and theta_pass, on the first Pp patterns,
+    where the last (or only) pattern tile is partial, as in
+    test_down_wide_ragged_tiles: 36 and 4228 take the 16-byte copies of
+    the children's and E's columns, the odd counts the copies value by
+    value. Every row a sweep must write starts as NaN and every scale
+    count as -1 (up_pass: E of edges 1 on and UP of every node but the
+    root, which the plain root set-up writes before it; theta_pass: UP,
+    theta and their counts); UP, E, theta and the scale counts against the
+    plain versions within kernelcheck's tolerances, one launch each."""
+    aln, tree, model, rates = _ragged_problem()
+    eng = kernelcheck.make_engine(aln, model, rates, dtype=dtype,
+                                  device=cuda)
+    assert eng.Pp >= 4229 and eng._tipP.shape[1] == 76
+    pb = kernelcheck.Problem(eng, tree).window(0, Pp)
+    tol = kernelcheck.TOLERANCE[dtype]["partials"]
+    dp = pb.down(kernels.down_pass_plain, pb.down_buffers())
+    uref = pb.up(kernels.up_pass_plain, dp, pb.up_buffers(dp))
+    tref = pb.theta(kernels.theta_pass_plain, dp, pb.theta_buffers())
+    u = pb.up_buffers(dp)
+    u.edge_E[1:] = float("nan")
+    u.edge_E_scale[1:] = -1
+    u.up_in[:pb.n_int - 1] = float("nan")
+    u.up_scale[:pb.n_int - 1] = -1
+    before = dict(kernels.LAUNCHES)
+    pb.up(kernels.up_pass, dp, u)
+    t = pb.theta(kernels.theta_pass, dp, pb.theta_buffers())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["up_pass"] == before["up_pass"] + 1
+    assert kernels.LAUNCHES["theta_pass"] == before["theta_pass"] + 1
+    for got, ref in ((u.edge_E, uref.edge_E), (u.up_in, uref.up_in),
+                     (t.theta, tref.theta), (t.up, tref.up)):
+        assert kernelcheck.col_rel(got, ref) <= tol
+    for got, ref in ((u.edge_E_scale, uref.edge_E_scale),
+                     (u.up_scale, uref.up_scale), (t.scale, tref.scale),
+                     (t.up_scale, tref.up_scale)):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
 def test_occupancy_of_the_wide_passes(cuda):
-    """The wide down pass stages K-chunks whatever S is: at 65, 112, 454
-    and 1000 states its blocks take the same shared memory (for one
-    pattern tile) and at least one fits an SM. At 112 states and four
-    categories the sweeps keep their [C, S, 32] output tile in shared
-    memory (float32 and float64) and fit a block on an SM. Where their
-    staged columns do not fit (454 states in float64, 1000 in float32) a
-    sweep's block keeps only its reduction row, 8 warps x 32 lanes, and
-    still fits: no state count is refused."""
+    """The wide passes stage K-chunks whatever S and C are: at 65, 112,
+    454 and 1000 states the down pass's blocks take the same shared memory
+    (for one pattern tile), and so do each sweep's (the down pass's rings
+    and two reduction rows; theta_pass keeps E in a device workspace), and
+    at least one block of each fits an SM: no state count is refused."""
     for dtype in (torch.float32, torch.float64):
-        got = {S: kernels.pass_occupancy("down_pass", dtype, C, S, 16384)
-               for S, C in ((65, 1), (112, 4), (454, 4), (1000, 10))}
-        assert all(b >= 1 for b, _ in got.values()), (dtype, got)
-        assert len({shm for _, shm in got.values()}) == 1, (dtype, got)
-    for dtype in (torch.float32, torch.float64):
-        f = torch.finfo(dtype).bits // 8
-        tile = 4 * 112 * 32 * f
-        for kind in ("up_pass", "theta_pass"):
-            blocks, shm = kernels.pass_occupancy(kind, dtype, 4, 112, 16384)
-            assert blocks >= 1 and shm > tile, (kind, dtype, blocks, shm)
-            S = 454 if dtype == torch.float64 else 1000
-            blocks, shm = kernels.pass_occupancy(kind, dtype, 4, S, 16384)
-            assert blocks >= 1 and shm == 8 * 32 * f, (kind, dtype, S,
-                                                       blocks, shm)
+        for kind in ("down_pass", "up_pass", "theta_pass"):
+            got = {S: kernels.pass_occupancy(kind, dtype, C, S, 16384)
+                   for S, C in ((65, 1), (112, 4), (454, 4), (1000, 10))}
+            assert all(b >= 1 for b, _ in got.values()), (kind, dtype, got)
+            assert len({shm for _, shm in got.values()}) == 1, (kind, dtype,
+                                                                 got)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,9 @@
 // every CUDA thread of a block is a std::thread; __syncthreads and
 // __syncwarp are std::barriers; blocks run one after another; the float64
 // warp matrix product (mma.sync m16n8k4) is emulated lane by lane with the
-// card's fragment layout; the card has IQ_MOCK_SMS multiprocessors (-D to
-// choose the wide down pass's pattern tile).
+// card's fragment layout and __shfl_xor_sync through per-warp slots; the
+// card has IQ_MOCK_SMS multiprocessors (-D to choose the wide passes'
+// pattern tile).
 #pragma once
 #define IQ_CUDA_MOCK 1
 #ifndef IQ_MOCK_SMS
@@ -79,9 +80,10 @@ inline void __syncthreads() { mock_block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { mock_warp_bar->arrive_and_wait(); }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 
-// the fragments each lane of a warp hands to an mma (one per warp)
+// the fragments each lane of a warp hands to an mma, and the values it
+// hands to a shuffle (one per warp)
 struct MockWarpFrags {
-  double a0[32], a1[32], b[32];
+  double a0[32], a1[32], b[32], shfl[32];
 };
 inline thread_local MockWarpFrags* mock_warp_frags = nullptr;
 
@@ -105,6 +107,19 @@ inline void iq_mock_mma_m16n8k4(double* d, double a0, double a1, double b) {
     d[i] = acc;
   }
   __syncwarp();  // every lane has read the fragments before they are replaced
+}
+
+// __shfl_xor_sync over the whole warp (float or double: each value goes
+// through a double exactly). Every lane of the warp must call it.
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) {
+  const unsigned lane = threadIdx.x & 31;
+  MockWarpFrags& f = *mock_warp_frags;
+  f.shfl[lane] = (double)v;
+  __syncwarp();
+  const T o = (T)f.shfl[lane ^ (unsigned)mask];
+  __syncwarp();  // every lane has read its value before the slots are replaced
+  return o;
 }
 
 namespace {

@@ -19,19 +19,15 @@ categories, at 4 and 20 states); the codon models (GY+F3X4, KOSI07), +E
 tips, two states and seven; every partition engine of the
 supermatrices of kernelcheck.PARTITIONS (a short partition, one lacking
 taxa, protein beside DNA); and the wide instance (S > 64: PoMo at 76, 112
-and 136 states, a 65-state --mdef datatype under a reversible model, and
-PoMo at 76 with one category, where theta_pass stages U and V, and PoMo
-at 454 states, past what shared memory stages in float64, and the first
-of them on ragged pattern windows of 1, 31, 33, 36 and 44 patterns, the
-last two in 16-byte column copies), which two
-more builds run again with smaller shared-memory budgets for the sweeps
-(kWideShmBytes): 48 KB stages the columns but not the output tile (the
-recomputing sweeps), 0 stages nothing (the columns read in place,
-theta_pass's workspace of E). The wide down pass stages its K-chunks in
-every build; the three builds give the mock card 1, 8 and 16
-multiprocessors, so that it runs its pattern tiles of 32, 16 and 8, and
-its float64 products go through the mock's lane-by-lane emulation of
-mma.sync m16n8k4. ``--wide`` runs the wide shapes alone. It checks
+and 136 states, a 65-state --mdef datatype under a reversible model, PoMo
+at 76 with one category, and PoMo at 454 states, and the first of them on
+ragged pattern windows of 1, 31, 33, 36 and 44 patterns, the last two in
+16-byte column copies), which two more builds run again: the three builds
+give the mock card 1, 8 and 16 multiprocessors, so that the wide passes
+(whose shared memory depends on neither S nor C) run their pattern tiles
+of 32, 16 and 8, and their float64 products go through the mock's
+lane-by-lane emulation of mma.sync m16n8k4. theta_pass's workspace of E
+comes from the mock's cudaMallocAsync, which fills it with NaN. ``--wide`` runs the wide shapes alone. It checks
 indexing, the barriers, the block reductions and the rescale; it says
 nothing of speed or of what nvcc accepts.
 """
@@ -69,17 +65,12 @@ from iqtree2_tpu_torch.tree.topology import Tree  # noqa: E402
 WIDE = (("GTR+P13+G4", 30, 60), ("GTR+P19+G4", 9, 100),
         ("GTR+P23+G4", 9, 60), ("MK65+G4", 12, 100),
         ("GTR+P13+G4 C1", 9, 60))
-# 454 states, past what shared memory stages in float64: the default
-# build's passes read their columns in place there
-WIDE_IN_PLACE = (("GTR+P76+G4", 6, 12),)
-# the sweeps' shared-memory budgets besides the card's: 48 KB stages the
-# columns but not the output tile (float32 at 76 states; float64 theta
-# reads in place), 0 stages nothing; each build also gives the mock card
-# another multiprocessor count, so that the wide down pass (whose shared
-# memory no budget changes) takes each of its pattern tiles at the 128
-# patterns of these problems: 32 on 1 SM, 16 on 8, 8 on 16
-WIDE_BUDGETS = (("48 * 1024", " (columns staged)", 8),
-                ("0", " (in place)", 16))
+# 454 states, the widest the card tests run (the first build alone)
+WIDE_454 = (("GTR+P76+G4", 6, 12),)
+# the mock card's multiprocessor counts of the two further builds, so that
+# the wide passes take each of their pattern tiles at the 128 patterns of
+# these problems: 32 on 1 SM (the first build), 16 on 8, 8 on 16
+WIDE_SMS = ((" (8 SMs)", 8), (" (16 SMs)", 16))
 # ragged pattern tiles: windows [a, b) of the first WIDE shape, whose last
 # (or only) tile is partial under every tile width; 36 and 44 patterns, a
 # multiple of 4, take the 16-byte column copies (their last tile clamped
@@ -87,14 +78,10 @@ WIDE_BUDGETS = (("48 * 1024", " (columns staged)", 8),
 RAGGED = ((0, 1), (0, 31), (3, 36), (0, 36), (8, 52))
 
 
-def build(out_dir: Path, tag: str = "", replace=(), sms: int = 1
-          ) -> ctypes.CDLL:
-    """The mock library of csrc/pruning.cu (constants replaced as
-    ``replace`` says) on a card of ``sms`` multiprocessors."""
+def build(out_dir: Path, tag: str = "", sms: int = 1) -> ctypes.CDLL:
+    """The mock library of csrc/pruning.cu on a card of ``sms``
+    multiprocessors."""
     src = kernels.SOURCE.read_text()
-    for old, new in replace:
-        assert old in src, old
-        src = src.replace(old, new)
     src, n = re.subn(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\(",
                      r"mock_launch(\2, \1, ", src)
     cpp = out_dir / f"pruning_mock{tag}.cpp"
@@ -183,11 +170,10 @@ def main() -> int:
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as d:
         lib = build(Path(args.build_dir or d))
-        check_wide(lib, "", WIDE + WIDE_IN_PLACE)
-        for k, (budget, tag, sms) in enumerate(WIDE_BUDGETS):
-            check_wide(build(Path(args.build_dir or d), f"_budget{k}",
-                             [("kWideShmBytes = 227 * 1024",
-                               f"kWideShmBytes = {budget}")], sms), tag)
+        check_wide(lib, "", WIDE + WIDE_454)
+        for tag, sms in WIDE_SMS:
+            check_wide(build(Path(args.build_dir or d), f"_sms{sms}", sms),
+                       tag)
         if args.wide:
             return 0
         for name, ntaxa, nsites in (("GTR+G4", 40, 300), ("HKY+I", 9, 150),

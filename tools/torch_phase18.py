@@ -18,7 +18,9 @@ wall, the launches of c and e and the kernels' errors.
 --fit32 then compares the float32 and float64 -te fits of d: the float32
 fit's own logL, the CPU's float64 logL of its tree and parameters, and
 the float64 fit's tree and parameters evaluated in float32 on the card
-(the float32 pass's error at a fixed state). --depths runs c's search at
+(the float32 pass's error at a fixed state), on the CPU, and on the card
+with P formed in float64, with the float32 site logLs' differences from
+the float64 ones on the card. --depths runs c's search at
 POMO_DEPTH and at deeper settings, each against d's bound, and goes on
 past a search below it. --root DIR takes iqtree2_tpu_torch (and so the
 kernels) from DIR, the root of another checkout (e.g. a parent unpacked
@@ -44,21 +46,47 @@ DEPTHS = (["-n", "5", "-ninit", "10", "-ntop", "3", "-nbest", "2"],
 
 
 def fit32(cs) -> None:
-    """The float32 -te fit beside the float64 one (--fit32)."""
+    """The float32 -te fit beside the float64 one (--fit32), then where
+    the float32 reading of the float64 fit's state loses its logL: the
+    same state in float32 on the CPU (the plain passes), on the card with
+    P formed in float64 and cast, and per pattern against the float64
+    site logLs on the card (the weighted sum of the differences, the
+    largest one, and the share of the patterns more than 1 below)."""
+    import numpy as np
     import torch
     from iqtree2_tpu_torch.engine import LikelihoodEngine
+    from iqtree2_tpu_torch.ops import pruning
+    from iqtree2_tpu_torch.tree.schedule import build_schedule
     k64: dict = {}
     k32: dict = {}
     l64 = cs.pomo_te("float64", k64)
     r32 = cs.pomo_te("float32", k32)
     v32, _ = cs.cpu_logl(k32)
-    e32 = LikelihoodEngine(k64["aln"], k64["model"], k64["rates"],
-                           dtype=torch.float32, device="cuda"
-                           ).loglik_tree(k64["tree"])
+    state = (k64["aln"], k64["model"], k64["rates"])
+    tree = k64["tree"]
+    e32 = LikelihoodEngine(*state, dtype=torch.float32, device="cuda")
+    e64 = LikelihoodEngine(*state, dtype=torch.float64, device="cuda")
+    c32 = LikelihoodEngine(*state, dtype=torch.float32,
+                           device="cpu").loglik_tree(tree)
+    card32, lp32 = e32.site_lp(tree)
+    _, lp64 = e64.site_lp(tree)
+    sched = build_schedule(tree)
+    P = pruning.transition_tensors(e64._blens(sched), e64._pack).float()
+    dp = pruning.down_pass(P, e32._tipP, e32.schedule_arrays(sched),
+                           pack=e32._pack, tips=False)
+    p64 = float((e32._pw.double() * pruning.site_lp(dp).double()).sum())
+    w = e64.pattern_weights[:lp64.size]
+    d = lp32 - lp64
     print(f"[fit32] float64 fit {l64:.6f}; float32 fit {r32:.6f}, its tree "
           f"and parameters in float64 on the CPU {v32:.6f} ({v32 - l64:+.6f}"
           f" from the float64 fit); the float64 fit's state in float32 on "
-          f"the card {e32:.6f} ({e32 - l64:+.6f})", flush=True)
+          f"the card {card32:.6f} ({card32 - l64:+.6f}), on the CPU "
+          f"{c32:.6f} ({c32 - l64:+.6f}), on the card with P formed in "
+          f"float64 {p64:.6f} ({p64 - l64:+.6f}); per pattern, float32 "
+          f"less float64 on the card: weighted sum {float(w @ d):+.6f}, "
+          f"largest {float(np.abs(d).max()):.6f}, {int((d < -1).sum())} of "
+          f"{d.size} patterns more than 1 below, weight "
+          f"{float(w[d < -1].sum()):g}", flush=True)
 
 
 def depths(cs, errors: dict) -> bool:
